@@ -1,0 +1,157 @@
+"""CP-ALS on ALTO tensors (paper Alg. 1), in PyTorch.
+
+The MTTKRP bottleneck (line 11) runs through the plan layer
+(`core.plan.execute_mttkrp`): on the card the hand-written kernels, on
+the CPU their plain versions or the reference traversals. Gram matrices,
+the pseudo-inverse solve and the normalization are dense torch ops; the
+sweep runs eagerly and the outer iteration is a host loop with fit-based
+early stopping.
+
+The dense algebra runs in full float32: `cp_als` sets
+``torch.backends.cuda.matmul.allow_tf32 = False`` (process-wide) before
+its first sweep, since TF32 keeps about three decimal digits.
+
+Fit tracking: the sweep returns the MTTKRP of its *last* mode update, the
+one matrix for which ``<X, X̂> = Σ_r λ_r <A_n[:,r], M[:,r]>`` holds
+exactly. The residual identity ``||X-X̂||² = ||X||² + ||X̂||² − 2<X,X̂>``
+is then evaluated on the host in float64, where its cancellation is
+harmless.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.alto import AltoTensor, OrientedView
+from repro_torch.core.mttkrp import mttkrp_adaptive
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class CpalsResult:
+    lam: torch.Tensor                # (R,) component weights
+    factors: list[torch.Tensor]      # per-mode (I_n, R)
+    fits: list[float]                # fit per iteration
+    n_iters: int
+    plan: plan_mod.ExecutionPlan | None = None
+
+
+def init_factors(dims: Sequence[int], rank: int, seed: int = 0,
+                 dtype=torch.float32, device=None) -> list[torch.Tensor]:
+    """Uniform [0, 1) factors from a `torch.Generator` seeded with
+    ``seed`` on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.rand((I, rank), generator=g, dtype=dtype, device=dev)
+            for I in dims]
+
+
+def build_views(at: AltoTensor,
+                plan: plan_mod.ExecutionPlan | None = None
+                ) -> dict[int, OrientedView]:
+    """Oriented views only for modes the plan routes that way, from the
+    view cache (`core.views`)."""
+    if plan is None:
+        plan = plan_mod.plan_for(at, rank=1)  # traversal is rank-free
+    return plan_mod.build_views(at, plan)
+
+
+def _sweep(plan, at: AltoTensor, views, factors, lam):
+    """One CP-ALS sweep over all modes -> (factors, lam, M_last); M_last
+    is the final mode's MTTKRP, the one consistent with the returned
+    factors."""
+    N = len(factors)
+    factors = list(factors)
+    grams = [A.T @ A for A in factors]
+    M = None
+    for n in range(N):
+        V = None
+        for m in range(N):
+            if m == n:
+                continue
+            V = grams[m] if V is None else V * grams[m]
+        M = mttkrp_adaptive(at, views, factors, n, plan=plan)  # (I_n, R)
+        A = M @ torch.linalg.pinv(V)
+        lam = torch.linalg.vector_norm(A, dim=0)
+        lam = torch.where(lam > 0, lam, torch.ones_like(lam))
+        A = A / lam[None, :]
+        factors[n] = A
+        grams[n] = A.T @ A
+    return factors, lam, M
+
+
+def _fit_host(M_last, factors, lam, normX2: float) -> float:
+    """Kolda–Bader fit from sweep-consistent state, in host float64."""
+    if normX2 == 0.0:
+        return 1.0
+    n = len(factors) - 1
+    fs = [A.detach().cpu().numpy().astype(np.float64) for A in factors]
+    lam64 = lam.detach().cpu().numpy().astype(np.float64)
+    M = M_last.detach().cpu().numpy().astype(np.float64)
+    inner = float(((fs[n] * M).sum(axis=0) * lam64).sum())
+    V = np.ones((lam64.size, lam64.size))
+    for A in fs:
+        V *= A.T @ A
+    norm_model2 = float((np.outer(lam64, lam64) * V).sum())
+    resid2 = max(normX2 + norm_model2 - 2.0 * inner, 0.0)
+    return float(1.0 - np.sqrt(resid2) / np.sqrt(normX2))
+
+
+def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
+           seed: int = 0, views: dict[int, OrientedView] | None = None,
+           factors: list[torch.Tensor] | None = None,
+           plan: plan_mod.ExecutionPlan | None = None) -> CpalsResult:
+    """CP-ALS driver on the tensor's device. ``factors`` seeds the
+    iteration (default `init_factors` with ``seed``); ``plan`` defaults to
+    `plan.plan_for` (kernels on CUDA, reference traversals on the CPU)."""
+    resolve_device(at.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if plan is None:
+        plan = plan_mod.plan_for(at, rank)
+    elif plan.rank != rank:
+        raise ValueError(f"plan was built for rank {plan.rank}, "
+                         f"cp_als called with rank {rank}")
+    dtype = at.values.dtype
+    if at.meta.nnz == 0:
+        # The zero model is the exact decomposition of an empty tensor.
+        return CpalsResult(
+            lam=torch.zeros((rank,), dtype=dtype, device=at.device),
+            factors=[torch.zeros((I, rank), dtype=dtype, device=at.device)
+                     for I in at.dims],
+            fits=[1.0], n_iters=0, plan=plan)
+    if factors is None:
+        factors = init_factors(at.dims, rank, seed=seed, dtype=dtype,
+                               device=at.device)
+    factors = [f.to(device=at.device, dtype=dtype).contiguous()
+               for f in factors]
+    if views is None:
+        views = plan_mod.build_views(at, plan)
+    lam = torch.ones((rank,), dtype=dtype, device=at.device)
+    normX2 = float((at.values.detach().cpu().numpy().astype(np.float64)
+                    ** 2).sum())
+    fits: list[float] = []
+    prev_fit = -np.inf
+    it = 0
+    for it in range(1, n_iters + 1):
+        factors, lam, M_last = _sweep(plan, at, views, factors, lam)
+        fit = _fit_host(M_last, factors, lam, normX2)
+        fits.append(fit)
+        if abs(fit - prev_fit) < tol:
+            break
+        prev_fit = fit
+    return CpalsResult(lam=lam, factors=list(factors), fits=fits,
+                       n_iters=it, plan=plan)
+
+
+def reconstruct_values(coords: torch.Tensor, lam: torch.Tensor,
+                       factors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Model values at given coordinates (for residual checks)."""
+    out = lam[None, :].to(factors[0].dtype).expand(coords.shape[0], -1)
+    for m, A in enumerate(factors):
+        out = out * A[coords[:, m].long()]
+    return out.sum(dim=-1)

@@ -1,0 +1,187 @@
+"""Cached oriented views: (tensor, mode) -> OrientedView.
+
+Every consumer of the oriented traversal needs the same row-sorted copy
+of the stream per (tensor, mode). This is the single materialization
+point: views are built once per (tensor content, mode) per process and
+every caller shares the cached tensors (`plan.build_views` routes here).
+
+* **Build** — a miss builds with `alto.oriented_view_device` (torch sort
+  on the tensor's device), so views of a card-resident tensor never leave
+  the card.
+* **Fingerprint** — the key is content-based: the hashable `AltoMeta`
+  plus two order-sensitive 32-bit checksums over the words and over the
+  values' bits (native width), reduced on the device and memoized on the
+  tensor object, plus the device. Two tensors holding the same built data
+  on one device share views; any change to the data changes the key.
+* **Latches and bounds** — a miss registers a per-key build latch under
+  the global lock and builds outside it, so concurrent drivers build each
+  key once without a hit on one tensor waiting behind another tensor's
+  build. The cache is LRU-bounded by entry count and by bytes
+  (``$REPRO_VIEW_CACHE_SIZE``, default 64; ``$REPRO_VIEW_CACHE_BYTES``,
+  default 2 GiB): one view is a full O(nnz) copy. `cache_stats` counts
+  hits, misses and builds.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+import threading
+
+import torch
+
+from repro_torch.core import alto, heuristics
+from repro_torch.core.alto import AltoTensor, OrientedView
+
+DEFAULT_CACHE_SIZE = 64
+DEFAULT_CACHE_BYTES = 2 * 1024 ** 3
+
+_CACHE: "collections.OrderedDict[tuple, OrientedView]" = \
+    collections.OrderedDict()
+_CACHE_BYTES: dict[tuple, int] = {}
+_STATS = {"hits": 0, "misses": 0, "builds": 0, "invalidated": 0}
+_LOCK = threading.Lock()
+_PENDING: dict[tuple, threading.Event] = {}
+
+_FP_ATTR = "_ingest_fingerprint"
+_MASK32 = 0xFFFFFFFF
+
+
+def _limits() -> tuple[int, int]:
+    return (int(os.environ.get("REPRO_VIEW_CACHE_SIZE", DEFAULT_CACHE_SIZE)),
+            int(os.environ.get("REPRO_VIEW_CACHE_BYTES",
+                               DEFAULT_CACHE_BYTES)))
+
+
+def _view_bytes(v: OrientedView) -> int:
+    return sum(a.numel() * a.element_size()
+               for a in (v.rows, v.words, v.values, v.perm))
+
+
+def _u32_mix(x: torch.Tensor, salt: int) -> int:
+    """Order-sensitive 32-bit checksum of a 1-D int32 tensor (wrapping
+    arithmetic in int64; only the low 32 bits of each product are kept)."""
+    u = x.to(torch.int64) & _MASK32
+    idx = torch.arange(u.shape[0], dtype=torch.int64, device=u.device)
+    mixed = ((u ^ ((idx * 0x9E3779B1) & _MASK32)) * salt) & _MASK32
+    return int(mixed.sum()) & _MASK32
+
+
+def fingerprint(at: AltoTensor) -> tuple:
+    """Content fingerprint of a built tensor, memoized on the object:
+    (meta, padded length, words checksum, values checksum)."""
+    fp = getattr(at, _FP_ATTR, None)
+    if fp is None:
+        w = _u32_mix(at.words.reshape(-1), 0x85EBCA6B)
+        v = _u32_mix(at.values.contiguous().view(torch.int32).reshape(-1),
+                     0xC2B2AE35)
+        fp = (at.meta, at.words.shape[0], w, v)
+        setattr(at, _FP_ATTR, fp)
+    return fp
+
+
+def mode_fingerprint(at: AltoTensor, mode: int) -> tuple:
+    """Per-(tensor content, device, mode) key. Excludes the partitioning
+    fields of `AltoMeta`: a view is a permutation of the padded stream, so
+    a re-tile of the same stream keeps every cached view valid. The device
+    is part of the key: equal content on the CPU and on the card are two
+    views."""
+    meta, Mp, w, v = fingerprint(at)
+    return (meta.enc, meta.nnz, Mp, w, v, str(at.device), int(mode))
+
+
+def _rebind_meta(key: tuple, entry: OrientedView,
+                 at: AltoTensor) -> OrientedView:
+    """A re-tile can hit an entry built under another `AltoMeta`; the
+    tensors are identical, only the meta tag is stale. Rebind it and store
+    the rebound entry so repeated gets return the identical object."""
+    if entry.meta == at.meta:
+        return entry
+    entry = dataclasses.replace(entry, meta=at.meta)
+    with _LOCK:
+        if key in _CACHE:
+            _CACHE[key] = entry
+    return entry
+
+
+def _get_or_build(key: tuple, build):
+    """Latched lookup: the first thread to miss ``key`` builds it outside
+    the global lock; concurrent misses on the same key wait on its event;
+    every other key proceeds."""
+    while True:
+        with _LOCK:
+            view = _CACHE.get(key)
+            if view is not None:
+                _STATS["hits"] += 1
+                _CACHE.move_to_end(key)
+                return view
+            event = _PENDING.get(key)
+            if event is None:
+                _PENDING[key] = threading.Event()
+                _STATS["misses"] += 1
+                _STATS["builds"] += 1
+        if event is not None:
+            event.wait()
+            continue
+        try:
+            view = build()
+        except BaseException:
+            with _LOCK:
+                _PENDING.pop(key).set()   # unblock waiters; one re-builds
+            raise
+        with _LOCK:
+            _CACHE[key] = view
+            _CACHE_BYTES[key] = _view_bytes(view)
+            max_entries, max_bytes = _limits()
+            while len(_CACHE) > max(1, max_entries) or (
+                    len(_CACHE) > 1
+                    and sum(_CACHE_BYTES.values()) > max_bytes):
+                old, _ = _CACHE.popitem(last=False)
+                _CACHE_BYTES.pop(old, None)
+            _PENDING.pop(key).set()
+        return view
+
+
+def get_view(at: AltoTensor, mode: int) -> OrientedView:
+    """The oriented view for ``(at, mode)``: cached, built on a miss."""
+    key = ("view", *mode_fingerprint(at, mode))
+    view = _get_or_build(key, lambda: alto.oriented_view_device(at, mode))
+    return _rebind_meta(key, view, at)
+
+
+def build_views(at: AltoTensor, plan) -> dict:
+    """Cached views for exactly the modes ``plan`` routes oriented."""
+    return {m.mode: get_view(at, m.mode)
+            for m in plan.modes if heuristics.is_oriented(m.traversal)}
+
+
+def invalidate(at: AltoTensor, modes=None) -> int:
+    """Drop the cached views of ``at`` (all modes, or only ``modes``);
+    returns how many entries were evicted."""
+    if modes is None:
+        modes = range(len(at.dims))
+    fps = {mode_fingerprint(at, int(m)) for m in modes}
+    with _LOCK:
+        dead = [k for k in _CACHE if k[1:] in fps]
+        for k in dead:
+            del _CACHE[k]
+            _CACHE_BYTES.pop(k, None)
+        _STATS["invalidated"] += len(dead)
+    return len(dead)
+
+
+def cache_stats() -> dict[str, int]:
+    """Hit/miss/build counters plus current size and bytes."""
+    with _LOCK:
+        out = dict(_STATS)
+        out["size"] = len(_CACHE)
+        out["bytes"] = sum(_CACHE_BYTES.values())
+    return out
+
+
+def cache_clear() -> None:
+    with _LOCK:
+        _CACHE.clear()
+        _CACHE_BYTES.clear()
+        for k in _STATS:
+            _STATS[k] = 0

@@ -1,0 +1,59 @@
+"""Carry state from the JAX package into the port.
+
+The JAX package's objects are handed over as numpy arrays plus plain ints
+and tuples — this module imports nothing of that package — and come back
+as the port's `AltoTensor`, `OrientedView` and factor tensors on
+``device`` (default ``cuda``). With these, both packages compute on the
+same inputs.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
+from repro_torch.core.encoding import make_encoding, words_from_np
+from repro_torch.device import resolve_device
+
+
+def alto_meta(dims: Sequence[int], nnz: int, n_partitions: int,
+              temp_rows: Sequence[int],
+              fiber_reuse: Sequence[float]) -> AltoMeta:
+    return AltoMeta(enc=make_encoding(dims), nnz=int(nnz),
+                    n_partitions=int(n_partitions),
+                    temp_rows=tuple(int(t) for t in temp_rows),
+                    fiber_reuse=tuple(float(f) for f in fiber_reuse))
+
+
+def alto_tensor(words, values, part_start, part_end, *, dims, nnz,
+                n_partitions, temp_rows, fiber_reuse,
+                device=None) -> AltoTensor:
+    """An `AltoTensor` from (Mp, W) u32 words, (Mp,) values, (L, N) int32
+    partition boxes and the meta fields."""
+    dev = resolve_device(device)
+    return AltoTensor(
+        meta=alto_meta(dims, nnz, n_partitions, temp_rows, fiber_reuse),
+        words=words_from_np(np.asarray(words)).to(dev),
+        values=torch.from_numpy(np.array(values)).to(dev),
+        part_start=torch.from_numpy(np.array(part_start, np.int32)).to(dev),
+        part_end=torch.from_numpy(np.array(part_end, np.int32)).to(dev))
+
+
+def oriented_view(meta: AltoMeta, mode: int, rows, words, values, perm,
+                  device=None) -> OrientedView:
+    """An `OrientedView` of ``mode`` from its row-sorted arrays."""
+    dev = resolve_device(device)
+    return OrientedView(
+        meta=meta, mode=int(mode),
+        rows=torch.from_numpy(np.array(rows, np.int32)).to(dev),
+        words=words_from_np(np.asarray(words)).to(dev),
+        values=torch.from_numpy(np.array(values)).to(dev),
+        perm=torch.from_numpy(np.array(perm, np.int32)).to(dev))
+
+
+def factors(arrays, device=None) -> list[torch.Tensor]:
+    """Factor matrices (or ``lam``) as contiguous tensors on ``device``."""
+    dev = resolve_device(device)
+    return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]

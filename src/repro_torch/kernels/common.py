@@ -1,0 +1,84 @@
+"""Argument checks and C-argument packing shared by the kernel wrappers.
+
+A wrapper takes a kernel's plain PyTorch version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises (`on_cuda`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.encoding import AltoEncoding
+
+MAX_MODES = 8      # ALTO_MAX_MODES in csrc/alto_decode.cuh
+MAX_RUNS = 128     # ALTO_MAX_RUNS
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True to launch the kernel, False to run the plain version.
+
+    All tensors must share one device, CPU or CUDA; anything else raises.
+    """
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 shape: tuple) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_factors(enc: AltoEncoding, factors, rank: int) -> None:
+    if len(factors) != enc.ndim:
+        raise ValueError(f"{len(factors)} factors for {enc.ndim} modes")
+    for m, f in enumerate(factors):
+        check_tensor(f, f"factor {m}", torch.float32, (enc.dims[m], rank))
+
+
+@functools.lru_cache(maxsize=256)
+def _runs_table(enc: AltoEncoding) -> np.ndarray:
+    """(n_runs, 5) int32 rows (word, mode, src, dst, length), by mode."""
+    runs = sorted(enc.runs, key=lambda r: r.mode)     # stable: keeps order
+    table = np.array([(r.word, r.mode, r.src_shift, r.dst_shift, r.length)
+                      for r in runs], dtype=np.int32).reshape(-1, 5)
+    table.setflags(write=False)
+    return table
+
+
+def alto_args(enc: AltoEncoding, mode: int, factors, rank: int):
+    """The leading C arguments of every MTTKRP entry: factor addresses,
+    the BitRun table, and the encoding's sizes. The two numpy arrays are
+    returned first so the caller keeps them alive across the call."""
+    if not 2 <= enc.ndim <= MAX_MODES or len(enc.runs) > MAX_RUNS:
+        raise ValueError(f"encoding of {enc.dims} exceeds the kernel's "
+                         f"{MAX_MODES} modes / {MAX_RUNS} runs")
+    ptrs = np.array([f.data_ptr() for f in factors], dtype=np.int64)
+    table = _runs_table(enc)
+    keep = (ptrs, table)
+    args = [ptrs.ctypes.data_as(ctypes.c_void_p),
+            table.ctypes.data_as(ctypes.c_void_p), len(table), enc.ndim,
+            enc.n_words, mode, rank]
+    return keep, args
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def slices_per_cta(threads: int, r_block: int) -> int:
+    return max(1, threads // r_block)

@@ -1,0 +1,217 @@
+"""Output-oriented MTTKRP kernels (K1 carry, K2 partials) and their fix-up.
+
+Wrappers around the CUDA kernels of ``csrc/mttkrp_oriented.cu``, each with
+its plain PyTorch version beside it. The input is the row-sorted stream of
+one mode (`core.alto.OrientedView`) padded to a multiple of ``block_m``
+(`ops.pad_sorted_stream`). Slice ``b`` of the stream is elements
+``[b·block_m, (b+1)·block_m)``; a *run* is a maximal stretch of equal rows
+inside one slice.
+
+* `carry_runs` (K1, first pass): per slice, every run that begins and
+  ends inside it goes straight to ``out``; the first and last runs go to
+  the carries ``(n_blocks, 2)`` rows / ``(n_blocks, 2, R)`` values (row
+  -1 where a slice holds a single run).
+* `carry_fixup` (K1, second pass): adds each row's carried pieces in
+  block order into ``out``.
+* `oriented_partials` (K2): slot ``j`` of slice ``b`` holds the sum of the
+  slice's ``j``-th run, zeros elsewhere — the JAX partials layout.
+
+Accumulation order, shared by every kernel and plain version: a run sums
+its terms in stream order starting from 0.0, and a row's pieces add in
+block order. So K1 equals K2 + `ops.segment_merge` bit for bit, on the
+CPU through the plain versions and on the card through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.encoding import AltoEncoding
+from repro_torch.core.mttkrp import contributions
+from repro_torch.kernels import _build, common
+
+DEFAULT_BLOCK_M = 256
+DEFAULT_THREADS = 128
+
+
+def run_rank_segments(rows: torch.Tensor) -> torch.Tensor:
+    """Run-rank segment ids along the last axis of a sorted row array:
+    slot of each element's run inside its slice (int64)."""
+    is_new = torch.zeros(rows.shape, dtype=torch.int64, device=rows.device)
+    is_new[..., 1:] = (rows[..., 1:] != rows[..., :-1]).long()
+    return is_new.cumsum(-1)
+
+
+def _check_stream(enc, rows, words, values, factors, block_m, r_block):
+    M = rows.shape[0]
+    R = factors[0].shape[1]
+    if M % block_m:
+        raise ValueError(f"stream length {M} not a multiple of block_m "
+                         f"{block_m}")
+    if R % r_block:
+        raise ValueError(f"rank {R} not a multiple of r_block {r_block}")
+    common.check_tensor(rows, "rows", torch.int32, (M,))
+    common.check_tensor(words, "words", torch.int32, (M, enc.n_words))
+    common.check_tensor(values, "values", torch.float32, (M,))
+    common.check_factors(enc, factors, R)
+    return M, R
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (PyTorch, any device)
+# ---------------------------------------------------------------------------
+
+def block_run_sums(enc: AltoEncoding, mode: int, rows, words, values,
+                   factors, block_m: int):
+    """(n_blocks, block_m, R) run sums in stream order, and the run ids."""
+    M = rows.shape[0]
+    nb = M // block_m
+    R = factors[0].shape[1]
+    contrib = contributions(enc, words, values, factors, mode)
+    seg = run_rank_segments(rows.reshape(nb, block_m))
+    slot = torch.arange(nb, device=rows.device)[:, None] * block_m + seg
+    sums = contrib.new_zeros((M, R)).index_add_(0, slot.reshape(-1), contrib)
+    return sums.reshape(nb, block_m, R), seg
+
+
+def split_block_runs(partials: torch.Tensor, rows: torch.Tensor,
+                     out_dim: int):
+    """Per-slice run sums -> (out holding every inner run, carry rows,
+    carry values): the hand-off from K1's first pass or K2 to
+    `carry_fixup`. Deterministic: inner runs go to distinct rows."""
+    nb, bm, R = partials.shape
+    rows_b = rows.reshape(nb, bm)
+    seg = run_rank_segments(rows_b)
+    last = seg[:, -1]                                   # runs - 1 per slice
+    seg_rows = torch.zeros_like(rows_b).scatter_(1, seg, rows_b)
+    j = torch.arange(bm, device=rows.device)[None, :]
+    inner = (j > 0) & (j < last[:, None])
+    out = partials.new_zeros((out_dim, R))
+    out[seg_rows[inner].long()] = partials[inner]
+    b = torch.arange(nb, device=rows.device)
+    many = last > 0
+    carry_row = torch.stack(
+        [seg_rows[:, 0], torch.where(many, seg_rows[b, last], -1)], dim=1)
+    carry_val = torch.stack(
+        [partials[:, 0], torch.where(many[:, None], partials[b, last], 0.0)],
+        dim=1)
+    return out, carry_row.contiguous(), carry_val.contiguous()
+
+
+def carry_runs_plain(enc: AltoEncoding, mode: int, rows, words, values,
+                     factors, block_m: int):
+    """Plain version of K1's first pass: (out, carry_row, carry_val)."""
+    _build.count_plain("carry_runs", rows)
+    sums, _ = block_run_sums(enc, mode, rows, words, values, factors,
+                             block_m)
+    return split_block_runs(sums, rows, enc.dims[mode])
+
+
+def carry_fixup_plain(carry_row, carry_val, out):
+    """Plain version of the fix-up: add every carried piece to its row in
+    block order (out holds zeros at those rows)."""
+    _build.count_plain("carry_fixup", out)
+    rows = carry_row.reshape(-1)
+    keep = rows >= 0
+    return out.index_add_(0, rows[keep].long(),
+                          carry_val.reshape(rows.shape[0], -1)[keep])
+
+
+def oriented_partials_plain(enc: AltoEncoding, mode: int, rows, words,
+                            values, factors, block_m: int) -> torch.Tensor:
+    """Plain version of K2: (n_blocks, block_m, R) run sums."""
+    _build.count_plain("oriented_partials", rows)
+    return block_run_sums(enc, mode, rows, words, values, factors,
+                          block_m)[0]
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
+               block_m: int = DEFAULT_BLOCK_M, r_block: int | None = None,
+               threads: int = DEFAULT_THREADS):
+    """K1, first pass: (out with inner runs, carry_row, carry_val)."""
+    factors = list(factors)
+    rb = r_block or factors[0].shape[1]
+    M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
+    if not common.on_cuda(rows, words, values, *factors):
+        return carry_runs_plain(enc, mode, rows, words, values, factors,
+                                block_m)
+    nb = M // block_m
+    out = torch.zeros((enc.dims[mode], R), dtype=torch.float32,
+                      device=rows.device)
+    carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
+    carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
+                            device=rows.device)
+    keep, args = common.alto_args(enc, mode, factors, R)
+    lib = _build.library("mttkrp_oriented")
+    status = lib.alto_carry_runs(
+        *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
+        block_m, nb, rb, common.slices_per_cta(threads, rb),
+        out.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(),
+        common.stream_ptr(rows))
+    del keep
+    _build.check(status, "alto_carry_runs")
+    _build.count_launch("carry_runs")
+    return out, carry_row, carry_val
+
+
+def carry_fixup(carry_row, carry_val, out, r_block: int | None = None,
+                threads: int = DEFAULT_THREADS) -> torch.Tensor:
+    """K1, second pass: adds each row's carried pieces in block order into
+    ``out`` (in place) and returns it."""
+    nb, R = carry_row.shape[0], out.shape[1]
+    rb = r_block or R
+    if R % rb:
+        raise ValueError(f"rank {R} not a multiple of r_block {rb}")
+    common.check_tensor(carry_row, "carry_row", torch.int32, (nb, 2))
+    common.check_tensor(carry_val, "carry_val", torch.float32, (nb, 2, R))
+    common.check_tensor(out, "out", torch.float32, tuple(out.shape))
+    if not common.on_cuda(carry_row, carry_val, out):
+        return carry_fixup_plain(carry_row, carry_val, out)
+    lib = _build.library("mttkrp_oriented")
+    status = lib.alto_carry_fixup(
+        carry_row.data_ptr(), carry_val.data_ptr(), 2 * nb, R, rb,
+        common.slices_per_cta(threads, rb), out.data_ptr(),
+        common.stream_ptr(out))
+    _build.check(status, "alto_carry_fixup")
+    _build.count_launch("carry_fixup")
+    return out
+
+
+def mttkrp_oriented_carry(enc: AltoEncoding, mode: int, rows, words, values,
+                          factors, block_m: int = DEFAULT_BLOCK_M,
+                          r_block: int | None = None,
+                          threads: int = DEFAULT_THREADS) -> torch.Tensor:
+    """K1: sorted stream -> final (I_n, R) MTTKRP (both passes)."""
+    out, carry_row, carry_val = carry_runs(enc, mode, rows, words, values,
+                                           factors, block_m, r_block,
+                                           threads)
+    return carry_fixup(carry_row, carry_val, out, r_block, threads)
+
+
+def oriented_partials(enc: AltoEncoding, mode: int, rows, words, values,
+                      factors, block_m: int = DEFAULT_BLOCK_M,
+                      r_block: int | None = None,
+                      threads: int = DEFAULT_THREADS) -> torch.Tensor:
+    """K2: per-slice run sums (n_blocks, block_m, R)."""
+    factors = list(factors)
+    rb = r_block or factors[0].shape[1]
+    M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
+    if not common.on_cuda(rows, words, values, *factors):
+        return oriented_partials_plain(enc, mode, rows, words, values,
+                                       factors, block_m)
+    nb = M // block_m
+    partials = torch.empty((nb, block_m, R), dtype=torch.float32,
+                           device=rows.device)
+    keep, args = common.alto_args(enc, mode, factors, R)
+    lib = _build.library("mttkrp_oriented")
+    status = lib.alto_oriented_partials(
+        *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
+        block_m, nb, rb, common.slices_per_cta(threads, rb),
+        partials.data_ptr(), common.stream_ptr(rows))
+    del keep
+    _build.check(status, "alto_oriented_partials")
+    _build.count_launch("oriented_partials")
+    return partials
