@@ -17,14 +17,27 @@ sm_90a), then:
    nonzeros from ``uniform_tensor``) with 3 iterations under the port's
    plan and 3 more under the JAX package's routing (one-hot partials on
    every mode), which must give the same fits bit for bit;
-4. at the main path's shapes, checks each kernel against its plain version
+4. holds the CP-APR kernels (K4 decode, K5 Φ carry, K6 Φ partials, K7 Φ
+   recursive) and the fixed-order pull reduction against their plain
+   versions on the same small layouts under both Π policies (K4 equal,
+   K5 equal to K6 + segment_merge, equal bits on a second run), and a
+   small CP-APR on the card against the same one on the CPU (log-
+   likelihoods within 1e-5 relative, factors within 1e-5);
+5. runs CP-APR at rank 16 on the Chicago tensor (ALTO-OTF, 5 outer
+   iterations, twice: equal bits) and on the DARPA tensor (ALTO-PRE, 2
+   outer iterations under the port's plan, K5, and again under the JAX
+   package's routing, K6: equal log-likelihoods and KKT violations);
+6. at the main path's shapes, checks each kernel against its plain version
    and times kernel, plain version and bound.
 
-Each CP-ALS run is driven with the launch counts set to 0 just before it
-and read just after; a run fails unless the kernels its plan picks were
-launched and no plain version ran on a CUDA tensor. Fits must be finite
-and never drop by more than 1e-3. A small decomposition on the card must
-match the same one on the CPU within 1e-5 in fit.
+Each CP-ALS and CP-APR run is driven with the launch counts set to 0 just
+before it and read just after; a run fails unless the kernels its plan
+picks were launched and no plain version ran on a CUDA tensor. Fits must
+be finite and never drop by more than 1e-3. A small decomposition on the
+card must match the same one on the CPU within 1e-5 in fit. CP-APR
+log-likelihoods must be finite and rise from the first outer iteration to
+the last, KKT violations finite, factors non-negative with column sums 1
+within 1e-3.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line,
 and last ``{"ok": true, "device": {...}}``. Any failed phase raises and
@@ -71,13 +84,17 @@ def _imports():
         sys.exit(2)
     sys.path.insert(0, str(ROOT / "src"))
     torch = torch_mod
-    from repro_torch.core import alto, cpals, heuristics, plan
+    from repro_torch.core import alto, cpals, cpapr, heuristics, mttkrp, plan
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import cpapr_phi as k7
+    from repro_torch.kernels import delinearize as k4
     from repro_torch.kernels import mttkrp as k3
     from repro_torch.kernels import mttkrp_oriented as kori
+    from repro_torch.kernels import ref
     from repro_torch.sparse import synthetic
-    return dict(alto=alto, cpals=cpals, heuristics=heuristics, plan=plan,
-                build=_build, ops=ops, k3=k3, kori=kori, synthetic=synthetic)
+    return dict(alto=alto, cpals=cpals, cpapr=cpapr, heuristics=heuristics,
+                mttkrp=mttkrp, plan=plan, build=_build, ops=ops, k3=k3,
+                k4=k4, k7=k7, kori=kori, ref=ref, synthetic=synthetic)
 
 
 def _sync():
@@ -123,8 +140,8 @@ def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
     oriented view; K1 == K2 + segment_merge; repeatability."""
     ops, kori = m["ops"], m["kori"]
     enc, mode = view.meta.enc, view.mode
-    rows, words, values = ops.pad_sorted_stream(view.rows, view.words,
-                                                view.values, block_m)
+    rows, words, values, _ = ops.pad_sorted_stream(view.rows, view.words,
+                                                   view.values, block_m)
     args = (enc, mode, rows, words, values, factors)
     kw = dict(block_m=block_m, r_block=r_block, threads=threads)
     out, crow, cval = kori.carry_runs(*args, **kw)
@@ -244,6 +261,191 @@ def phase_small_cp_als(m) -> dict:
     return {"fits_cuda": res["cuda"], "fits_cpu": res["cpu"]}
 
 
+def _pi_rows(m, enc, words, factors, mode):
+    """Π rows of a word stream (ALTO-PRE), decoded through K4."""
+    return m["mttkrp"].krp_rows(m["ops"].delinearize(enc, words), factors,
+                                mode).contiguous()
+
+
+def _phi_operands(m, enc, words, factors, mode, policy) -> dict:
+    if policy == "pre":
+        return {"pi": _pi_rows(m, enc, words, factors, mode)}
+    return {"factors": factors}
+
+
+def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
+                               label: str) -> dict:
+    """K5 runs and K6 against their plain versions on one oriented view;
+    K5 (runs + fix-up) == K6 + segment_merge; repeatability."""
+    ops, kori = m["ops"], m["kori"]
+    enc, mode, eps = view.meta.enc, view.mode, 1e-10
+    rows, words, values, pi = ops.pad_sorted_stream(
+        view.rows, view.words, view.values, block_m, pi=operands.get("pi"))
+    kw = dict(factors=operands.get("factors"), pi=pi)
+    args = (enc, mode, eps, rows, words, values, B)
+    out, crow, cval = kori.phi_carry_runs(*args, **kw, block_m=block_m,
+                                          threads=threads)
+    out2, crow2, cval2 = kori.phi_carry_runs(*args, **kw, block_m=block_m,
+                                             threads=threads)
+    _sync()
+    for a, b, what in ((out, out2, "out"), (crow, crow2, "carry_row"),
+                       (cval, cval2, "carry_val")):
+        _check_equal(f"{label} phi_carry_runs repeat {what}", a, b)
+    p_out, p_crow, p_cval = kori.phi_carry_runs_plain(*args, **kw,
+                                                      block_m=block_m)
+    _check_equal(f"{label} phi_carry_runs carry_row", crow, p_crow)
+    errs = {"phi_carry_runs": max(
+        _check_close(f"{label} phi_carry_runs out", out, p_out),
+        _check_close(f"{label} phi_carry_runs carry_val", cval, p_cval))}
+    part = kori.phi_oriented_partials(*args, **kw, block_m=block_m,
+                                      threads=threads)
+    _check_equal(f"{label} phi_oriented_partials repeat", part,
+                 kori.phi_oriented_partials(*args, **kw, block_m=block_m,
+                                            threads=threads))
+    errs["phi_oriented_partials"] = _check_close(
+        f"{label} phi_oriented_partials", part,
+        kori.phi_oriented_partials_plain(*args, **kw, block_m=block_m))
+    kw = dict(operands, eps=eps, block_m=block_m, threads=threads)
+    k5 = ops.cpapr_phi_oriented_carry(view, B, **kw)
+    _check_equal(f"{label} K5 vs K6+segment_merge", k5,
+                 ops.cpapr_phi_oriented(view, B, **kw))
+    _check_equal(f"{label} K5 repeat", k5,
+                 ops.cpapr_phi_oriented_carry(view, B, **kw))
+    return errs
+
+
+def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
+                               label: str) -> dict:
+    """K7 against its plain version, and the fixed-order pull against the
+    CPU's; both repeatable."""
+    k7, ops = m["k7"], m["ops"]
+    meta = at.meta
+    args = (meta.enc, mode, meta.temp_rows[mode], 1e-10, at.words,
+            at.values, at.part_start, B)
+    temp = k7.phi_partials(*args, **operands, threads=threads)
+    _check_equal(f"{label} phi_partials repeat", temp,
+                 k7.phi_partials(*args, **operands, threads=threads))
+    errs = {"phi_partials": _check_close(
+        f"{label} phi_partials", temp,
+        k7.phi_partials_plain(*args, **operands))}
+    start = at.part_start[:, mode]
+    pull = ops.pull_reduction(temp, start, meta.dims[mode])
+    _check_equal(f"{label} pull_reduction repeat", pull,
+                 ops.pull_reduction(temp, start, meta.dims[mode]))
+    errs["pull_reduction"] = _check_close(
+        f"{label} pull_reduction", pull,
+        ops.pull_reduction(temp.cpu(), start.cpu(),
+                           meta.dims[mode]).to(pull.device))
+    return errs
+
+
+def check_delinearize(m, enc, words, label: str) -> None:
+    """K4 equal to its plain version, and repeatable."""
+    k4, ops = m["k4"], m["ops"]
+    got = ops.delinearize(enc, words)
+    _check_equal(f"{label} delinearize repeat", got,
+                 ops.delinearize(enc, words))
+    _check_equal(f"{label} delinearize", got,
+                 k4.delinearize_plain(enc, words))
+
+
+def phase_small_phi(m) -> dict:
+    """The CP-APR kernels on the adversarial run layouts, both Π
+    policies."""
+    dims = (29, 13, 7)
+    worst = {}
+    for block_m in (8, 64):
+        rng = np.random.default_rng(block_m)
+        layouts = {
+            "identical": np.eye(29, dtype=np.int64)[3] * (4 * block_m + 3),
+            "distinct": np.ones(29, dtype=np.int64),
+            "boundary_run": rng.integers(0, 3, size=29)
+            + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
+            "mixed": rng.integers(1, 2 * block_m, size=29),
+        }
+        for name, counts in layouts.items():
+            x = _stream_tensor(counts, dims, seed=block_m)
+            x.values[:] = np.abs(x.values) + 1.0       # counts are > 0
+            at = m["alto"].build_device(x, n_partitions=4)
+            fs = _factors(dims, seed=block_m)
+            B = fs[0] * 3.0
+            view = m["alto"].oriented_view_device(at, 0)
+            label = f"small phi {name} block_m={block_m}"
+            check_delinearize(m, at.meta.enc, at.words, label)
+            for policy in ("otf", "pre"):
+                errs = check_phi_oriented_kernels(
+                    m, view, B, _phi_operands(m, at.meta.enc, view.words,
+                                              fs, 0, policy),
+                    block_m, 64, f"{label} {policy}")
+                errs.update(check_phi_recursive_kernel(
+                    m, at, B, _phi_operands(m, at.meta.enc, at.words, fs, 0,
+                                            policy),
+                    0, 64, f"{label} {policy}"))
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+    print(f"chip_smoke: small CP-APR kernels ok, worst errors {worst}")
+    return worst
+
+
+def _apr_params(m, k_max):
+    return m["cpapr"].CpaprParams(k_max=k_max, l_max=10)
+
+
+def _check_apr_result(label: str, res, k_max: int) -> None:
+    """Every CP-APR run: k_max outer iterations, finite log-likelihoods
+    that rise from the first to the last, finite KKT violations, factors
+    non-negative with column sums 1 within 1e-3."""
+    lls, kkts = res.log_likelihoods, res.kkt_violations
+    if (res.n_outer != k_max or len(lls) != k_max
+            or not all(math.isfinite(v) for v in lls + kkts)):
+        _fail(f"{label}: {res.n_outer} outer iterations, log-likelihoods "
+              f"{lls}, KKT {kkts}")
+    if not lls[-1] > lls[0]:
+        _fail(f"{label}: log-likelihood did not rise: {lls}")
+    for A in res.factors:
+        if not bool(torch.isfinite(A).all()) or float(A.min()) < 0.0:
+            _fail(f"{label}: factor not finite and non-negative")
+        if float((A.sum(dim=0) - 1.0).abs().max()) > 1e-3:
+            _fail(f"{label}: factor columns do not sum to 1")
+
+
+def phase_small_cp_apr(m) -> dict:
+    """A small CP-APR on the card matches the same one on the CPU."""
+    x = m["synthetic"].blocked_tensor((60, 24, 77, 32), 20_000, block=8,
+                                      n_blocks=20, seed=1, count_data=True)
+    out = {}
+    for policy in ("otf", "pre"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            at = m["alto"].build_device(x, n_partitions=64, device=dev)
+            fs = [f.to(dev) for f in _factors(x.dims, seed=9)]
+            p = m["plan"].make_plan(at.meta, RANK, backend="cuda")
+            res[dev] = m["cpapr"].cp_apr(at, RANK, _apr_params(m, 3),
+                                         pi_policy=policy, track_ll=True,
+                                         factors=fs, plan=p)
+            _check_apr_result(f"small CP-APR ({policy}, {dev})", res[dev],
+                              3)
+        a, b = res["cuda"], res["cpu"]
+        ll_err = max(abs(u - v) / abs(v) for u, v in
+                     zip(a.log_likelihoods, b.log_likelihoods))
+        f_err = max(float((u.cpu() - v).abs().max())
+                    for u, v in zip(a.factors, b.factors))
+        # 1e-5: the Φ terms round alike; the sums of λ and of the
+        # log-likelihood run in another order on the card.
+        if (a.n_inner_total != b.n_inner_total or ll_err > 1e-5
+                or f_err > 1e-5):
+            _fail(f"small CP-APR ({policy}) on the card {a.log_likelihoods} "
+                  f"inner {a.n_inner_total} vs the CPU {b.log_likelihoods} "
+                  f"inner {b.n_inner_total}; factor error {f_err}")
+        print(f"chip_smoke: small CP-APR ({policy}) log-likelihoods on the "
+              f"card {a.log_likelihoods}, on the CPU {b.log_likelihoods}; "
+              f"largest relative difference {ll_err}, factors {f_err}")
+        out[policy] = {"ll_cuda": a.log_likelihoods,
+                       "ll_cpu": b.log_likelihoods, "ll_rel_err": ll_err,
+                       "factor_err": f_err, "n_inner": a.n_inner_total}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Main path runs
 # ---------------------------------------------------------------------------
@@ -351,12 +553,146 @@ def phase_darpa(m) -> dict:
             "fiber_reuse": at.meta.fiber_reuse}
 
 
+def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
+    """One counted CP-APR run through the user entry points."""
+    b = m["build"]
+    trav = m["heuristics"].Traversal
+    kernels_of = {trav.ORIENTED_CARRY: {"phi_carry_runs", "carry_fixup"},
+                  trav.OUTPUT_ORIENTED: {"phi_oriented_partials",
+                                         "carry_fixup"},
+                  trav.RECURSIVE: {"phi_partials", "carry_fixup"}}
+    expect = set().union(*(kernels_of[mp.traversal] for mp in p.modes))
+    expect.add("delinearize")              # Π under PRE, log-likelihood
+    _sync()
+    b.reset_counts()
+    t0 = time.perf_counter()
+    res = m["cpapr"].cp_apr(at, RANK, _apr_params(m, k_max), seed=0,
+                            track_ll=True, plan=p)
+    _sync()
+    seconds = time.perf_counter() - t0
+    counts = b.counts()
+    _check_apr_result(label, res, k_max)
+    lls, kkts = res.log_likelihoods, res.kkt_violations
+    for k in expect:
+        if counts["launches"][k] == 0:
+            _fail(f"{label}: kernel {k} was never launched")
+    if any(counts["plain_on_cuda"].values()):
+        _fail(f"{label}: plain versions ran on CUDA tensors: "
+              f"{counts['plain_on_cuda']}")
+    phi_ms = phi_mode_times(m, at, p, res)
+    info = {"traversals": p.traversals(), "pi_policy": res.pi_policy,
+            "log_likelihoods": lls, "kkt_violations": kkts,
+            "seconds": seconds, "n_outer": res.n_outer,
+            "s_per_outer": seconds / res.n_outer,
+            "n_inner_total": res.n_inner_total,
+            "kkt_wait_s": res.kkt_wait_s, "phi_ms_per_mode": phi_ms,
+            "launches": counts["launches"]}
+    print(f"chip_smoke: {label}: traversals {p.traversals()} "
+          f"{res.pi_policy}; {res.n_outer} outer iterations in "
+          f"{seconds:.3f} s ({seconds / res.n_outer:.3f} s each, "
+          f"log-likelihood included), {res.n_inner_total} inner; Φ ms per "
+          f"mode {phi_ms}; host blocked on KKT reads {res.kkt_wait_s:.3f} "
+          f"s; log-likelihoods {lls}; KKT {kkts}; launches "
+          f"{counts['launches']}")
+    return {**info, "res": res}
+
+
+def phi_mode_times(m, at, p, res) -> list[float]:
+    """ms of one execute_phi per mode from the run's final state, as the
+    inner loop calls it (Π built beforehand under PRE)."""
+    views = m["plan"].build_views(at, p)
+    out = []
+    for n in range(len(at.dims)):
+        B = res.factors[n] * res.lam[None, :]
+        view = views.get(n)
+        oriented = view is not None and m["heuristics"].is_oriented(
+            p.modes[n].traversal)
+        operands = _phi_operands(m, at.meta.enc,
+                                 view.words if oriented else at.words,
+                                 res.factors, n, res.pi_policy)
+        out.append(_ms(m, m["plan"].execute_phi, p, at, view, B, n,
+                       operands.get("factors"), operands.get("pi"),
+                       iters=5))
+        del operands
+    return out
+
+
+def phase_chicago_apr(m, chicago) -> dict:
+    at, p = chicago["at"], chicago["plan"]
+    if p.pi_policy.value != "otf":
+        _fail(f"chicago Π policy {p.pi_policy.value}, expected otf")
+    first = run_cp_apr(m, at, p, 5, "chicago cp_apr")
+    again = run_cp_apr(m, at, p, 5, "chicago cp_apr (rerun)")
+    if (first["log_likelihoods"] != again["log_likelihoods"]
+            or first["kkt_violations"] != again["kkt_violations"]
+            or not all(torch.equal(a, b) for a, b in
+                       zip(first["res"].factors, again["res"].factors))):
+        _fail("chicago cp_apr rerun differs from the first run")
+    return {"run": first, "rerun_launches": again["launches"]}
+
+
+def phase_darpa_apr(m, darpa) -> dict:
+    at, p = darpa["at"], darpa["plan"]
+    if p.pi_policy.value != "pre":
+        _fail(f"darpa Π policy {p.pi_policy.value}, expected pre")
+    port = run_cp_apr(m, at, p, 2, "darpa cp_apr (port plan)")
+    trav = m["heuristics"].Traversal
+    jax_like = dataclasses.replace(p, modes=tuple(
+        dataclasses.replace(mp, traversal=trav.OUTPUT_ORIENTED)
+        for mp in p.modes))
+    onehot = run_cp_apr(m, at, jax_like, 2,
+                        "darpa cp_apr (one-hot routing)")
+    if (port["log_likelihoods"] != onehot["log_likelihoods"]
+            or port["kkt_violations"] != onehot["kkt_violations"]):
+        _fail(f"darpa cp_apr differs between K5 and K6 routing: "
+              f"{port['log_likelihoods']} {port['kkt_violations']} vs "
+              f"{onehot['log_likelihoods']} {onehot['kkt_violations']}")
+    return {"run": port, "onehot_run": onehot}
+
+
 # ---------------------------------------------------------------------------
 # Real-size kernel checks and timings
 # ---------------------------------------------------------------------------
 
+CSRC = "src/repro_torch/kernels/csrc/"
+JAX_KERNELS = "src/repro/kernels/"
+KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
+    "carry_runs": ("mttkrp_oriented.cu", "mttkrp_oriented.py:358"),
+    "carry_fixup": ("mttkrp_oriented.cu", "mttkrp_oriented.py:254"),
+    "oriented_partials": ("mttkrp_oriented.cu", "mttkrp_oriented.py:132"),
+    "recursive_partials": ("mttkrp.cu", "mttkrp.py:75"),
+    "delinearize": ("delinearize.cu", "delinearize.py:37"),
+    "phi_carry_runs": ("phi_oriented.cu", "mttkrp_oriented.py:437"),
+    "phi_oriented_partials": ("phi_oriented.cu", "mttkrp_oriented.py:204"),
+    "phi_partials": ("cpapr_phi.cu", "cpapr_phi.py:57"),
+}
+
+
+def _entry(name, launches, err, ms, plain_ms, nbytes, nops, library_ms,
+           shape, op=None, op_ms=None, op_plain_ms=None,
+           op_bytes=None) -> dict:
+    """One element of the ``kernels`` line."""
+    bound, by = _bound(nbytes, nops)
+    source, replaces = KERNEL_SOURCES[name]
+    e = {"name": name, "route": "cuda", "source": CSRC + source,
+         "replaces": JAX_KERNELS + replaces, "launches": launches[name],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+         "shape": shape}
+    if op is not None:          # the op the main path calls around it
+        e.update(op=op, op_ms=op_ms, op_plain_ms=op_plain_ms,
+                 op_bound_ms=_bound(op_bytes, nops)[0])
+    return e
+
+
 def _stream_bytes(M, W):
     return M * (4 + 4 * W + 4)
+
+
+def _distinct(rows) -> int:
+    """Distinct target rows of a stream: the rows of B a Φ kernel
+    gathers."""
+    return int(torch.unique(rows).numel())
 
 
 def _factor_bytes(meta, mode, R):
@@ -370,41 +706,23 @@ def time_oriented(m, view, factors, mp, launches) -> list[dict]:
     bm, rb, th = mp.block_m, mp.r_block, mp.threads
     errs = check_oriented_kernels(m, view, factors, bm, rb, th,
                                   f"mode {mode} real size")
-    rows, words, values = ops.pad_sorted_stream(view.rows, view.words,
-                                                view.values, bm)
+    rows, words, values, _ = ops.pad_sorted_stream(view.rows, view.words,
+                                                   view.values, bm)
     M = rows.shape[0]
     nb = M // bm
     I_n = meta.dims[mode]
     args = (meta.enc, mode, rows, words, values, factors)
-    kw = dict(block_m=bm, r_block=rb, threads=th)
     stream = _stream_bytes(M, W)
     fac = _factor_bytes(meta, mode, R)
     out_b = I_n * R * 4
     carries = nb * 2 * (4 + 4 * R)
     krp_ops = M * R * N                       # N-2 products, scale, add
-    out, crow, cval = kori.carry_runs(*args, **kw)
+    out, crow, cval = kori.carry_runs(*args, bm, rb, th)
     present = crow[crow >= 0]
     fix_rows = int(torch.unique(present).numel())
     keep_rows = present.long()
     keep_vals = cval.reshape(-1, R)[(crow >= 0).reshape(-1)]
     shape = f"mode {mode} of {meta.dims}, M={M}, R={R}, block_m={bm}"
-    entries = []
-
-    def entry(name, replaces, ms, plain_ms, nbytes, nops, err, library_ms,
-              op=None, op_ms=None, op_plain_ms=None, op_bytes=None):
-        bound, by = _bound(nbytes, nops)
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/" + (
-                "mttkrp.cu" if name == "recursive_partials"
-                else "mttkrp_oriented.cu"),
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-            "shape": shape})
-        if op is not None:      # the op the main path calls around it
-            entries[-1].update(op=op, op_ms=op_ms, op_plain_ms=op_plain_ms,
-                               op_bound_ms=_bound(op_bytes, nops)[0])
 
     def k1_plain():
         o, r, v = kori.carry_runs_plain(*args, bm)
@@ -415,30 +733,30 @@ def time_oriented(m, view, factors, mp, launches) -> list[dict]:
         o, r, v = kori.split_block_runs(part, rows, I_n)
         return kori.carry_fixup_plain(r, v, o)
 
-    k1_op = _ms(m, ops.mttkrp_oriented_carry, view, factors, bm, rb, th)
-    k1_op_plain = _ms(m, k1_plain, iters=3)
-    entry("carry_runs", "src/repro/kernels/mttkrp_oriented.py:358",
-          _ms(m, kori.carry_runs, *args, bm, rb, th),
-          _ms(m, kori.carry_runs_plain, *args, bm, iters=3),
-          stream + fac + out_b + carries, krp_ops, errs["carry_runs"], None,
-          "ops.mttkrp_oriented_carry", k1_op, k1_op_plain,
-          stream + fac + out_b)
-    entry("carry_fixup", "src/repro/kernels/mttkrp_oriented.py:254",
-          _ms(m, kori.carry_fixup, crow, cval, out.clone(), rb, th),
-          _ms(m, kori.carry_fixup_plain, crow, cval, out.clone(), iters=3),
-          carries + fix_rows * R * 4, present.numel() * R,
-          errs["carry_fixup"],
-          _ms(m, lambda: out.clone().index_add_(0, keep_rows, keep_vals)))
     part_b = nb * bm * R * 4
-    entry("oriented_partials", "src/repro/kernels/mttkrp_oriented.py:132",
-          _ms(m, kori.oriented_partials, *args, bm, rb, th),
-          _ms(m, kori.oriented_partials_plain, *args, bm, iters=3),
-          stream + fac + part_b, krp_ops, errs["oriented_partials"], None,
-          "ops.mttkrp_oriented",
-          _ms(m, ops.mttkrp_oriented, view, factors, bm, rb, th),
-          _ms(m, k2_plain, iters=3),
-          stream + fac + 2 * part_b + M * 4 + out_b)
-    return entries
+    return [
+        _entry("carry_runs", launches, errs["carry_runs"],
+               _ms(m, kori.carry_runs, *args, bm, rb, th),
+               _ms(m, kori.carry_runs_plain, *args, bm, iters=3),
+               stream + fac + out_b + carries, krp_ops, None, shape,
+               "ops.mttkrp_oriented_carry",
+               _ms(m, ops.mttkrp_oriented_carry, view, factors, bm, rb, th),
+               _ms(m, k1_plain, iters=3), stream + fac + out_b),
+        _entry("carry_fixup", launches, errs["carry_fixup"],
+               _ms(m, kori.carry_fixup, crow, cval, out.clone(), rb, th),
+               _ms(m, kori.carry_fixup_plain, crow, cval, out.clone(),
+                   iters=3),
+               carries + fix_rows * R * 4, present.numel() * R,
+               _ms(m, lambda: out.clone().index_add_(0, keep_rows,
+                                                     keep_vals)), shape),
+        _entry("oriented_partials", launches, errs["oriented_partials"],
+               _ms(m, kori.oriented_partials, *args, bm, rb, th),
+               _ms(m, kori.oriented_partials_plain, *args, bm, iters=3),
+               stream + fac + part_b, krp_ops, None, shape,
+               "ops.mttkrp_oriented",
+               _ms(m, ops.mttkrp_oriented, view, factors, bm, rb, th),
+               _ms(m, k2_plain, iters=3),
+               stream + fac + 2 * part_b + M * 4 + out_b)]
 
 
 def time_recursive(m, at, factors, mp, launches) -> dict:
@@ -453,34 +771,145 @@ def time_recursive(m, at, factors, mp, launches) -> dict:
     stream = Mp * (4 * W + 4) + L * N * 4
     fac = _factor_bytes(meta, mode, R)
     temp_b = L * T * R * 4
-    bound, by = _bound(stream + fac + temp_b, Mp * R * N)
 
     def plain_op():
         return ops.pull_reduction(k3.recursive_partials_plain(*args),
                                   at.part_start[:, mode], meta.dims[mode])
 
-    return {
-        "name": "recursive_partials", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
-        "replaces": "src/repro/kernels/mttkrp.py:75",
-        "launches": launches["recursive_partials"], "max_abs_err": err,
-        "ms": _ms(m, k3.recursive_partials, *args, mp.r_block, mp.threads),
-        "plain_ms": _ms(m, k3.recursive_partials_plain, *args, iters=3),
-        "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shape": f"mode {mode} of {meta.dims}, Mp={Mp}, L={L}, T={T}, "
-                 f"R={R}",
-        "op": "ops.mttkrp",
-        "op_ms": _ms(m, ops.mttkrp, at, factors, mode, mp.r_block,
-                     mp.threads),
-        "op_plain_ms": _ms(m, plain_op, iters=3),
-        "op_bound_ms": _bound(stream + fac + 2 * temp_b
-                              + meta.dims[mode] * R * 4, Mp * R * N)[0]}
+    return _entry(
+        "recursive_partials", launches, err,
+        _ms(m, k3.recursive_partials, *args, mp.r_block, mp.threads),
+        _ms(m, k3.recursive_partials_plain, *args, iters=3),
+        stream + fac + temp_b, Mp * R * N, None,
+        f"mode {mode} of {meta.dims}, Mp={Mp}, L={L}, T={T}, R={R}",
+        "ops.mttkrp",
+        _ms(m, ops.mttkrp, at, factors, mode, mp.r_block, mp.threads),
+        _ms(m, plain_op, iters=3),
+        stream + fac + 2 * temp_b + meta.dims[mode] * R * 4)
+
+
+def time_phi_recursive(m, at, res, mp, launches) -> dict:
+    """K7 on a recursive mode under ALTO-OTF, from a CP-APR run's final
+    state."""
+    ops, k7 = m["ops"], m["k7"]
+    meta, mode = at.meta, mp.mode
+    W, N, R = meta.enc.n_words, meta.enc.ndim, RANK
+    L, T = meta.n_partitions, meta.temp_rows[mode]
+    Mp = at.words.shape[0]
+    fs = res.factors
+    B = fs[mode] * res.lam[None, :]
+    errs = check_phi_recursive_kernel(m, at, B, {"factors": fs}, mode,
+                                      mp.threads, f"phi mode {mode} real size")
+    args = (meta.enc, mode, T, 1e-10, at.words, at.values, at.part_start, B)
+    stream = Mp * (4 * W + 4) + L * N * 4
+    fac = _factor_bytes(meta, mode, R)
+    out_b = meta.dims[mode] * R * 4
+    b_bytes = _distinct(at.coords()[:, mode]) * R * 4    # rows gathered
+    temp_b = L * T * R * 4
+    nops = Mp * R * (N + 2)      # krp, dot (mul + add), term, run sum
+
+    def plain_op():
+        return ops.pull_reduction(k7.phi_partials_plain(*args, factors=fs),
+                                  at.part_start[:, mode], meta.dims[mode])
+
+    e = _entry(
+        "phi_partials", launches, errs["phi_partials"],
+        _ms(m, k7.phi_partials, *args, fs, None, None, mp.threads),
+        _ms(m, k7.phi_partials_plain, *args, fs, iters=3),
+        stream + b_bytes + fac + temp_b, nops, None,
+        f"mode {mode} of {meta.dims}, Mp={Mp}, L={L}, T={T}, R={R}, otf",
+        "ops.cpapr_phi",
+        _ms(m, ops.cpapr_phi, at, B, mode, fs, None, 1e-10, mp.threads),
+        _ms(m, plain_op, iters=3),
+        stream + b_bytes + fac + 2 * temp_b + out_b)
+    temp = k7.phi_partials(*args, fs, None, None, mp.threads)
+    e["pull_ms"] = _ms(m, ops.pull_reduction, temp, at.part_start[:, mode],
+                       meta.dims[mode], mp.threads)
+    return e
+
+
+def time_phi_oriented(m, view, res, mp, launches) -> list[dict]:
+    """K5 and K6 on an oriented mode under ALTO-PRE, from a CP-APR run's
+    final state."""
+    ops, kori = m["ops"], m["kori"]
+    meta, mode = view.meta, view.mode
+    W, R, bm, th = meta.enc.n_words, RANK, mp.block_m, mp.threads
+    I_n = meta.dims[mode]
+    B = res.factors[mode] * res.lam[None, :]
+    pi = _pi_rows(m, meta.enc, view.words, res.factors, mode)
+    errs = check_phi_oriented_kernels(m, view, B, {"pi": pi}, bm, th,
+                                      f"phi mode {mode} real size")
+    rows, words, values, pi_p = ops.pad_sorted_stream(
+        view.rows, view.words, view.values, bm, pi=pi)
+    M = rows.shape[0]
+    nb = M // bm
+    args = (meta.enc, mode, 1e-10, rows, words, values, B, None, pi_p, bm)
+    stream = M * (4 + 4)         # rows, values: PRE decodes no words
+    pi_b = M * R * 4
+    b_bytes = _distinct(view.rows) * R * 4          # B rows gathered
+    out_b = I_n * R * 4
+    carries = nb * 2 * (4 + 4 * R)
+    part_b = nb * bm * R * 4
+    nops = M * R * 4              # dot (mul + add), term, run sum
+    shape = (f"mode {mode} of {meta.dims}, M={M}, R={R}, block_m={bm}, "
+             f"pre")
+
+    def k5_plain():
+        o, r, v = kori.phi_carry_runs_plain(*args)
+        return kori.carry_fixup_plain(r, v, o)
+
+    def k6_plain():
+        part = kori.phi_oriented_partials_plain(*args)
+        o, r, v = kori.split_block_runs(part, rows, I_n)
+        return kori.carry_fixup_plain(r, v, o)
+
+    entries = [
+        _entry("phi_carry_runs", launches, errs["phi_carry_runs"],
+               _ms(m, kori.phi_carry_runs, *args, None, th),
+               _ms(m, kori.phi_carry_runs_plain, *args, iters=3),
+               stream + pi_b + b_bytes + out_b + carries, nops, None,
+               shape, "ops.cpapr_phi_oriented_carry",
+               _ms(m, ops.cpapr_phi_oriented_carry, view, B, None, pi,
+                   1e-10, bm, th),
+               _ms(m, k5_plain, iters=3), stream + pi_b + b_bytes + out_b),
+        _entry("phi_oriented_partials", launches,
+               errs["phi_oriented_partials"],
+               _ms(m, kori.phi_oriented_partials, *args, None, th),
+               _ms(m, kori.phi_oriented_partials_plain, *args, iters=3),
+               stream + pi_b + b_bytes + part_b, nops, None, shape,
+               "ops.cpapr_phi_oriented",
+               _ms(m, ops.cpapr_phi_oriented, view, B, None, pi, 1e-10, bm,
+                   th),
+               _ms(m, k6_plain, iters=3),
+               stream + pi_b + b_bytes + out_b + 2 * part_b + M * 4)]
+    return entries
+
+
+def time_delinearize(m, at, launches) -> dict:
+    """K4 on a tensor's whole ALTO stream."""
+    k4, ops = m["k4"], m["ops"]
+    enc = at.meta.enc
+    check_delinearize(m, enc, at.words, "real size")
+    _, words, _, _ = ops.pad_sorted_stream(None, at.words, None,
+                                           k4.DEFAULT_BLOCK_M)
+    M, W, N = words.shape[0], enc.n_words, enc.ndim
+    nbytes = M * W * 4 + M * N * 4
+    return _entry(
+        "delinearize", launches, 0.0, _ms(m, k4.delinearize, enc, words),
+        _ms(m, k4.delinearize_plain, enc, words, iters=3), nbytes,
+        M * len(enc.runs) * 3, None, f"{enc.dims}, M={M}, W={W}",
+        "ops.delinearize", _ms(m, ops.delinearize, enc, at.words),
+        _ms(m, k4.delinearize_plain, enc, at.words, iters=3), nbytes)
 
 
 def mode_times(m, at, p, views, factors) -> list[float]:
     """ms of one execute_mttkrp per mode, as the sweep calls it."""
     return [_ms(m, m["plan"].execute_mttkrp, p, at, views, factors, n,
                 iters=5) for n in range(len(at.dims))]
+
+
+def _apr_detail(run) -> dict:
+    return {k: v for k, v in run.items() if k != "res"}
 
 
 def main() -> int:
@@ -500,12 +929,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"chip_smoke: ptxas {name}: {line.strip()}")
     t_start = time.perf_counter()
-    small = {"worst_err": phase_small(m), **phase_small_cp_als(m)}
+    small = {"worst_err": phase_small(m), **phase_small_cp_als(m),
+             "phi_worst_err": phase_small_phi(m),
+             "cp_apr": phase_small_cp_apr(m)}
     chicago = phase_chicago(m)
+    chicago_apr = phase_chicago_apr(m, chicago)
     darpa = phase_darpa(m)
-    launches = {k: chicago["run"]["launches"][k]
-                + darpa["run"]["launches"][k]
-                + darpa["onehot_run"]["launches"][k]
+    darpa_apr = phase_darpa_apr(m, darpa)
+    runs = [chicago["run"], darpa["run"], darpa["onehot_run"],
+            chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"]]
+    launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
 
     trav = m["heuristics"].Traversal
@@ -517,12 +950,20 @@ def main() -> int:
     big = dp.modes[2]                      # the 23.8 M-row mode
     d_view = m["plan"].build_views(darpa["at"], dp)[2]
     kernels += time_oriented(m, d_view, d_fs, big, launches)
+    kernels.append(time_phi_recursive(m, chicago["at"],
+                                      chicago_apr["run"]["res"], rec,
+                                      launches))
+    kernels += time_phi_oriented(m, d_view, darpa_apr["run"]["res"], big,
+                                 launches)
+    kernels.append(time_delinearize(m, darpa["at"], launches))
     kernels.sort(key=lambda e: m["build"].KERNELS.index(e["name"]))
     c_views = m["plan"].build_views(chicago["at"], cp)
     per_mode = {"chicago": mode_times(m, chicago["at"], cp, c_views, c_fs),
                 "darpa": mode_times(m, darpa["at"], dp,
                                     m["plan"].build_views(darpa["at"], dp),
                                     d_fs)}
+    if [e["name"] for e in kernels] != list(m["build"].KERNELS):
+        _fail(f"kernels line lists {[e['name'] for e in kernels]}")
     for e in kernels:
         if e["launches"] == 0:
             _fail(f"kernel {e['name']} never launched on the main path")
@@ -541,7 +982,9 @@ def main() -> int:
            "launches": chicago["run"]["launches"],
            "mttkrp_ms_per_mode": per_mode["chicago"],
            "tiles": [(mp.r_block, mp.block_m, mp.threads)
-                     for mp in cp.modes]},
+                     for mp in cp.modes],
+           "cp_apr": _apr_detail(chicago_apr["run"]),
+           "cp_apr_rerun_launches": chicago_apr["rerun_launches"]},
         "darpa": {k: darpa[k] for k in ("gen_s", "build_s", "nnz",
                                         "fiber_reuse")}
         | {"traversals": darpa["run"]["traversals"],
@@ -555,14 +998,17 @@ def main() -> int:
            "onehot_launches": darpa["onehot_run"]["launches"],
            "mttkrp_ms_per_mode": per_mode["darpa"],
            "tiles": [(mp.r_block, mp.block_m, mp.threads)
-                     for mp in dp.modes]},
+                     for mp in dp.modes],
+           "cp_apr": _apr_detail(darpa_apr["run"]),
+           "cp_apr_onehot": _apr_detail(darpa_apr["onehot_run"])},
         "kernels": kernels, "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"chip_smoke: per-mode MTTKRP ms {per_mode}; "
-          f"{elapsed:.1f} s after the build")
+          f"{elapsed:.1f} s after the build; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,250 @@
+"""CP-APR multiplicative updates on ALTO tensors (paper Alg. 2 / Alg. 5),
+in PyTorch.
+
+Poisson tensor decomposition for non-negative count data. The Φ (model
+update) row reduction — more than 99 % of the runtime per the paper §5.3 —
+runs through the plan layer (`core.plan.execute_phi`): on the card the
+hand-written Φ kernels, on the CPU their plain versions or the reference
+traversals. The plan carries the paper's two adaptive choices:
+
+  * traversal per mode: recursive (Temp + pull reduction) or
+    output-oriented (carry or partials), per fiber reuse (§4.2);
+  * Π policy: ALTO-PRE (the (M, R) Khatri-Rao rows built once per mode
+    update, through the K4 decode) or ALTO-OTF (rebuilt inside the Φ
+    kernel on every inner iteration), per the memory heuristic (§4.3).
+
+The inner multiplicative-update loop (Alg. 2 lines 7-14) is a host loop
+that reads the KKT violation of each step and stops once it is below
+``tau``: the semantics of the JAX package's masked ``lax.scan``, whose
+frozen steps only recompute the Φ of an unchanged B. Each inner step
+therefore waits for the card once (`CpaprResult.kkt_wait_s`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import heuristics
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.alto import AltoTensor, OrientedView
+from repro_torch.core.mttkrp import krp_rows
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class CpaprParams:
+    """Algorithmic parameters of Alg. 2 (defaults follow the paper / ttb)."""
+    k_max: int = 50          # max outer iterations
+    l_max: int = 10          # max inner iterations (paper uses 10)
+    tau: float = 1e-4        # KKT convergence tolerance
+    kappa: float = 1e-2      # inadmissible-zero avoidance adjustment
+    kappa_tol: float = 1e-10  # potential inadmissible zero threshold
+    eps_div: float = 1e-10   # minimum divisor
+
+
+@dataclasses.dataclass
+class CpaprResult:
+    lam: torch.Tensor
+    factors: list[torch.Tensor]
+    kkt_violations: list[float]    # per outer iteration (max over modes)
+    log_likelihoods: list[float]
+    n_outer: int
+    n_inner_total: int
+    pi_policy: str
+    traversals: list[str]
+    plan: plan_mod.ExecutionPlan | None = None
+    kkt_wait_s: float = 0.0        # host seconds blocked on KKT reads
+
+
+def init_factors(dims: Sequence[int], rank: int, seed: int = 0,
+                 total: float = 1.0, dtype=torch.float32, device=None):
+    """Random positive factors, uniform in [0.1, 1.1) from a
+    `torch.Generator` seeded with ``seed`` on ``device`` (default
+    ``cuda``), columns 1-normalized; λ = total / rank carries the mass.
+    Returns ``(lam, factors)``."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    factors = []
+    for I in dims:
+        A = torch.rand((I, rank), generator=g, dtype=dtype, device=dev) + 0.1
+        factors.append(A / A.sum(dim=0, keepdim=True))
+    lam = torch.full((rank,), total / rank, dtype=dtype, device=dev)
+    return lam, factors
+
+
+def _starting_factors(factors, dims, rank, dtype, device):
+    """Given factors as the start: clamped positive, columns rescaled to
+    sum 1 (the JAX package's warm start, `ingest.grow_factors`)."""
+    if len(factors) != len(dims):
+        raise ValueError(f"{len(factors)} factors for {len(dims)} modes")
+    out = []
+    for n, (A, I) in enumerate(zip(factors, dims)):
+        A = torch.as_tensor(A).to(device=device, dtype=dtype)
+        if tuple(A.shape) != (I, rank):
+            raise ValueError(f"factor {n} has shape {tuple(A.shape)}; "
+                             f"expected {(I, rank)}")
+        A = A.clamp_min(1e-10)
+        out.append((A / A.sum(dim=0, keepdim=True)).contiguous())
+    return out
+
+
+def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
+                 view: OrientedView | None, mode: int, lam, factors,
+                 phi_prev, first_outer: bool, pre_pi: bool, p: CpaprParams):
+    """One full Alg. 2 mode update (lines 4-15). Returns (A, λ, Φ of the
+    final B, converged, inner steps taken, KKT of the first step, host
+    seconds blocked on KKT reads)."""
+    A = factors[mode]
+    # Line 4: inadmissible-zero adjustment (skipped on the first outer
+    # iteration).
+    if first_outer:
+        S = torch.zeros_like(A)
+    else:
+        S = torch.where((A < p.kappa_tol) & (phi_prev > 1.0),
+                        A.new_tensor(p.kappa), A.new_tensor(0.0))
+    B = (A + S) * lam[None, :]                        # line 5: B = (A+S)Λ
+
+    pi = None
+    if pre_pi:
+        # Line 6 (Π, M×R rows) in the element order the plan's traversal
+        # consumes: the view's order for an oriented mode, ALTO order for a
+        # recursive one.
+        oriented = (view is not None
+                    and heuristics.is_oriented(plan.modes[mode].traversal))
+        words = view.words if oriented else at.words
+        pi = krp_rows(ops.delinearize(at.meta.enc, words), factors,
+                      mode).contiguous()
+    operands = dict(pi=pi) if pre_pi else dict(factors=factors)
+    tau = float(np.float32(p.tau))     # the float32 comparison of the scan
+
+    Phi = None
+    kkt_first = None
+    n_inner = 0
+    wait = 0.0
+    for _ in range(p.l_max):
+        Phi = plan_mod.execute_phi(plan, at, view, B, mode, eps=p.eps_div,
+                                   **operands)               # line 8
+        kkt_t = torch.minimum(B, 1.0 - Phi).abs().max()     # line 9
+        t0 = time.perf_counter()
+        kkt = kkt_t.item()
+        wait += time.perf_counter() - t0
+        if kkt_first is None:
+            kkt_first = kkt
+        if kkt < tau:
+            break            # frozen: further steps recompute this Φ
+        B = B * Phi                                          # line 13
+        n_inner += 1
+
+    lam_new = B.sum(dim=0)                            # line 15: λ = eᵀB
+    lam_new = torch.where(lam_new > 0, lam_new, torch.ones_like(lam_new))
+    A_new = B / lam_new[None, :]
+    return A_new, lam_new, Phi, n_inner == 0, n_inner, kkt_first, wait
+
+
+def log_likelihood(at: AltoTensor, lam, factors,
+                   eps: float = 1e-10) -> torch.Tensor:
+    """Poisson log-likelihood Σ x·log(m) − Σ m (columns 1-normalized), as
+    a 0-d tensor on the tensor's device; the decode goes through K4."""
+    coords = ops.delinearize(at.meta.enc, at.words)
+    prod = lam[None, :].expand(coords.shape[0], -1)
+    for m, A in enumerate(factors):
+        prod = prod * A[coords[:, m].long()]
+    model = prod.sum(dim=-1).clamp_min(eps)
+    ll = (at.values * torch.log(model)).sum()         # padding: v = 0
+    return ll - lam.sum()
+
+
+def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
+           seed: int = 0, pi_policy: str | None = None,
+           views: dict[int, OrientedView] | None = None,
+           track_ll: bool = False,
+           plan: plan_mod.ExecutionPlan | None = None,
+           factors: list[torch.Tensor] | None = None,
+           lam: torch.Tensor | None = None) -> CpaprResult:
+    """CP-APR MU driver (Alg. 2) on the tensor's device. ``pi_policy``:
+    None (the plan's) | ``"pre"`` | ``"otf"``.
+
+    ``factors`` and ``lam`` give the starting state (clamped positive,
+    columns rescaled to sum 1; λ defaults to Σx / rank); without
+    ``factors`` it is `init_factors` with ``seed``. ``plan`` defaults to
+    `plan.plan_for` (kernels on CUDA, reference traversals on the CPU);
+    oriented views come from the view cache (`core.views`).
+    """
+    resolve_device(at.device)
+    p = params or CpaprParams()
+    if pi_policy not in (None, "pre", "otf"):
+        raise ValueError(f"unknown pi_policy {pi_policy!r}")
+    N = len(at.dims)
+    dtype = at.values.dtype
+    if at.meta.nnz == 0:
+        # The zero model maximizes the Poisson likelihood of an all-zero
+        # tensor (λ → 0): a converged result instead of NaN iterations.
+        return CpaprResult(
+            lam=torch.zeros((rank,), dtype=dtype, device=at.device),
+            factors=[torch.zeros((I, rank), dtype=dtype, device=at.device)
+                     for I in at.dims],
+            kkt_violations=[0.0], log_likelihoods=[], n_outer=0,
+            n_inner_total=0, pi_policy=pi_policy or "otf",
+            traversals=["oriented"] * N, plan=plan)
+    if plan is None:
+        plan = plan_mod.plan_for(at, rank)
+    elif plan.rank != rank:
+        raise ValueError(f"plan was built for rank {plan.rank}, "
+                         f"cp_apr called with rank {rank}")
+    total = float(at.values.sum())
+    if factors is None:
+        lam0, factors = init_factors(at.dims, rank, seed=seed, total=total,
+                                     dtype=dtype, device=at.device)
+        lam = lam0 if lam is None else lam
+    else:
+        factors = _starting_factors(factors, at.dims, rank, dtype,
+                                    at.device)
+    if lam is None:
+        lam = torch.full((rank,), total / rank, dtype=dtype,
+                         device=at.device)
+    lam = torch.as_tensor(lam).to(device=at.device, dtype=dtype)
+    if pi_policy is None:
+        pi_policy = plan.pi_policy.value
+    pre_pi = pi_policy == "pre"
+
+    if views is None:
+        views = plan_mod.build_views(at, plan)
+    traversals = [plan.modes[n].traversal.value
+                  if (n in views
+                      and heuristics.is_oriented(plan.modes[n].traversal))
+                  else "recursive" for n in range(N)]
+
+    phi_prev = [torch.zeros_like(A) for A in factors]
+    kkt_hist: list[float] = []
+    ll_hist: list[float] = []
+    n_inner_total = 0
+    wait_s = 0.0
+    outer = 0
+    for outer in range(1, p.k_max + 1):
+        all_converged = True
+        kkt_max = 0.0
+        for n in range(N):
+            A, lam, phi_prev[n], conv, n_inner, kkt, wait = _mode_update(
+                plan, at, views.get(n), n, lam, factors, phi_prev[n],
+                first_outer=(outer == 1), pre_pi=pre_pi, p=p)
+            factors = list(factors)
+            factors[n] = A
+            n_inner_total += n_inner
+            wait_s += wait
+            all_converged &= conv
+            kkt_max = max(kkt_max, kkt)
+        kkt_hist.append(kkt_max)
+        if track_ll:
+            ll_hist.append(float(log_likelihood(at, lam, factors)))
+        if all_converged:                              # lines 17-19
+            break
+    return CpaprResult(lam=lam, factors=factors, kkt_violations=kkt_hist,
+                       log_likelihoods=ll_hist, n_outer=outer,
+                       n_inner_total=n_inner_total, pi_policy=pi_policy,
+                       traversals=traversals, plan=plan, kkt_wait_s=wait_s)

@@ -1,8 +1,9 @@
 """MTTKRP and the ALTO sparse row reductions, in plain PyTorch (paper
 Alg. 3/4) — the plan's ``"reference"`` backend and the tests' oracles.
 
-MTTKRP for CP-ALS is a per-nonzero contribution of R values, reduced by
-the target-mode row. The two paper traversals:
+MTTKRP for CP-ALS (and Φ for CP-APR, `phi_contributions`) is a
+per-nonzero contribution of R values, reduced by the target-mode row.
+The two paper traversals:
 
   * recursive       — ALTO-ordered chunks per balanced partition, local
                       dense ``Temp`` buffers bounded by the partition's
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.core import heuristics
 from repro_torch.core.alto import AltoTensor, OrientedView
-from repro_torch.core.encoding import delinearize
+from repro_torch.core.encoding import delinearize, extract_mode
 
 
 def krp_rows(coords: torch.Tensor, factors: Sequence[torch.Tensor],
@@ -42,6 +43,40 @@ def contributions(enc, words: torch.Tensor, values: torch.Tensor,
     """values[:, None] * krp: the (M, R) per-nonzero MTTKRP terms."""
     coords = delinearize(enc, words)
     return values[:, None] * krp_rows(coords, factors, mode)
+
+
+def phi_contributions(enc, mode: int, words: torch.Tensor,
+                      values: torch.Tensor, rows: torch.Tensor | None,
+                      B: torch.Tensor, factors=None, pi=None,
+                      eps: float = 1e-10) -> torch.Tensor:
+    """The (M, R) per-nonzero CP-APR Φ terms (paper Alg. 5):
+    ``(v / max(<B[row, :], krp>, eps)) · krp``.
+
+    ``krp`` is the Khatri-Rao row of the other modes (ALTO-OTF,
+    ``factors=``) or the given Π row (ALTO-PRE, ``pi=``): exactly one.
+    ``rows`` is the target row of each element, or None to decode it from
+    the words. The denominator is summed serially in rank order from 0.0
+    and floored with ``fmax`` (NaN-ignoring, as C's ``fmaxf``), the order
+    of the Φ kernels (``csrc/phi_update.cuh``), so every route's plain
+    version rounds each term as its kernel does.
+    """
+    if (pi is None) == (factors is None):
+        raise ValueError("pass exactly one of pi= / factors=")
+    if pi is None:
+        coords = delinearize(enc, words)
+        krp = krp_rows(coords, factors, mode)
+        if rows is None:
+            rows = coords[:, mode]
+    else:
+        krp = pi
+        if rows is None:
+            rows = extract_mode(enc, words, mode)
+    prod = B[rows.long()] * krp
+    dot = prod.new_zeros(prod.shape[0])
+    for k in range(prod.shape[1]):
+        dot = dot + prod[:, k]
+    denom = torch.fmax(dot, dot.new_tensor(eps))
+    return (values / denom)[:, None] * krp
 
 
 # ---------------------------------------------------------------------------
@@ -80,17 +115,27 @@ def row_reduce_recursive(at: AltoTensor, mode: int,
     return pull_rows(temp, at.part_start[:, mode], meta.dims[mode])
 
 
+def pull_pieces(part_start_mode: torch.Tensor, T: int, out_dim: int):
+    """The pull's pieces in a fixed order: the global rows of the ``L·T``
+    Temp rows, stably sorted, and the permutation that sorts them. Each
+    output row's pieces then come in partition order. Rows past a
+    partition's interval hold zeros; their index is clamped into range."""
+    rows = (part_start_mode.long()[:, None]
+            + torch.arange(T, device=part_start_mode.device)[None, :])
+    return torch.sort(rows.reshape(-1).clamp_max(out_dim - 1), stable=True)
+
+
 def pull_rows(temp: torch.Tensor, part_start_mode: torch.Tensor,
               out_dim: int) -> torch.Tensor:
-    """Pull reduction of (L, T, R) Temp buffers into (out_dim, R). Rows
-    past a partition's interval hold zeros; their clamped global index
-    keeps the scatter in bounds."""
+    """Pull reduction of (L, T, R) Temp buffers into (out_dim, R) (Alg. 4
+    lines 14-18): every output row adds the partitions covering it in
+    partition order, the `pull_pieces` summed in sorted order (on the CPU
+    ``index_add_`` adds in index order). `kernels.ops.pull_reduction`
+    hands the same pieces to the fix-up kernel on the card."""
     L, T, R = temp.shape
-    rows = (part_start_mode.long()[:, None]
-            + torch.arange(T, device=temp.device)[None, :])
-    rows = rows.clamp_max(out_dim - 1)
+    rows, order = pull_pieces(part_start_mode, T, out_dim)
     return temp.new_zeros((out_dim, R)).index_add_(
-        0, rows.reshape(-1), temp.reshape(L * T, R))
+        0, rows, temp.reshape(L * T, R)[order])
 
 
 def row_reduce_oriented(view: OrientedView,

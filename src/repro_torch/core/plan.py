@@ -13,7 +13,9 @@ A plan answers, per mode:
     Hopper model below of the kernels in ``kernels/csrc``;
   * **backend** — ``"cuda"`` (the hand-written kernels; on CPU tensors
     their plain versions) or ``"reference"`` (the plain traversals of
-    `core.mttkrp`). The default follows the tensor's device.
+    `core.mttkrp`). The default follows the tensor's device;
+  * **Π policy** (CP-APR, per tensor) — ALTO-PRE or ALTO-OTF
+    (`heuristics.choose_pi_policy`, paper §4.3).
 
 The Hopper model. In every kernel a thread owns one rank column of one
 slice of the stream (a ``block_m`` slice, or an ALTO partition for the
@@ -72,6 +74,7 @@ class ExecutionPlan:
     rank: int
     backend: str                       # "cuda" | "reference"
     modes: tuple[ModePlan, ...]
+    pi_policy: heuristics.PiPolicy = heuristics.PiPolicy.OTF   # CP-APR
 
     def mode_plan(self, mode: int) -> ModePlan:
         return self.modes[mode]
@@ -136,7 +139,8 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
         raise ValueError(f"unknown backend {backend!r}")
     modes = tuple(static_mode_plan(meta, n, rank)
                   for n in range(meta.enc.ndim))
-    return ExecutionPlan(meta=meta, rank=rank, backend=backend, modes=modes)
+    return ExecutionPlan(meta=meta, rank=rank, backend=backend, modes=modes,
+                         pi_policy=heuristics.choose_pi_policy(meta, rank))
 
 
 def plan_for(at: AltoTensor, rank: int, **kwargs) -> ExecutionPlan:
@@ -179,3 +183,35 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
     if oriented:
         return core_mttkrp.mttkrp_oriented(views[mode], factors)
     return core_mttkrp.mttkrp_recursive(at, factors, mode)
+
+
+def execute_phi(plan: ExecutionPlan, at: AltoTensor,
+                view: OrientedView | None, B: torch.Tensor, mode: int,
+                factors=None, pi: torch.Tensor | None = None,
+                eps: float = 1e-10) -> torch.Tensor:
+    """CP-APR Φ row reduction for one mode through the plan's kernel
+    choice. Pass ``pi`` (Π rows in the view's order for an oriented mode,
+    in ALTO order for a recursive one: ALTO-PRE) or ``factors``
+    (ALTO-OTF), exactly one. A mode routed oriented without a view runs
+    recursive, as in `execute_mttkrp`."""
+    if (pi is None) == (factors is None):
+        raise ValueError("pass exactly one of pi= / factors=")
+    mp = plan.modes[mode]
+    oriented = heuristics.is_oriented(mp.traversal) and view is not None
+    if plan.backend == "cuda":
+        if not oriented:
+            return ops.cpapr_phi(at, B, mode, factors=factors, pi=pi,
+                                 eps=eps, threads=mp.threads)
+        fn = (ops.cpapr_phi_oriented_carry
+              if mp.traversal is heuristics.Traversal.ORIENTED_CARRY
+              else ops.cpapr_phi_oriented)
+        return fn(view, B, factors=factors, pi=pi, eps=eps,
+                  block_m=mp.block_m, threads=mp.threads)
+    # reference backend: the plain traversals of core.mttkrp.
+    src = view if oriented else at
+    contrib = core_mttkrp.phi_contributions(
+        plan.meta.enc, mode, src.words, src.values,
+        view.rows if oriented else None, B, factors=factors, pi=pi, eps=eps)
+    if oriented:
+        return core_mttkrp.row_reduce_oriented(view, contrib)
+    return core_mttkrp.row_reduce_recursive(at, mode, contrib)

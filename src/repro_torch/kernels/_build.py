@@ -32,14 +32,16 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 # C signatures: library -> {function: argtypes}. All return int.
 _ALTO = [_P, _P, _I, _I, _I, _I, _I]        # factor ptrs, runs table, ...
+_PHI = [_P, _P, _F]                          # B, Π or null, eps
 SIGNATURES = {
     "mttkrp_oriented": {
         "alto_carry_runs": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
                                     _P],
-        "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _P, _P],
+        "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _I, _P, _P],
         "alto_oriented_partials": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P,
                                            _P],
     },
@@ -47,10 +49,24 @@ SIGNATURES = {
         "alto_recursive_partials": _ALTO + [_P, _P, _P, _L, _L, _L, _I, _I,
                                             _P, _P],
     },
+    "delinearize": {
+        "alto_delinearize": [_P, _I, _I, _I, _P, _L, _L, _P, _P],
+    },
+    "phi_oriented": {
+        "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [_L, _L, _I, _P,
+                                                              _P, _P, _P],
+        "alto_phi_oriented_partials": _ALTO + [_P, _P, _P] + _PHI + [
+            _L, _L, _I, _P, _P],
+    },
+    "cpapr_phi": {
+        "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [_L, _L, _L, _I,
+                                                            _P, _P],
+    },
 }
 
 KERNELS = ("carry_runs", "carry_fixup", "oriented_partials",
-           "recursive_partials")
+           "recursive_partials", "delinearize", "phi_carry_runs",
+           "phi_oriented_partials", "phi_partials")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 BUILD_LOG: dict[str, str] = {}     # library -> nvcc output (ptxas -v)

@@ -50,6 +50,28 @@ def check_factors(enc: AltoEncoding, factors, rank: int) -> None:
         check_tensor(f, f"factor {m}", torch.float32, (enc.dims[m], rank))
 
 
+def check_phi_operands(enc, mode: int, M: int, B, factors, pi,
+                       r_block: int | None):
+    """Checks shared by the Φ wrappers: exactly one of ``factors`` (OTF)
+    and ``pi`` (PRE), B ``(I_n, R)``, and no rank tiles. Returns the
+    factors as a list (or None) and R."""
+    if (pi is None) == (factors is None):
+        raise ValueError("pass exactly one of pi= / factors=")
+    R = B.shape[1]
+    if r_block not in (None, R):
+        raise ValueError(f"the Φ kernels take the whole rank: r_block "
+                         f"{r_block} != R {R}")
+    if R > 1024:
+        raise ValueError(f"rank {R} exceeds one CTA's 1024 threads")
+    check_tensor(B, "B", torch.float32, (enc.dims[mode], R))
+    if pi is not None:
+        check_tensor(pi, "pi", torch.float32, (M, R))
+        return None, R
+    factors = list(factors)
+    check_factors(enc, factors, R)
+    return factors, R
+
+
 @functools.lru_cache(maxsize=256)
 def _runs_table(enc: AltoEncoding) -> np.ndarray:
     """(n_runs, 5) int32 rows (word, mode, src, dst, length), by mode."""
@@ -60,15 +82,23 @@ def _runs_table(enc: AltoEncoding) -> np.ndarray:
     return table
 
 
-def alto_args(enc: AltoEncoding, mode: int, factors, rank: int):
-    """The leading C arguments of every MTTKRP entry: factor addresses,
-    the BitRun table, and the encoding's sizes. The two numpy arrays are
-    returned first so the caller keeps them alive across the call."""
+def runs_table(enc: AltoEncoding) -> np.ndarray:
+    """The encoding's BitRun table for the C entries, checked against the
+    kernels' limits."""
     if not 2 <= enc.ndim <= MAX_MODES or len(enc.runs) > MAX_RUNS:
         raise ValueError(f"encoding of {enc.dims} exceeds the kernel's "
                          f"{MAX_MODES} modes / {MAX_RUNS} runs")
-    ptrs = np.array([f.data_ptr() for f in factors], dtype=np.int64)
-    table = _runs_table(enc)
+    return _runs_table(enc)
+
+
+def alto_args(enc: AltoEncoding, mode: int, factors, rank: int):
+    """The leading C arguments of every MTTKRP and Φ entry: factor
+    addresses (null under ALTO-PRE, ``factors=None``), the BitRun table,
+    and the encoding's sizes. The two numpy arrays are returned first so
+    the caller keeps them alive across the call."""
+    ptrs = np.array([0] * enc.ndim if factors is None
+                    else [f.data_ptr() for f in factors], dtype=np.int64)
+    table = runs_table(enc)
     keep = (ptrs, table)
     args = [ptrs.ctypes.data_as(ctypes.c_void_p),
             table.ctypes.data_as(ctypes.c_void_p), len(table), enc.ndim,

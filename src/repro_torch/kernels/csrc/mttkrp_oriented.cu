@@ -26,6 +26,10 @@
 //     stores the inner runs and sends the first/last runs through the same
 //     carry_fixup. So K1 and K2+segment_merge add the same pieces in the
 //     same order and agree bit for bit.
+// The traversal loops live in alto_scan.cuh, shared with the Φ kernels
+// (phi_oriented.cu); carry_fixup also finishes the Φ carry route and,
+// with one slot per piece, the deterministic pull reduction
+// (ops.pull_reduction: the Temp rows sorted by global row).
 //
 // What bounds it on an H100: bytes. Each nonzero reads its row (4 B), its
 // words (4·W B), its value (4 B) and, per rank column, one factor entry of
@@ -36,129 +40,44 @@
 // bound; the design answers with many slices in flight (block_m chosen so
 // the card holds several waves) rather than with shared-memory staging,
 // which is later work.
-#include "alto_decode.cuh"
+#include "alto_scan.cuh"
 
 namespace {
 
-__global__ void carry_runs_kernel(const __grid_constant__ AltoArgs a,
-                                  const int* __restrict__ rows,
-                                  const uint32_t* __restrict__ words,
-                                  const float* __restrict__ values,
-                                  int64_t block_m, int64_t n_blocks,
-                                  int r_block, float* __restrict__ out,
-                                  int* __restrict__ carry_row,
-                                  float* __restrict__ carry_val) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.y +
-                    threadIdx.y;
-  if (b >= n_blocks) return;
-  const int R = a.rank;
-  const int r = blockIdx.y * r_block + threadIdx.x;
-  const bool writes_rows = threadIdx.x == 0 && blockIdx.y == 0;
-  const int64_t s = b * block_m;
-  const int64_t e = s + block_m;
-  int cur = __ldg(rows + s);
-  float acc = 0.0f;
-  bool first = true;
-  for (int64_t i = s; i < e; ++i) {
-    const int row = __ldg(rows + i);
-    if (row != cur) {
-      if (first) {
-        if (writes_rows) carry_row[2 * b] = cur;
-        carry_val[(2 * b) * R + r] = acc;
-        first = false;
-      } else {
-        out[static_cast<int64_t>(cur) * R + r] = acc;
-      }
-      cur = row;
-      acc = 0.0f;
-    }
-    acc = __fadd_rn(acc, alto_contrib(a, words, values, i, r));
-  }
-  if (first) {  // one run covers the slice: it is the first piece only
-    if (writes_rows) {
-      carry_row[2 * b] = cur;
-      carry_row[2 * b + 1] = -1;
-    }
-    carry_val[(2 * b) * R + r] = acc;
-    carry_val[(2 * b + 1) * R + r] = 0.0f;
-  } else {
-    if (writes_rows) carry_row[2 * b + 1] = cur;
-    carry_val[(2 * b + 1) * R + r] = acc;
-  }
-}
-
-// Pieces are numbered p = 2·b + slot (slot 0: first run, slot 1: last run,
-// row -1 when absent). A row's pieces are consecutive present pieces.
+// Pieces are numbered p = slots·b + slot. With two slots (K1's carries,
+// segment_merge) slot 0 holds a block's first run and slot 1 its last run,
+// row -1 when absent. With one slot (the pull reduction) every piece is
+// present and the pieces are sorted by row. Either way a row's pieces are
+// consecutive present pieces.
 __global__ void carry_fixup_kernel(const int* __restrict__ carry_row,
                                    const float* __restrict__ carry_val,
-                                   int64_t n_pieces, int R, int r_block,
-                                   float* __restrict__ out) {
+                                   int64_t n_pieces, int slots, int R,
+                                   int r_block, float* __restrict__ out) {
   const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.y +
                     threadIdx.y;
   if (p >= n_pieces) return;
   const int r = blockIdx.y * r_block + threadIdx.x;
   const int row = carry_row[p];
   if (row < 0) return;
-  const int64_t b = p >> 1;
-  if ((p & 1) == 0 && b > 0) {
-    int prev = carry_row[2 * b - 1];     // previous block's last run ...
-    if (prev < 0) prev = carry_row[2 * b - 2];  // ... or its only run
+  const int64_t b = p / slots;
+  if (p == slots * b && b > 0) {
+    int prev = carry_row[p - 1];         // previous block's last run ...
+    if (prev < 0 && slots == 2) prev = carry_row[p - 2];  // ... or its only
     if (prev == row) return;             // not the head of its chain
   }
   float acc = carry_val[p * R + r];
   int64_t q = p;
   for (;;) {
-    const int64_t qb = q >> 1;
+    const int64_t qb = q / slots;
     // A first run followed by a last run in the same block: the next
     // piece holds another row.
-    if ((q & 1) == 0 && carry_row[2 * qb + 1] >= 0) break;
-    const int64_t nq = 2 * (qb + 1);
+    if (slots == 2 && q == 2 * qb && carry_row[q + 1] >= 0) break;
+    const int64_t nq = slots * (qb + 1);
     if (nq >= n_pieces || carry_row[nq] != row) break;
     acc = __fadd_rn(acc, carry_val[nq * R + r]);
     q = nq;
   }
   out[static_cast<int64_t>(row) * R + r] = acc;
-}
-
-__global__ void oriented_partials_kernel(
-    const __grid_constant__ AltoArgs a, const int* __restrict__ rows,
-    const uint32_t* __restrict__ words, const float* __restrict__ values,
-    int64_t block_m, int64_t n_blocks, int r_block,
-    float* __restrict__ partials) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.y +
-                    threadIdx.y;
-  if (b >= n_blocks) return;
-  const int R = a.rank;
-  const int r = blockIdx.y * r_block + threadIdx.x;
-  float* pb = partials + b * block_m * R + r;
-  const int64_t s = b * block_m;
-  const int64_t e = s + block_m;
-  int cur = __ldg(rows + s);
-  float acc = 0.0f;
-  int64_t j = 0;
-  for (int64_t i = s; i < e; ++i) {
-    const int row = __ldg(rows + i);
-    if (row != cur) {
-      pb[j * R] = acc;
-      ++j;
-      cur = row;
-      acc = 0.0f;
-    }
-    acc = __fadd_rn(acc, alto_contrib(a, words, values, i, r));
-  }
-  pb[j * R] = acc;
-  for (++j; j < block_m; ++j) pb[j * R] = 0.0f;
-}
-
-dim3 grid_for(int64_t n, int slices_per_cta, int rank, int r_block) {
-  return dim3(static_cast<unsigned>((n + slices_per_cta - 1) /
-                                    slices_per_cta),
-              static_cast<unsigned>(rank / r_block));
-}
-
-bool bad_tiling(int rank, int r_block, int slices_per_cta) {
-  return r_block < 1 || rank % r_block != 0 || slices_per_cta < 1 ||
-         r_block * slices_per_cta > 1024;
 }
 
 }  // namespace
@@ -174,32 +93,26 @@ int alto_carry_runs(const int64_t* factor_ptrs, const int* runs, int n_runs,
                     void* carry_val, void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) ||
-      bad_tiling(rank, r_block, slices_per_cta) || block_m < 1)
+                      rank))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks == 0) return 0;
-  carry_runs_kernel<<<grid_for(n_blocks, slices_per_cta, rank, r_block),
-                      dim3(r_block, slices_per_cta), 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int*>(rows), static_cast<const uint32_t*>(words),
-      static_cast<const float*>(values), block_m, n_blocks, r_block,
-      static_cast<float*>(out), static_cast<int*>(carry_row),
-      static_cast<float*>(carry_val));
-  return static_cast<int>(cudaGetLastError());
+  return launch_carry_runs(a, MttkrpTerm{}, rows, words, values, block_m,
+                           n_blocks, r_block, slices_per_cta, out,
+                           carry_row, carry_val, stream);
 }
 
-// K1, second pass (also the deterministic half of segment_merge).
+// K1, second pass (also the deterministic half of segment_merge and of
+// the pull reduction).
 int alto_carry_fixup(const void* carry_row, const void* carry_val,
-                     long long n_pieces, int rank, int r_block,
+                     long long n_pieces, int slots, int rank, int r_block,
                      int slices_per_cta, void* out, void* stream) {
-  if (bad_tiling(rank, r_block, slices_per_cta))
+  if (bad_tiling(rank, r_block, slices_per_cta) || slots < 1 || slots > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pieces == 0) return 0;
   carry_fixup_kernel<<<grid_for(n_pieces, slices_per_cta, rank, r_block),
                        dim3(r_block, slices_per_cta), 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(carry_row),
-      static_cast<const float*>(carry_val), n_pieces, rank, r_block,
+      static_cast<const float*>(carry_val), n_pieces, slots, rank, r_block,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
@@ -214,18 +127,11 @@ int alto_oriented_partials(const int64_t* factor_ptrs, const int* runs,
                            void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) ||
-      bad_tiling(rank, r_block, slices_per_cta) || block_m < 1)
+                      rank))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks == 0) return 0;
-  oriented_partials_kernel<<<grid_for(n_blocks, slices_per_cta, rank,
-                                      r_block),
-                             dim3(r_block, slices_per_cta), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const int*>(rows), static_cast<const uint32_t*>(words),
-      static_cast<const float*>(values), block_m, n_blocks, r_block,
-      static_cast<float*>(partials));
-  return static_cast<int>(cudaGetLastError());
+  return launch_oriented_partials(a, MttkrpTerm{}, rows, words, values,
+                                  block_m, n_blocks, r_block, slices_per_cta,
+                                  partials, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
-"""Output-oriented MTTKRP kernels (K1 carry, K2 partials) and their fix-up.
+"""Output-oriented MTTKRP kernels (K1 carry, K2 partials), their fix-up,
+and the CP-APR Φ kernels of the same traversals (K5 carry, K6 partials).
 
-Wrappers around the CUDA kernels of ``csrc/mttkrp_oriented.cu``, each with
-its plain PyTorch version beside it. The input is the row-sorted stream of
-one mode (`core.alto.OrientedView`) padded to a multiple of ``block_m``
-(`ops.pad_sorted_stream`). Slice ``b`` of the stream is elements
-``[b·block_m, (b+1)·block_m)``; a *run* is a maximal stretch of equal rows
-inside one slice.
+Wrappers around the CUDA kernels of ``csrc/mttkrp_oriented.cu`` and
+``csrc/phi_oriented.cu``, each with its plain PyTorch version beside it.
+The input is the row-sorted stream of one mode (`core.alto.OrientedView`)
+padded to a multiple of ``block_m`` (`ops.pad_sorted_stream`). Slice
+``b`` of the stream is elements ``[b·block_m, (b+1)·block_m)``; a *run* is
+a maximal stretch of equal rows inside one slice.
 
 * `carry_runs` (K1, first pass): per slice, every run that begins and
   ends inside it goes straight to ``out``; the first and last runs go to
@@ -15,18 +16,22 @@ inside one slice.
   block order into ``out``.
 * `oriented_partials` (K2): slot ``j`` of slice ``b`` holds the sum of the
   slice's ``j``-th run, zeros elsewhere — the JAX partials layout.
+* `phi_carry_runs` (K5) and `phi_oriented_partials` (K6): the same two
+  traversals summing the Φ term (`core.mttkrp.phi_contributions`) in
+  place of the MTTKRP term, over the whole rank (``r_block == R``).
 
 Accumulation order, shared by every kernel and plain version: a run sums
 its terms in stream order starting from 0.0, and a row's pieces add in
-block order. So K1 equals K2 + `ops.segment_merge` bit for bit, on the
-CPU through the plain versions and on the card through the kernels.
+block order. So K1 equals K2 + `ops.segment_merge` bit for bit, and K5
+equals K6 + `ops.segment_merge`, on the CPU through the plain versions and
+on the card through the kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.encoding import AltoEncoding
-from repro_torch.core.mttkrp import contributions
+from repro_torch.core.mttkrp import contributions, phi_contributions
 from repro_torch.kernels import _build, common
 
 DEFAULT_BLOCK_M = 256
@@ -41,17 +46,22 @@ def run_rank_segments(rows: torch.Tensor) -> torch.Tensor:
     return is_new.cumsum(-1)
 
 
-def _check_stream(enc, rows, words, values, factors, block_m, r_block):
+def _check_rows(enc, rows, words, values, block_m):
     M = rows.shape[0]
-    R = factors[0].shape[1]
     if M % block_m:
         raise ValueError(f"stream length {M} not a multiple of block_m "
                          f"{block_m}")
-    if R % r_block:
-        raise ValueError(f"rank {R} not a multiple of r_block {r_block}")
     common.check_tensor(rows, "rows", torch.int32, (M,))
     common.check_tensor(words, "words", torch.int32, (M, enc.n_words))
     common.check_tensor(values, "values", torch.float32, (M,))
+    return M
+
+
+def _check_stream(enc, rows, words, values, factors, block_m, r_block):
+    M = _check_rows(enc, rows, words, values, block_m)
+    R = factors[0].shape[1]
+    if R % r_block:
+        raise ValueError(f"rank {R} not a multiple of r_block {r_block}")
     common.check_factors(enc, factors, R)
     return M, R
 
@@ -60,17 +70,16 @@ def _check_stream(enc, rows, words, values, factors, block_m, r_block):
 # Plain versions (PyTorch, any device)
 # ---------------------------------------------------------------------------
 
-def block_run_sums(enc: AltoEncoding, mode: int, rows, words, values,
-                   factors, block_m: int):
-    """(n_blocks, block_m, R) run sums in stream order, and the run ids."""
-    M = rows.shape[0]
+def block_run_sums(contrib: torch.Tensor, rows: torch.Tensor,
+                   block_m: int) -> torch.Tensor:
+    """(n_blocks, block_m, R) run sums of the (M, R) terms, in stream
+    order."""
+    M, R = contrib.shape
     nb = M // block_m
-    R = factors[0].shape[1]
-    contrib = contributions(enc, words, values, factors, mode)
     seg = run_rank_segments(rows.reshape(nb, block_m))
     slot = torch.arange(nb, device=rows.device)[:, None] * block_m + seg
     sums = contrib.new_zeros((M, R)).index_add_(0, slot.reshape(-1), contrib)
-    return sums.reshape(nb, block_m, R), seg
+    return sums.reshape(nb, block_m, R)
 
 
 def split_block_runs(partials: torch.Tensor, rows: torch.Tensor,
@@ -101,14 +110,14 @@ def carry_runs_plain(enc: AltoEncoding, mode: int, rows, words, values,
                      factors, block_m: int):
     """Plain version of K1's first pass: (out, carry_row, carry_val)."""
     _build.count_plain("carry_runs", rows)
-    sums, _ = block_run_sums(enc, mode, rows, words, values, factors,
-                             block_m)
+    sums = block_run_sums(contributions(enc, words, values, factors, mode),
+                          rows, block_m)
     return split_block_runs(sums, rows, enc.dims[mode])
 
 
 def carry_fixup_plain(carry_row, carry_val, out):
     """Plain version of the fix-up: add every carried piece to its row in
-    block order (out holds zeros at those rows)."""
+    piece order (out holds zeros at those rows)."""
     _build.count_plain("carry_fixup", out)
     rows = carry_row.reshape(-1)
     keep = rows >= 0
@@ -120,8 +129,30 @@ def oriented_partials_plain(enc: AltoEncoding, mode: int, rows, words,
                             values, factors, block_m: int) -> torch.Tensor:
     """Plain version of K2: (n_blocks, block_m, R) run sums."""
     _build.count_plain("oriented_partials", rows)
-    return block_run_sums(enc, mode, rows, words, values, factors,
-                          block_m)[0]
+    return block_run_sums(contributions(enc, words, values, factors, mode),
+                          rows, block_m)
+
+
+def phi_carry_runs_plain(enc: AltoEncoding, mode: int, eps: float, rows,
+                         words, values, B, factors=None, pi=None,
+                         block_m: int = DEFAULT_BLOCK_M):
+    """Plain version of K5's first pass: (out, carry_row, carry_val)."""
+    _build.count_plain("phi_carry_runs", rows)
+    contrib = phi_contributions(enc, mode, words, values, rows, B,
+                                factors=factors, pi=pi, eps=eps)
+    return split_block_runs(block_run_sums(contrib, rows, block_m), rows,
+                            enc.dims[mode])
+
+
+def phi_oriented_partials_plain(enc: AltoEncoding, mode: int, eps: float,
+                                rows, words, values, B, factors=None,
+                                pi=None, block_m: int = DEFAULT_BLOCK_M
+                                ) -> torch.Tensor:
+    """Plain version of K6: (n_blocks, block_m, R) Φ run sums."""
+    _build.count_plain("phi_oriented_partials", rows)
+    contrib = phi_contributions(enc, mode, words, values, rows, B,
+                                factors=factors, pi=pi, eps=eps)
+    return block_run_sums(contrib, rows, block_m)
 
 
 # ---------------------------------------------------------------------------
@@ -159,21 +190,29 @@ def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
 
 def carry_fixup(carry_row, carry_val, out, r_block: int | None = None,
                 threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K1, second pass: adds each row's carried pieces in block order into
-    ``out`` (in place) and returns it."""
-    nb, R = carry_row.shape[0], out.shape[1]
+    """K1, second pass: adds each row's carried pieces in piece order into
+    ``out`` (in place) and returns it.
+
+    ``carry_row`` is ``(n, slots)``: two slots per block for K1's carries
+    (first and last run, row -1 when absent), or one slot per piece, every
+    piece present and sorted by row (the pull reduction)."""
+    nb, slots = carry_row.shape
+    R = out.shape[1]
     rb = r_block or R
     if R % rb:
         raise ValueError(f"rank {R} not a multiple of r_block {rb}")
-    common.check_tensor(carry_row, "carry_row", torch.int32, (nb, 2))
-    common.check_tensor(carry_val, "carry_val", torch.float32, (nb, 2, R))
+    if slots not in (1, 2):
+        raise ValueError(f"carry_row has {slots} slots, not 1 or 2")
+    common.check_tensor(carry_row, "carry_row", torch.int32, (nb, slots))
+    common.check_tensor(carry_val, "carry_val", torch.float32,
+                        (nb, slots, R))
     common.check_tensor(out, "out", torch.float32, tuple(out.shape))
     if not common.on_cuda(carry_row, carry_val, out):
         return carry_fixup_plain(carry_row, carry_val, out)
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_carry_fixup(
-        carry_row.data_ptr(), carry_val.data_ptr(), 2 * nb, R, rb,
-        common.slices_per_cta(threads, rb), out.data_ptr(),
+        carry_row.data_ptr(), carry_val.data_ptr(), slots * nb, slots, R,
+        rb, common.slices_per_cta(threads, rb), out.data_ptr(),
         common.stream_ptr(out))
     _build.check(status, "alto_carry_fixup")
     _build.count_launch("carry_fixup")
@@ -214,4 +253,77 @@ def oriented_partials(enc: AltoEncoding, mode: int, rows, words, values,
     del keep
     _build.check(status, "alto_oriented_partials")
     _build.count_launch("oriented_partials")
+    return partials
+
+
+def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
+                   values, B, factors=None, pi=None,
+                   block_m: int = DEFAULT_BLOCK_M,
+                   r_block: int | None = None,
+                   threads: int = DEFAULT_THREADS):
+    """K5, first pass: (out with inner runs, carry_row, carry_val). Pass
+    ``pi`` (the stream's Π rows, ALTO-PRE) or ``factors`` (ALTO-OTF)."""
+    M = _check_rows(enc, rows, words, values, block_m)
+    factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
+                                           r_block)
+    tensors = [rows, words, values, B] + (factors or [pi])
+    if not common.on_cuda(*tensors):
+        return phi_carry_runs_plain(enc, mode, eps, rows, words, values, B,
+                                    factors, pi, block_m)
+    nb = M // block_m
+    out = torch.zeros((enc.dims[mode], R), dtype=torch.float32,
+                      device=rows.device)
+    carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
+    carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
+                            device=rows.device)
+    keep, args = common.alto_args(enc, mode, factors, R)
+    lib = _build.library("phi_oriented")
+    status = lib.alto_phi_carry_runs(
+        *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, block_m,
+        nb, common.slices_per_cta(threads, R), out.data_ptr(),
+        carry_row.data_ptr(), carry_val.data_ptr(), common.stream_ptr(rows))
+    del keep
+    _build.check(status, "alto_phi_carry_runs")
+    _build.count_launch("phi_carry_runs")
+    return out, carry_row, carry_val
+
+
+def phi_oriented_carry(enc: AltoEncoding, mode: int, eps: float, rows,
+                       words, values, B, factors=None, pi=None,
+                       block_m: int = DEFAULT_BLOCK_M,
+                       threads: int = DEFAULT_THREADS) -> torch.Tensor:
+    """K5: sorted stream -> final (I_n, R) Φ (runs, then K1's fix-up)."""
+    out, carry_row, carry_val = phi_carry_runs(
+        enc, mode, eps, rows, words, values, B, factors, pi, block_m,
+        threads=threads)
+    return carry_fixup(carry_row, carry_val, out, threads=threads)
+
+
+def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
+                          words, values, B, factors=None, pi=None,
+                          block_m: int = DEFAULT_BLOCK_M,
+                          r_block: int | None = None,
+                          threads: int = DEFAULT_THREADS) -> torch.Tensor:
+    """K6: per-slice Φ run sums (n_blocks, block_m, R)."""
+    M = _check_rows(enc, rows, words, values, block_m)
+    factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
+                                           r_block)
+    tensors = [rows, words, values, B] + (factors or [pi])
+    if not common.on_cuda(*tensors):
+        return phi_oriented_partials_plain(enc, mode, eps, rows, words,
+                                           values, B, factors, pi, block_m)
+    nb = M // block_m
+    partials = torch.empty((nb, block_m, R), dtype=torch.float32,
+                           device=rows.device)
+    keep, args = common.alto_args(enc, mode, factors, R)
+    lib = _build.library("phi_oriented")
+    status = lib.alto_phi_oriented_partials(
+        *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, block_m,
+        nb, common.slices_per_cta(threads, R), partials.data_ptr(),
+        common.stream_ptr(rows))
+    del keep
+    _build.check(status, "alto_phi_oriented_partials")
+    _build.count_launch("phi_oriented_partials")
     return partials

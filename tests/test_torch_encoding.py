@@ -8,14 +8,18 @@ import ast
 import dataclasses
 import pathlib
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import encoding as jenc
+from repro.kernels import ops as jops
 from repro_torch.core import alto as talto
 from repro_torch.core import cpals as tcpals
+from repro_torch.core import cpapr as tcpapr
 from repro_torch.core import encoding as tenc
+from repro_torch.kernels import ops as tops
 from repro_torch.sparse import synthetic as tsyn
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -80,6 +84,23 @@ def test_sort_by_key_stable_order(dims):
         jenc.count_distinct_np(ref_words)
 
 
+@pytest.mark.parametrize("block_m", [64, 1024])
+@pytest.mark.parametrize("dims", SHAPES, ids=str)
+def test_delinearize_kernel_matches_pallas(dims, block_m):
+    """K4 through `ops.delinearize` (its plain version on the CPU) equals
+    the JAX package's Pallas decode in interpret mode, bit for bit; 500
+    words pad to the block multiple and the tail is sliced off."""
+    coords = _coords(dims, 500, seed=4)
+    words = jenc.linearize_np(jenc.make_encoding(dims), coords)
+    ref = jops.delinearize(jenc.make_encoding(dims), jnp.asarray(words),
+                           block_m=block_m, interpret=True)
+    got = tops.delinearize(tenc.make_encoding(dims),
+                           tenc.words_from_np(words), block_m=block_m)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(), coords)
+
+
 def test_high_bit_words_sort_unsigned():
     """Words with bit 31 set must sort above those without (the int32
     storage must not leak a signed order)."""
@@ -134,5 +155,7 @@ def test_entry_points_refuse_missing_cuda():
         talto.build(x)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tcpals.init_factors(x.dims, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcpapr.init_factors(x.dims, 2)
     at = talto.build_device(x, device="cpu")
     assert at.words.device.type == "cpu"

@@ -179,17 +179,21 @@ def test_pad_sorted_stream_matches_reference(n):
     rows = np.sort(rng.integers(0, 9, size=n)).astype(np.int32)
     words = rng.integers(0, 2 ** 32, size=(n, 2), dtype=np.uint32)
     values = rng.standard_normal(n).astype(np.float32)
-    jr, jw, jv, _ = jops.pad_sorted_stream(jnp.asarray(rows),
-                                           jnp.asarray(words),
-                                           jnp.asarray(values), 8)
+    pi = rng.standard_normal((n, 3)).astype(np.float32)
+    jr, jw, jv, jp = jops.pad_sorted_stream(jnp.asarray(rows),
+                                            jnp.asarray(words),
+                                            jnp.asarray(values), 8,
+                                            pi=jnp.asarray(pi))
     view = interop.oriented_view(None, 0, rows, words, values,
                                  np.arange(n), device="cpu")
-    tr, tw, tv = tops.pad_sorted_stream(view.rows, view.words, view.values,
-                                        8)
+    tr, tw, tv, tp = tops.pad_sorted_stream(view.rows, view.words,
+                                            view.values, 8,
+                                            pi=torch.from_numpy(pi))
     np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(tw.numpy().view(np.uint32),
                                   np.asarray(jw))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
 
 
 def test_plan_routes_each_traversal(pair):
@@ -228,8 +232,8 @@ def test_wrappers_reject_bad_arguments(pair):
     _, at, fs = pair
     tf = interop.factors(fs, device="cpu")
     view = talto.oriented_view_device(at, 0)
-    rows, words, values = tops.pad_sorted_stream(view.rows, view.words,
-                                                 view.values, 8)
+    rows, words, values, _ = tops.pad_sorted_stream(view.rows, view.words,
+                                                    view.values, 8)
     with pytest.raises(ValueError, match="r_block"):
         tori.carry_runs(at.meta.enc, 0, rows, words, values, tf, block_m=8,
                         r_block=3)
