@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CP-ALS main path on one CUDA card and check it.
+"""Drive the PyTorch port's CP-ALS and CP-APR paths, in core and out of
+core, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -27,7 +28,20 @@ sm_90a), then:
    iterations, twice: equal bits) and on the DARPA tensor (ALTO-PRE, 2
    outer iterations under the port's plan, K5, and again under the JAX
    package's routing, K6: equal log-likelihoods and KKT violations);
-6. at the main path's shapes, checks each kernel against its plain version
+6. holds the out-of-core chunk kernels (K8 MTTKRP, K9 Φ under both Π
+   policies) against their plain versions chunk by chunk on the
+   out-of-core adversarial layouts with chunks of 1, 2 and 3 blocks, the
+   chunked ops equal to in-core K1 / K5 bit for bit, equal bits on a
+   rerun, and a spilled (memory-mapped, staged) stream equal to in core;
+7. streams the DARPA tensor under a device budget of two chunks of about
+   1/8 of a mode's stream (``make_plan(device_bytes=...)``): 2 CP-ALS
+   iterations whose fits equal the in-core run's first two bit for bit,
+   and 2 CP-APR outer iterations under ALTO-PRE whose log-likelihoods and
+   KKT violations equal the in-core run's; then the Chicago tensor under
+   ALTO-OTF (2 outer iterations) against an in-core run of the same
+   all-carry plan; with the chunked ms per mode against in core, the copy
+   alone, and peak device memory against the plan's byte model;
+8. at the main path's shapes, checks each kernel against its plain version
    and times kernel, plain version and bound.
 
 Each CP-ALS and CP-APR run is driven with the launch counts set to 0 just
@@ -63,6 +77,7 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 RANK = 16
 RTOL = 1e-5
 ATOL_REL = 1e-6
+DEVICE = "cuda"                # the card; phases put their own tensors here
 
 
 def _fail(msg: str) -> None:
@@ -84,7 +99,8 @@ def _imports():
         sys.exit(2)
     sys.path.insert(0, str(ROOT / "src"))
     torch = torch_mod
-    from repro_torch.core import alto, cpals, cpapr, heuristics, mttkrp, plan
+    from repro_torch.core import (alto, cpals, cpapr, heuristics, mttkrp, plan,
+                                  stream, views)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import cpapr_phi as k7
     from repro_torch.kernels import delinearize as k4
@@ -94,7 +110,8 @@ def _imports():
     from repro_torch.sparse import synthetic
     return dict(alto=alto, cpals=cpals, cpapr=cpapr, heuristics=heuristics,
                 mttkrp=mttkrp, plan=plan, build=_build, ops=ops, k3=k3,
-                k4=k4, k7=k7, kori=kori, ref=ref, synthetic=synthetic)
+                k4=k4, k7=k7, kori=kori, ref=ref, synthetic=synthetic,
+                stream=stream, views=views)
 
 
 def _sync():
@@ -203,7 +220,8 @@ def _stream_tensor(row_counts, dims, seed):
     return SparseTensor(dims, coords, vals)
 
 
-def _factors(dims, seed, device="cuda"):
+def _factors(dims, seed, device=None):
+    device = device or DEVICE
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     return [torch.rand((I, RANK), generator=g, device=device) + 0.05
@@ -446,6 +464,130 @@ def phase_small_cp_apr(m) -> dict:
     return out
 
 
+def _chunk_layouts(block_m: int, rng) -> dict:
+    """Row multiplicities of the out-of-core adversarial layouts
+    (tests/test_outofcore.py), over 29 rows."""
+    mixed = rng.integers(0, 2 * block_m, size=29)
+    mixed[0] += 1
+    heavy = np.zeros(29, dtype=np.int64)
+    heavy[rng.choice(29, size=3, replace=False)] = rng.integers(
+        block_m, 3 * block_m, size=3)
+    return {"span_all_chunks": np.eye(29, dtype=np.int64)[7]
+            * (5 * block_m + 3),
+            "distinct": np.ones(29, dtype=np.int64),
+            "duplicates_heavy": heavy, "mixed": mixed}
+
+
+def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
+                        label: str) -> dict:
+    """K8 (policy None) or K9 against its plain version chunk by chunk,
+    chaining the kernel's carry: out and carry value close, carry row
+    equal."""
+    ops, kori = m["ops"], m["kori"]
+    enc, mode = hs.meta.enc, hs.mode
+    n = hs.padded_len(block_m)
+    R = fs[0].shape[1]
+    out = torch.zeros((enc.dims[mode], R), device=DEVICE)
+    crow = torch.full((1,), -1, dtype=torch.int32, device=DEVICE)
+    cval = torch.zeros((1, R), device=DEVICE)
+    bounds = ops._chunk_bounds(n, chunk_m)
+    err = 0.0
+    for i, (s, e) in enumerate(bounds):
+        rows, words, values = (t.to(DEVICE) for t in hs.chunk(s, e))
+        final = i == len(bounds) - 1
+        if policy is None:
+            args = (enc, mode, rows, words, values, fs)
+            got = kori.carry_chunk(*args, out.clone(), crow, cval,
+                                   block_m=block_m, r_block=4, threads=64,
+                                   final=final)
+            want = kori.carry_chunk_plain(*args, out.clone(), crow, cval,
+                                          block_m, final)
+        else:
+            kw = ({"pi": _pi_rows(m, enc, words, fs, mode)}
+                  if policy == "pre" else {"factors": fs})
+            args = (enc, mode, 1e-10, rows, words, values, B)
+            got = kori.phi_carry_chunk(*args, out.clone(), crow, cval, **kw,
+                                       block_m=block_m, threads=64,
+                                       final=final)
+            want = kori.phi_carry_chunk_plain(*args, out.clone(), crow, cval,
+                                              **kw, block_m=block_m,
+                                              final=final)
+        _sync()
+        _check_equal(f"{label} chunk {i} carry_row", got[1], want[1])
+        err = max(err, _check_close(f"{label} chunk {i} out", got[0],
+                                    want[0]),
+                  _check_close(f"{label} chunk {i} carry_val", got[2],
+                               want[2]))
+        out, crow, cval = got
+    return {"phi_carry_chunk" if policy else "carry_chunk": err}
+
+
+def phase_small_chunks(m) -> dict:
+    """The chunk kernels on the out-of-core adversarial layouts: K8 and K9
+    (both Π policies) against their plain versions, the chunked ops equal
+    to in-core K1 / K5 bit for bit (chunks of 1, 2 and 3 blocks, a run
+    spanning every chunk), equal bits on a rerun, and a spilled stream
+    (staged through pinned memory) equal to the pinned one."""
+    dims = (29, 13, 7)
+    ops, stream = m["ops"], m["stream"]
+    worst = {}
+    spill = ROOT / "build" / "chip_smoke_spill"
+    for block_m in (8, 64):
+        rng = np.random.default_rng(100 + block_m)
+        for name, counts in _chunk_layouts(block_m, rng).items():
+            x = _stream_tensor(counts, dims, seed=block_m)
+            x.values[:] = np.abs(x.values) + 1.0       # counts are > 0
+            at = m["alto"].build_device(x, n_partitions=2)
+            fs = _factors(dims, seed=block_m)
+            B = fs[0] * 3.0
+            view = m["alto"].oriented_view_device(at, 0)
+            hs = stream.host_stream(at, 0)
+            if not hs.pinned:
+                _fail("a host stream of a card tensor is not pinned")
+            pi = _pi_rows(m, at.meta.enc, view.words, fs, 0)
+            k1 = ops.mttkrp_oriented_carry(view, fs, block_m, 4, 64)
+            k5 = {"pre": ops.cpapr_phi_oriented_carry(
+                      view, B, pi=pi, block_m=block_m, threads=64),
+                  "otf": ops.cpapr_phi_oriented_carry(
+                      view, B, factors=fs, block_m=block_m, threads=64)}
+            for cb in (1, 2, 3):
+                cm = cb * block_m
+                label = f"chunks {name} block_m={block_m} chunk={cb} blocks"
+                errs = check_chunk_kernels(m, hs, B, fs, block_m, cm, None,
+                                           label)
+                got = ops.mttkrp_oriented_chunked(hs, fs, chunk_m=cm,
+                                                  block_m=block_m,
+                                                  r_block=4, threads=64)
+                _check_equal(f"{label} K8 chunked vs K1", got, k1)
+                _check_equal(f"{label} K8 chunked repeat", got,
+                             ops.mttkrp_oriented_chunked(
+                                 hs, fs, chunk_m=cm, block_m=block_m,
+                                 r_block=4, threads=64))
+                for policy in ("pre", "otf"):
+                    errs.update(check_chunk_kernels(
+                        m, hs, B, fs, block_m, cm, policy,
+                        f"{label} {policy}"))
+                    got = ops.cpapr_phi_oriented_chunked(
+                        hs, B, fs, pre=policy == "pre", chunk_m=cm,
+                        block_m=block_m, threads=64)
+                    _check_equal(f"{label} {policy} K9 chunked vs K5", got,
+                                 k5[policy])
+                    _check_equal(f"{label} {policy} K9 chunked repeat", got,
+                                 ops.cpapr_phi_oriented_chunked(
+                                     hs, B, fs, pre=policy == "pre",
+                                     chunk_m=cm, block_m=block_m,
+                                     threads=64))
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+            mapped = stream.to_memmap(hs, spill / f"{name}-{block_m}")
+            _check_equal(f"chunks {name} block_m={block_m} spilled stream",
+                         ops.mttkrp_oriented_chunked(
+                             mapped, fs, chunk_m=block_m, block_m=block_m,
+                             r_block=4, threads=64), k1)
+    print(f"chip_smoke: small chunk layouts ok, worst errors {worst}")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Main path runs
 # ---------------------------------------------------------------------------
@@ -457,6 +599,8 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
     kernels_of = {trav.ORIENTED_CARRY: {"carry_runs", "carry_fixup"},
                   trav.OUTPUT_ORIENTED: {"oriented_partials", "carry_fixup"},
                   trav.RECURSIVE: {"recursive_partials"}}
+    if p.streaming is not None:
+        kernels_of[trav.ORIENTED_CARRY] = {"carry_chunk"}
     expect = set().union(*(kernels_of[mp.traversal] for mp in p.modes))
     fs = _factors(at.dims, seed=0)
     _sync()
@@ -481,7 +625,7 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
     for f in res.factors:
         if not bool(torch.isfinite(f).all()):
             _fail(f"{label}: non-finite factor")
-    split = iteration_split(m, at, p, res)
+    split = iteration_split(m, at, p, res, fit=p.streaming is None)
     print(f"chip_smoke: {label}: traversals {p.traversals()} fits {fits} "
           f"in {seconds:.3f} s; launches {counts['launches']}; one more "
           f"iteration: {split}")
@@ -489,9 +633,9 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
             "launches": counts["launches"], "res": res, **split}
 
 
-def iteration_split(m, at, p, res) -> dict:
+def iteration_split(m, at, p, res, fit: bool = True) -> dict:
     """Seconds of one more sweep on the card (MTTKRPs + dense algebra)
-    and of its host float64 fit, from the run's final state."""
+    and (``fit``) of its host float64 fit, from the run's final state."""
     cp = m["cpals"]
     views = m["plan"].build_views(at, p)
     normX2 = float((at.values.double() ** 2).sum())
@@ -500,6 +644,8 @@ def iteration_split(m, at, p, res) -> dict:
     fs, lam, M = cp._sweep(p, at, views, res.factors, res.lam)
     _sync()
     sweep_s = time.perf_counter() - t0
+    if not fit:
+        return {"sweep_s": sweep_s}
     t0 = time.perf_counter()
     cp._fit_host(M, fs, lam, normX2)
     return {"sweep_s": sweep_s, "fit_s": time.perf_counter() - t0}
@@ -561,6 +707,8 @@ def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
                   trav.OUTPUT_ORIENTED: {"phi_oriented_partials",
                                          "carry_fixup"},
                   trav.RECURSIVE: {"phi_partials", "carry_fixup"}}
+    if p.streaming is not None:
+        kernels_of[trav.ORIENTED_CARRY] = {"phi_carry_chunk"}
     expect = set().union(*(kernels_of[mp.traversal] for mp in p.modes))
     expect.add("delinearize")              # Π under PRE, log-likelihood
     _sync()
@@ -599,7 +747,8 @@ def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
 
 def phi_mode_times(m, at, p, res) -> list[float]:
     """ms of one execute_phi per mode from the run's final state, as the
-    inner loop calls it (Π built beforehand under PRE)."""
+    inner loop calls it (in core, Π built beforehand under PRE; streamed,
+    each chunk's Π inside the call)."""
     views = m["plan"].build_views(at, p)
     out = []
     for n in range(len(at.dims)):
@@ -607,6 +756,11 @@ def phi_mode_times(m, at, p, res) -> list[float]:
         view = views.get(n)
         oriented = view is not None and m["heuristics"].is_oriented(
             p.modes[n].traversal)
+        if p.streaming is not None and oriented:
+            out.append(_ms(m, m["plan"].execute_phi, p, at, view, B, n,
+                           res.factors, None, 1e-10,
+                           res.pi_policy == "pre", iters=5))
+            continue
         operands = _phi_operands(m, at.meta.enc,
                                  view.words if oriented else at.words,
                                  res.factors, n, res.pi_policy)
@@ -650,6 +804,192 @@ def phase_darpa_apr(m, darpa) -> dict:
     return {"run": port, "onehot_run": onehot}
 
 
+def streamed_plan(m, meta, chunks: int = 8):
+    """The plan under a device budget that holds the chunk-independent
+    residency and two chunks of about ``1/chunks`` of the stream."""
+    pm = m["plan"]
+    L = m["heuristics"].stream_len(meta)
+    budget = (pm.streaming_resident_bytes(meta, RANK)
+              + 2 * pm.stream_elem_bytes(meta) * -(-L // chunks))
+    ps = pm.make_plan(meta, RANK, device_bytes=budget)
+    if ps.streaming is None:
+        _fail(f"budget {budget} did not make the plan stream")
+    return ps
+
+
+def _streamed_views(m, at, ps) -> tuple[dict, float]:
+    """The host streams of a streaming plan, built with the view cache
+    cleared (in-core views and host streams would evict each other under
+    its byte bound)."""
+    m["views"].cache_clear()
+    t0 = time.perf_counter()
+    hs = m["plan"].build_views(at, ps)
+    _sync()
+    return hs, time.perf_counter() - t0
+
+
+def _copy_ms(m, hs) -> tuple[float, float]:
+    """ms of one pinned host-to-device copy of a whole host stream (the
+    library yardstick of the chunk copies), and its GB/s."""
+    srcs = (hs.rows, hs.words, hs.values)
+    dsts = [torch.empty_like(t, device=DEVICE) for t in srcs]
+
+    def copy():
+        for d, t in zip(dsts, srcs):
+            d.copy_(t, non_blocking=True)
+    ms = _ms(m, copy)
+    return ms, hs.nbytes() / (ms * 1e-3) / 1e9
+
+
+def chunk_breakdown(m, hs, sp, mp, res) -> dict:
+    """ms of the steps a streamed Φ under ALTO-PRE takes for one full
+    chunk (the first of the stream): its host-to-device copy, K4 on its
+    words, its Π rows (`core.mttkrp.krp_rows`: PyTorch gathers); and K9
+    under ALTO-OTF on the same chunk, which gathers the factors itself."""
+    ops, enc, mode = m["ops"], hs.meta.enc, hs.mode
+    src = hs.chunk(0, sp.chunk_m)
+    dev = [t.to(DEVICE) for t in src]
+
+    def copy():
+        for d, t in zip(dev, src):
+            d.copy_(t, non_blocking=True)
+    coords = ops.delinearize(enc, dev[1])
+    B = res.factors[mode] * res.lam[None, :]
+    out = torch.zeros_like(B)
+    crow = torch.full((1,), -1, dtype=torch.int32, device=DEVICE)
+    cval = torch.zeros((1, B.shape[1]), device=DEVICE)
+    return {"copy": _ms(m, copy),
+            "delinearize": _ms(m, ops.delinearize, enc, dev[1]),
+            "krp_rows": _ms(m, lambda: m["mttkrp"].krp_rows(
+                coords, res.factors, mode).contiguous()),
+            "k9_otf": _ms(m, m["kori"].phi_carry_chunk, enc, mode, 1e-10,
+                          *dev, B, out, crow, cval, res.factors, None,
+                          mp.block_m, mp.threads, False)}
+
+
+def _peak_above(base: int) -> int:
+    return torch.cuda.max_memory_allocated() - base
+
+
+def check_streamed_mode(m, at, ps, hs, als_res, apr_res, mode: int) -> int:
+    """At real size: chunked MTTKRP (K8) and chunked Φ under ALTO-PRE
+    (K9) on one mode, called back to back with no host wait between the
+    calls, each equal bit for bit to in-core K1 / K5 on the same state.
+    Returns the number of chunked calls checked."""
+    ops, mp, sp = m["ops"], ps.modes[mode], ps.streaming
+    view = m["alto"].oriented_view_device(at, mode)
+    fs = als_res.factors
+    kw = dict(block_m=mp.block_m, threads=mp.threads)
+    k1 = ops.mttkrp_oriented_carry(view, fs, r_block=mp.r_block, **kw)
+    outs = [ops.mttkrp_oriented_chunked(hs[mode], fs, chunk_m=sp.chunk_m,
+                                        r_block=mp.r_block, **kw)
+            for _ in range(3)]
+    for o in outs:
+        _check_equal(f"darpa mode {mode} chunked MTTKRP vs K1", o, k1)
+    del outs, k1
+    pfs = apr_res.factors
+    B = pfs[mode] * apr_res.lam[None, :]
+    k5 = ops.cpapr_phi_oriented_carry(
+        view, B, pi=_pi_rows(m, at.meta.enc, view.words, pfs, mode), **kw)
+    outs = [ops.cpapr_phi_oriented_chunked(hs[mode], B, pfs, pre=True,
+                                           chunk_m=sp.chunk_m, **kw)
+            for _ in range(3)]
+    for o in outs:
+        _check_equal(f"darpa mode {mode} chunked Φ (pre) vs K5", o, k5)
+    return 6
+
+
+def phase_darpa_streamed(m, darpa, darpa_apr) -> dict:
+    """DARPA under a device budget of about 1/8 of a mode's stream per
+    chunk: CP-ALS (2 iterations) and CP-APR under ALTO-PRE (2 outer)
+    through K8 / K9, bit for bit the in-core runs of the same plan."""
+    at, pm, ops = darpa["at"], m["plan"], m["ops"]
+    meta = at.meta
+    ps = streamed_plan(m, meta)
+    sp = ps.streaming
+    if dataclasses.replace(ps, streaming=None) != darpa["plan"]:
+        _fail(f"darpa streamed plan {ps} is not the in-core plan streamed")
+    print(f"chip_smoke: darpa streamed: device_bytes {sp.device_bytes}, "
+          f"chunk_m {sp.chunk_m}, n_chunks {sp.n_chunks}, in-core working "
+          f"set {sp.stream_bytes}")
+    hs, stream_s = _streamed_views(m, at, ps)
+    ops.chunk_stats_clear()
+    _sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    als = run_cp_als(m, at, ps, 2, "darpa cp_als (streamed)")
+    als_peak = _peak_above(base)
+    if als["fits"] != darpa["run"]["fits"][:2]:
+        _fail(f"darpa streamed fits {als['fits']} vs in-core "
+              f"{darpa['run']['fits'][:2]}")
+    stats = ops.chunk_stats()
+    torch.cuda.reset_peak_memory_stats()
+    apr = run_cp_apr(m, at, ps, 2, "darpa cp_apr (streamed)")
+    apr_peak = _peak_above(base)
+    ref = darpa_apr["run"]
+    if (apr["log_likelihoods"] != ref["log_likelihoods"]
+            or apr["kkt_violations"] != ref["kkt_violations"]):
+        _fail(f"darpa streamed cp_apr {apr['log_likelihoods']} "
+              f"{apr['kkt_violations']} vs in-core {ref['log_likelihoods']} "
+              f"{ref['kkt_violations']}")
+    if apr["pi_policy"] != "pre":
+        _fail(f"darpa streamed cp_apr ran {apr['pi_policy']}, not pre")
+    back_to_back = check_streamed_mode(m, at, ps, hs, als["res"],
+                                       apr["res"], 2)
+    mttkrp_ms = mode_times(m, at, ps, hs, als["res"].factors)
+    copy_ms, copy_gbs = _copy_ms(m, hs[2])
+    chunk_ms = chunk_breakdown(m, hs[2], sp, ps.modes[2], apr["res"])
+    model = pm.chunk_hbm_bytes(meta, sp.chunk_m, RANK)
+    info = {"device_bytes": sp.device_bytes, "chunk_m": sp.chunk_m,
+            "n_chunks": sp.n_chunks, "stream_build_s": stream_s,
+            "chunk_stats_cp_als": stats,
+            "chunk_hbm_bytes": model, "peak_above_base_cp_als": als_peak,
+            "peak_above_base_cp_apr": apr_peak,
+            "mttkrp_ms_per_mode": mttkrp_ms,
+            "copy_ms_mode2": copy_ms, "copy_gb_per_s": copy_gbs,
+            "stream_bytes_mode2": hs[2].nbytes(),
+            "host_pinned_bytes": sum(h.nbytes() for h in hs.values()),
+            "pre_chunk_ms": chunk_ms,
+            "back_to_back_calls": back_to_back}
+    print(f"chip_smoke: darpa streamed: fits {als['fits']} equal the "
+          f"in-core run's; cp_apr log-likelihoods and KKT equal the in-core "
+          f"run's; chunked MTTKRP ms per mode {mttkrp_ms}; copy of mode 2's "
+          f"stream alone {copy_ms:.3f} ms ({copy_gbs:.1f} GB/s); chunk stats "
+          f"{stats}; one chunk under ALTO-PRE, ms: {chunk_ms}; peak "
+          f"device memory above the tensor and results "
+          f"{als_peak / 1e9:.3f} GB (CP-ALS), {apr_peak / 1e9:.3f} GB "
+          f"(CP-APR) vs chunk_hbm_bytes {model / 1e9:.3f} GB; pinned host "
+          f"streams {info['host_pinned_bytes'] / 1e9:.3f} GB")
+    return {"plan": ps, "streams": hs, "run": als, "apr_run": apr,
+            **info}
+
+
+def phase_chicago_streamed(m, chicago) -> dict:
+    """Chicago under a budget of about 1/8 of a mode's stream per chunk:
+    CP-APR under ALTO-OTF (2 outer iterations, K9 gathering the factors)
+    bit for bit the in-core run of the same all-carry plan."""
+    at = chicago["at"]
+    ps = streamed_plan(m, at.meta)
+    if ps.pi_policy.value != "otf":
+        _fail(f"chicago streamed Π policy {ps.pi_policy.value}, not otf")
+    m["views"].cache_clear()
+    incore = run_cp_apr(m, at, dataclasses.replace(ps, streaming=None), 2,
+                        "chicago cp_apr (all carry, in core)")
+    hs, stream_s = _streamed_views(m, at, ps)
+    apr = run_cp_apr(m, at, ps, 2, "chicago cp_apr (streamed)")
+    if (apr["log_likelihoods"] != incore["log_likelihoods"]
+            or apr["kkt_violations"] != incore["kkt_violations"]
+            or not all(torch.equal(a, b) for a, b in
+                       zip(apr["res"].factors, incore["res"].factors))):
+        _fail(f"chicago streamed cp_apr {apr['log_likelihoods']} vs in-core "
+              f"{incore['log_likelihoods']}")
+    sp = ps.streaming
+    print(f"chip_smoke: chicago streamed: chunk_m {sp.chunk_m}, n_chunks "
+          f"{sp.n_chunks}; cp_apr equal to the in-core all-carry run")
+    return {"chunk_m": sp.chunk_m, "n_chunks": sp.n_chunks,
+            "stream_build_s": stream_s, "run": apr, "incore_run": incore}
+
+
 # ---------------------------------------------------------------------------
 # Real-size kernel checks and timings
 # ---------------------------------------------------------------------------
@@ -665,6 +1005,8 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "phi_carry_runs": ("phi_oriented.cu", "mttkrp_oriented.py:437"),
     "phi_oriented_partials": ("phi_oriented.cu", "mttkrp_oriented.py:204"),
     "phi_partials": ("cpapr_phi.cu", "cpapr_phi.py:57"),
+    "carry_chunk": ("mttkrp_oriented.cu", "mttkrp_oriented.py:541"),
+    "phi_carry_chunk": ("phi_oriented.cu", "mttkrp_oriented.py:637"),
 }
 
 
@@ -902,6 +1244,64 @@ def time_delinearize(m, at, launches) -> dict:
         _ms(m, k4.delinearize_plain, enc, at.words, iters=3), nbytes)
 
 
+def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
+    """K8 and K9 (ALTO-PRE) on the first full chunk of DARPA mode 2 in
+    the middle of a stream (a carry in, none out is final), from the
+    streamed runs' final states; each against its plain version."""
+    kori = m["kori"]
+    enc, mode = hs.meta.enc, hs.mode
+    W, N, R, bm, th = enc.n_words, enc.ndim, RANK, mp.block_m, mp.threads
+    C = sp.chunk_m
+    rows, words, values = (t.to(DEVICE) for t in hs.chunk(0, C))
+    I_n = enc.dims[mode]
+    crow = rows[:1].clone()          # a carry-in joining the first run
+    cval = torch.ones((1, R), device=DEVICE)
+    # The rows of a chunk hold zeros in out until the chunk stores them;
+    # each kernel gets its own output.
+    out = torch.zeros((I_n, R), device=DEVICE)
+    fs = als_res.factors
+    k8_args = (enc, mode, rows, words, values, fs)
+    got = kori.carry_chunk(*k8_args, out.clone(), crow, cval, bm,
+                           mp.r_block, th, final=False)
+    want = kori.carry_chunk_plain(*k8_args, out.clone(), crow, cval, bm,
+                                  False)
+    _check_equal("darpa chunk K8 carry_row", got[1], want[1])
+    k8_err = max(_check_close("darpa chunk K8 out", got[0], want[0]),
+                 _check_close("darpa chunk K8 carry_val", got[2], want[2]))
+    d = _distinct(rows) * R * 4                 # out (and B) rows touched
+    shape = f"first chunk of mode {mode} of {enc.dims}, C={C}, R={R}, " \
+            f"block_m={bm}"
+    entries = [_entry(
+        "carry_chunk", launches, k8_err,
+        _ms(m, kori.carry_chunk, *k8_args, out, crow, cval, bm, mp.r_block,
+            th, False),
+        _ms(m, kori.carry_chunk_plain, *k8_args, out.clone(), crow, cval,
+            bm, False, iters=3),
+        _stream_bytes(C, W) + _factor_bytes(hs.meta, mode, R) + d,
+        C * R * N, None, shape)]
+
+    pfs = apr_res.factors
+    B = pfs[mode] * apr_res.lam[None, :]
+    pi = _pi_rows(m, enc, words, pfs, mode)
+    k9_args = (enc, mode, 1e-10, rows, words, values, B)
+    out = torch.zeros((I_n, R), device=DEVICE)
+    got = kori.phi_carry_chunk(*k9_args, out.clone(), crow, cval, pi=pi,
+                               block_m=bm, threads=th, final=False)
+    want = kori.phi_carry_chunk_plain(*k9_args, out.clone(), crow, cval,
+                                      pi=pi, block_m=bm, final=False)
+    _check_equal("darpa chunk K9 carry_row", got[1], want[1])
+    k9_err = max(_check_close("darpa chunk K9 out", got[0], want[0]),
+                 _check_close("darpa chunk K9 carry_val", got[2], want[2]))
+    entries.append(_entry(
+        "phi_carry_chunk", launches, k9_err,
+        _ms(m, kori.phi_carry_chunk, *k9_args, out, crow, cval, None, pi,
+            bm, th, False),
+        _ms(m, kori.phi_carry_chunk_plain, *k9_args, out.clone(), crow,
+            cval, None, pi, bm, False, iters=3),
+        C * 8 + C * R * 4 + 2 * d, C * R * 4, None, shape + ", pre"))
+    return entries
+
+
 def mode_times(m, at, p, views, factors) -> list[float]:
     """ms of one execute_mttkrp per mode, as the sweep calls it."""
     return [_ms(m, m["plan"].execute_mttkrp, p, at, views, factors, n,
@@ -931,13 +1331,18 @@ def main() -> int:
     t_start = time.perf_counter()
     small = {"worst_err": phase_small(m), **phase_small_cp_als(m),
              "phi_worst_err": phase_small_phi(m),
-             "cp_apr": phase_small_cp_apr(m)}
+             "cp_apr": phase_small_cp_apr(m),
+             "chunk_worst_err": phase_small_chunks(m)}
     chicago = phase_chicago(m)
     chicago_apr = phase_chicago_apr(m, chicago)
     darpa = phase_darpa(m)
     darpa_apr = phase_darpa_apr(m, darpa)
+    d_str = phase_darpa_streamed(m, darpa, darpa_apr)
+    c_str = phase_chicago_streamed(m, chicago)
     runs = [chicago["run"], darpa["run"], darpa["onehot_run"],
-            chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"]]
+            chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
+            d_str["run"], d_str["apr_run"], c_str["incore_run"],
+            c_str["run"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
 
@@ -956,6 +1361,9 @@ def main() -> int:
     kernels += time_phi_oriented(m, d_view, darpa_apr["run"]["res"], big,
                                  launches)
     kernels.append(time_delinearize(m, darpa["at"], launches))
+    kernels += time_chunks(m, d_str["streams"][2], d_str["plan"].streaming,
+                           d_str["plan"].modes[2], d_str["run"]["res"],
+                           d_str["apr_run"]["res"], launches)
     kernels.sort(key=lambda e: m["build"].KERNELS.index(e["name"]))
     c_views = m["plan"].build_views(chicago["at"], cp)
     per_mode = {"chicago": mode_times(m, chicago["at"], cp, c_views, c_fs),
@@ -964,6 +1372,22 @@ def main() -> int:
                                     d_fs)}
     if [e["name"] for e in kernels] != list(m["build"].KERNELS):
         _fail(f"kernels line lists {[e['name'] for e in kernels]}")
+
+    def ratios(incore, chunked):
+        return [a / b for a, b in zip(incore, chunked)]
+    overlap = {
+        "darpa_mttkrp": ratios(per_mode["darpa"], d_str["mttkrp_ms_per_mode"]),
+        "darpa_phi_pre": ratios(darpa_apr["run"]["phi_ms_per_mode"],
+                                d_str["apr_run"]["phi_ms_per_mode"]),
+        "chicago_phi_otf": ratios(c_str["incore_run"]["phi_ms_per_mode"],
+                                  c_str["run"]["phi_ms_per_mode"])}
+    print(f"chip_smoke: streamed vs in core, ms per mode: darpa MTTKRP "
+          f"{d_str['mttkrp_ms_per_mode']} vs {per_mode['darpa']}; darpa Φ "
+          f"(pre) {d_str['apr_run']['phi_ms_per_mode']} vs "
+          f"{darpa_apr['run']['phi_ms_per_mode']}; chicago Φ (otf) "
+          f"{c_str['run']['phi_ms_per_mode']} vs "
+          f"{c_str['incore_run']['phi_ms_per_mode']}; overlap efficiency "
+          f"(in-core ms / streamed ms) {overlap}")
     for e in kernels:
         if e["launches"] == 0:
             _fail(f"kernel {e['name']} never launched on the main path")
@@ -1001,6 +1425,18 @@ def main() -> int:
                      for mp in dp.modes],
            "cp_apr": _apr_detail(darpa_apr["run"]),
            "cp_apr_onehot": _apr_detail(darpa_apr["onehot_run"])},
+        "darpa_streamed": {k: v for k, v in d_str.items()
+                           if k not in ("plan", "streams", "run", "apr_run")}
+        | {"fits": d_str["run"]["fits"],
+           "cp_als_s": d_str["run"]["seconds"],
+           "sweep_s": d_str["run"]["sweep_s"],
+           "launches": d_str["run"]["launches"],
+           "cp_apr": _apr_detail(d_str["apr_run"])},
+        "chicago_streamed": {k: c_str[k] for k in ("chunk_m", "n_chunks",
+                                                   "stream_build_s")}
+        | {"cp_apr": _apr_detail(c_str["run"]),
+           "cp_apr_incore": _apr_detail(c_str["incore_run"])},
+        "overlap_efficiency": overlap,
         "kernels": kernels, "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"

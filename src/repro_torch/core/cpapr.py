@@ -18,6 +18,12 @@ that reads the KKT violation of each step and stops once it is below
 ``tau``: the semantics of the JAX package's masked ``lax.scan``, whose
 frozen steps only recompute the Φ of an unchanged B. Each inner step
 therefore waits for the card once (`CpaprResult.kkt_wait_s`).
+
+A streaming plan (`core.plan.StreamPlan`) runs the same loop; its Φ is
+the chunked executor over host streams, which takes the factors under
+both Π policies and builds each chunk's Π rows itself under ALTO-PRE, so
+no full-stream Π is built. The log-likelihood still decodes the
+card-resident ALTO tensor: only the oriented copies stream.
 """
 from __future__ import annotations
 
@@ -110,8 +116,10 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
                         A.new_tensor(p.kappa), A.new_tensor(0.0))
     B = (A + S) * lam[None, :]                        # line 5: B = (A+S)Λ
 
+    streamed = (plan.streaming is not None and view is not None
+                and heuristics.is_oriented(plan.modes[mode].traversal))
     pi = None
-    if pre_pi:
+    if pre_pi and not streamed:
         # Line 6 (Π, M×R rows) in the element order the plan's traversal
         # consumes: the view's order for an oriented mode, ALTO order for a
         # recursive one.
@@ -120,7 +128,10 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
         words = view.words if oriented else at.words
         pi = krp_rows(ops.delinearize(at.meta.enc, words), factors,
                       mode).contiguous()
-    operands = dict(pi=pi) if pre_pi else dict(factors=factors)
+    if streamed:
+        operands = dict(factors=factors, pre=pre_pi)
+    else:
+        operands = dict(pi=pi) if pre_pi else dict(factors=factors)
     tau = float(np.float32(p.tau))     # the float32 comparison of the scan
 
     Phi = None

@@ -15,7 +15,14 @@ A plan answers, per mode:
     their plain versions) or ``"reference"`` (the plain traversals of
     `core.mttkrp`). The default follows the tensor's device;
   * **Π policy** (CP-APR, per tensor) — ALTO-PRE or ALTO-OTF
-    (`heuristics.choose_pi_policy`, paper §4.3).
+    (`heuristics.choose_pi_policy`, paper §4.3);
+  * **streaming** — given a device byte budget (``device_bytes=`` or
+    ``$REPRO_DEVICE_BYTES``) that the in-core working set overflows, the
+    plan goes out of core: every mode runs the carry traversal over a
+    host-resident stream in chunks of `StreamPlan.chunk_m` elements
+    (`kernels.ops.mttkrp_oriented_chunked`). The byte models below are
+    the JAX package's, term for term, so both packages pick the same
+    chunks at equal ``block_m``.
 
 The Hopper model. In every kernel a thread owns one rank column of one
 slice of the stream (a ``block_m`` slice, or an ALTO partition for the
@@ -38,6 +45,7 @@ JAX package's VMEM gate forces the one-hot variant.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -68,6 +76,16 @@ class ModePlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Out-of-core chunking decision, present on a plan iff the in-core
+    working set overflows the device byte budget."""
+    chunk_m: int          # elements per chunk (a multiple of every block_m)
+    n_chunks: int         # ceil(stream_len / chunk_m): the chunks executed
+    device_bytes: int     # the budget the choice was made against
+    stream_bytes: int     # the in-core working set that overflowed it
+
+
+@dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
     """Static per-(tensor, rank) kernel routing, hashable."""
     meta: AltoMeta
@@ -75,6 +93,9 @@ class ExecutionPlan:
     backend: str                       # "cuda" | "reference"
     modes: tuple[ModePlan, ...]
     pi_policy: heuristics.PiPolicy = heuristics.PiPolicy.OTF   # CP-APR
+    # Non-None routes every oriented mode through the chunked executors
+    # (the plan forces the carry traversal then).
+    streaming: StreamPlan | None = None
 
     def mode_plan(self, mode: int) -> ModePlan:
         return self.modes[mode]
@@ -110,11 +131,98 @@ def choose_block_m(meta: AltoMeta, r_block: int) -> int:
     return bm
 
 
-def static_mode_plan(meta: AltoMeta, mode: int, rank: int) -> ModePlan:
+# ---------------------------------------------------------------------------
+# Out-of-core byte models and chunk-size selection (the JAX package's)
+# ---------------------------------------------------------------------------
+#
+# What the DEVICE as a whole must hold. In core: the whole padded oriented
+# stream plus the chunk-independent residency (factors, output, Φ's B, the
+# carry). When that overflows the budget the plan streams, with two
+# chunks (double buffer) of the stream on the device at a time. The models
+# count no per-chunk Π or coordinates under ALTO-PRE (chunk_m·(R+N)·4
+# bytes); they are kept as the JAX package has them so that the plans of
+# both packages agree.
+
+def stream_elem_bytes(meta: AltoMeta, dtype_bytes: int = 4) -> int:
+    """Device bytes per streamed element: words + row + value."""
+    return meta.enc.n_words * 4 + 4 + dtype_bytes
+
+
+def streaming_resident_bytes(meta: AltoMeta, rank: int,
+                             dtype_bytes: int = 4) -> int:
+    """Chunk-independent residency of the chunked executors: all factors,
+    the worst-mode (I_max, R) output, Φ's (I_max, R) B, and the (1,) +
+    (1, R) carry."""
+    factors = sum(meta.dims) * rank * dtype_bytes
+    i_max = max(meta.dims)
+    out_accum = i_max * rank * dtype_bytes
+    b_operand = i_max * rank * dtype_bytes
+    carry = 4 + rank * dtype_bytes
+    return factors + out_accum + b_operand + carry
+
+
+def incore_working_set_bytes(meta: AltoMeta, rank: int,
+                             dtype_bytes: int = 4) -> int:
+    """Device bytes of the in-core oriented path: the whole padded stream
+    plus the chunk-independent residency."""
+    return (heuristics.stream_len(meta) * stream_elem_bytes(meta,
+                                                            dtype_bytes)
+            + streaming_resident_bytes(meta, rank, dtype_bytes))
+
+
+def chunk_hbm_bytes(meta: AltoMeta, chunk_m: int, rank: int,
+                    dtype_bytes: int = 4) -> int:
+    """Device bytes of the chunked executors at ``chunk_m``: two chunks in
+    flight plus the chunk-independent residency."""
+    return (2 * chunk_m * stream_elem_bytes(meta, dtype_bytes)
+            + streaming_resident_bytes(meta, rank, dtype_bytes))
+
+
+def needs_streaming(meta: AltoMeta, rank: int, device_bytes: int,
+                    dtype_bytes: int = 4) -> bool:
+    """True iff the in-core working set overflows ``device_bytes``."""
+    return incore_working_set_bytes(meta, rank, dtype_bytes) > device_bytes
+
+
+def chunk_count(meta: AltoMeta, chunk_m: int) -> int:
+    """Chunks the executors run: ceil over the partition-padded stream
+    (the block padding never adds one: chunk_m is a multiple of every
+    block_m)."""
+    return -(-heuristics.stream_len(meta) // chunk_m)
+
+
+def choose_chunk_m(meta: AltoMeta, rank: int, device_bytes: int,
+                   align: int, dtype_bytes: int = 4) -> int:
+    """Largest ``align``-multiple chunk whose double-buffered footprint
+    fits ``device_bytes``, capped at the aligned stream length; one
+    ``align`` chunk when not even that fits (the budget is then
+    advisory). ``align`` is the largest block_m of the plan's modes, so
+    chunk boundaries are block boundaries of every mode."""
+    elem = stream_elem_bytes(meta, dtype_bytes)
+    resident = streaming_resident_bytes(meta, rank, dtype_bytes)
+    avail = device_bytes - resident
+    per_chunk = max(0, avail) // (2 * elem)
+    chunk = max(align, (per_chunk // align) * align)
+    padded = -(-heuristics.stream_len(meta) // align) * align
+    return min(chunk, padded)
+
+
+def default_device_bytes() -> int | None:
+    """Process-wide device byte budget: ``$REPRO_DEVICE_BYTES`` or None
+    (None: never stream)."""
+    v = os.environ.get("REPRO_DEVICE_BYTES", "")
+    return int(v) if v else None
+
+
+def static_mode_plan(meta: AltoMeta, mode: int, rank: int, *,
+                     force_carry: bool = False) -> ModePlan:
     """The analytic-model choice for one mode (float32 traffic: the
-    kernels take float32 only)."""
-    traversal = heuristics.choose_traversal(meta, mode)
-    if heuristics.is_oriented(traversal):
+    kernels take float32 only). ``force_carry`` pins the carry traversal:
+    streaming plans need it, the chunked executors being the carry
+    scan."""
+    traversal = (heuristics.Traversal.ORIENTED_CARRY if force_carry
+                 else heuristics.choose_traversal(meta, mode))
+    if not force_carry and heuristics.is_oriented(traversal):
         traversal = heuristics.choose_oriented_variant(meta, mode, rank,
                                                        dtype_bytes=4)
     rb = choose_rank_block(rank)
@@ -131,16 +239,34 @@ def default_backend(device=None) -> str:
 
 
 def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
-              device=None) -> ExecutionPlan:
+              device=None, device_bytes: int | None = None) -> ExecutionPlan:
     """Resolve heuristics + static meta into a concrete execution plan.
-    ``backend`` defaults from ``device`` (`default_backend`)."""
+    ``backend`` defaults from ``device`` (`default_backend`).
+
+    ``device_bytes`` (default `default_device_bytes`) is the device byte
+    budget: when the in-core working set (float32) overflows it the plan
+    streams (`StreamPlan`), every mode on the carry traversal."""
     backend = backend or default_backend(device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
-    modes = tuple(static_mode_plan(meta, n, rank)
+    if device_bytes is None:
+        device_bytes = default_device_bytes()
+    streaming_needed = (device_bytes is not None
+                        and needs_streaming(meta, rank, device_bytes))
+    modes = tuple(static_mode_plan(meta, n, rank,
+                                   force_carry=streaming_needed)
                   for n in range(meta.enc.ndim))
+    streaming = None
+    if streaming_needed:
+        cm = choose_chunk_m(meta, rank, device_bytes,
+                            max(m.block_m for m in modes))
+        streaming = StreamPlan(
+            chunk_m=cm, n_chunks=chunk_count(meta, cm),
+            device_bytes=device_bytes,
+            stream_bytes=incore_working_set_bytes(meta, rank))
     return ExecutionPlan(meta=meta, rank=rank, backend=backend, modes=modes,
-                         pi_policy=heuristics.choose_pi_policy(meta, rank))
+                         pi_policy=heuristics.choose_pi_policy(meta, rank),
+                         streaming=streaming)
 
 
 def plan_for(at: AltoTensor, rank: int, **kwargs) -> ExecutionPlan:
@@ -149,10 +275,10 @@ def plan_for(at: AltoTensor, rank: int, **kwargs) -> ExecutionPlan:
     return make_plan(at.meta, rank, **kwargs)
 
 
-def build_views(at: AltoTensor,
-                plan: ExecutionPlan) -> dict[int, OrientedView]:
+def build_views(at: AltoTensor, plan: ExecutionPlan) -> dict:
     """Cached oriented views for exactly the modes the plan routes
-    output-oriented (either variant), through `core.views`."""
+    output-oriented (either variant), through `core.views`; host streams
+    (`core.stream.HostStream`) in their place under a streaming plan."""
     from repro_torch.core import views as views_mod
     return views_mod.build_views(at, plan)
 
@@ -166,10 +292,18 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
                    factors, mode: int) -> torch.Tensor:
     """MTTKRP for one mode through the plan's kernel choice. A mode the
     plan routes oriented but without a view falls back to the recursive
-    traversal (same contract as `mttkrp_adaptive`)."""
+    traversal (same contract as `mttkrp_adaptive`). A streaming plan runs
+    the chunked executor over the mode's host stream."""
     mp = plan.modes[mode]
     oriented = (heuristics.is_oriented(mp.traversal)
                 and views is not None and mode in views)
+    if plan.streaming is not None and oriented:
+        if plan.backend == "cuda":
+            return ops.mttkrp_oriented_chunked(
+                views[mode], factors, chunk_m=plan.streaming.chunk_m,
+                block_m=mp.block_m, r_block=mp.r_block, threads=mp.threads)
+        return ops.mttkrp_oriented_chunked_reference(
+            views[mode], factors, chunk_m=plan.streaming.chunk_m)
     if plan.backend == "cuda":
         kw = dict(r_block=mp.r_block, threads=mp.threads)
         if not oriented:
@@ -188,16 +322,37 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
 def execute_phi(plan: ExecutionPlan, at: AltoTensor,
                 view: OrientedView | None, B: torch.Tensor, mode: int,
                 factors=None, pi: torch.Tensor | None = None,
-                eps: float = 1e-10) -> torch.Tensor:
+                eps: float = 1e-10, pre: bool | None = None) -> torch.Tensor:
     """CP-APR Φ row reduction for one mode through the plan's kernel
     choice. Pass ``pi`` (Π rows in the view's order for an oriented mode,
     in ALTO order for a recursive one: ALTO-PRE) or ``factors``
     (ALTO-OTF), exactly one. A mode routed oriented without a view runs
-    recursive, as in `execute_mttkrp`."""
+    recursive, as in `execute_mttkrp`.
+
+    A streaming plan takes ``factors`` under both Π policies (a
+    full-stream Π is the array streaming avoids; the chunked executor
+    builds each chunk's Π rows on the device under ALTO-PRE): ``pre``
+    then names the policy, the plan's by default. In-core routes ignore
+    ``pre``."""
     if (pi is None) == (factors is None):
         raise ValueError("pass exactly one of pi= / factors=")
     mp = plan.modes[mode]
     oriented = heuristics.is_oriented(mp.traversal) and view is not None
+    if plan.streaming is not None and oriented:
+        if factors is None:
+            raise ValueError("streaming Φ needs factors= — chunk Π rows are "
+                             "built on the device per chunk, never passed "
+                             "as a full-stream pi=")
+        pre_flag = (pre if pre is not None
+                    else plan.pi_policy is heuristics.PiPolicy.PRE)
+        if plan.backend == "cuda":
+            return ops.cpapr_phi_oriented_chunked(
+                view, B, factors, pre=pre_flag, eps=eps,
+                chunk_m=plan.streaming.chunk_m, block_m=mp.block_m,
+                threads=mp.threads)
+        return ops.cpapr_phi_oriented_chunked_reference(
+            view, B, factors, pre=pre_flag, eps=eps,
+            chunk_m=plan.streaming.chunk_m)
     if plan.backend == "cuda":
         if not oriented:
             return ops.cpapr_phi(at, B, mode, factors=factors, pi=pi,

@@ -20,6 +20,9 @@ every caller shares the cached tensors (`plan.build_views` routes here).
   (``$REPRO_VIEW_CACHE_SIZE``, default 64; ``$REPRO_VIEW_CACHE_BYTES``,
   default 2 GiB): one view is a full O(nnz) copy. `cache_stats` counts
   hits, misses and builds.
+* **Host streams** — a streaming plan's out-of-core copies
+  (`core.stream.HostStream`, in host memory) live in the same cache under
+  keys tagged ``"stream"``, and count against the same bounds.
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ import threading
 import torch
 
 from repro_torch.core import alto, heuristics
+from repro_torch.core import stream as stream_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
+from repro_torch.core.stream import HostStream
 
 DEFAULT_CACHE_SIZE = 64
 DEFAULT_CACHE_BYTES = 2 * 1024 ** 3
@@ -53,7 +58,9 @@ def _limits() -> tuple[int, int]:
                                DEFAULT_CACHE_BYTES)))
 
 
-def _view_bytes(v: OrientedView) -> int:
+def _view_bytes(v) -> int:
+    if isinstance(v, HostStream):
+        return v.nbytes()
     return sum(a.numel() * a.element_size()
                for a in (v.rows, v.words, v.values, v.perm))
 
@@ -149,15 +156,28 @@ def get_view(at: AltoTensor, mode: int) -> OrientedView:
     return _rebind_meta(key, view, at)
 
 
+def get_stream(at: AltoTensor, mode: int) -> HostStream:
+    """The host-resident stream for ``(at, mode)``: cached, built on a
+    miss (`stream.host_stream`), under a key tagged ``"stream"`` so a
+    tensor decomposed both in core and out of core keeps the two apart.
+    Eviction is safe mid-flight: a chunked executor holds the stream's
+    tensors, which outlive the cache entry."""
+    key = ("stream", *mode_fingerprint(at, mode))
+    hs = _get_or_build(key, lambda: stream_mod.host_stream(at, mode))
+    return _rebind_meta(key, hs, at)
+
+
 def build_views(at: AltoTensor, plan) -> dict:
-    """Cached views for exactly the modes ``plan`` routes oriented."""
-    return {m.mode: get_view(at, m.mode)
+    """Cached views for exactly the modes ``plan`` routes oriented; host
+    streams in their place when the plan streams."""
+    get = get_stream if getattr(plan, "streaming", None) else get_view
+    return {m.mode: get(at, m.mode)
             for m in plan.modes if heuristics.is_oriented(m.traversal)}
 
 
 def invalidate(at: AltoTensor, modes=None) -> int:
-    """Drop the cached views of ``at`` (all modes, or only ``modes``);
-    returns how many entries were evicted."""
+    """Drop the cached views and streams of ``at`` (all modes, or only
+    ``modes``); returns how many entries were evicted."""
     if modes is None:
         modes = range(len(at.dims))
     fps = {mode_fingerprint(at, int(m)) for m in modes}

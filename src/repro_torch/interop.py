@@ -2,9 +2,9 @@
 
 The JAX package's objects are handed over as numpy arrays plus plain ints
 and tuples — this module imports nothing of that package — and come back
-as the port's `AltoTensor`, `OrientedView` and factor tensors on
-``device`` (default ``cuda``). With these, both packages compute on the
-same inputs.
+as the port's `AltoTensor`, `OrientedView`, `HostStream` and factor
+tensors on ``device`` (default ``cuda``; a host stream stays on the
+CPU). With these, both packages compute on the same inputs.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
 from repro_torch.core.encoding import make_encoding, words_from_np
+from repro_torch.core.stream import HostStream
 from repro_torch.device import resolve_device
 
 
@@ -51,6 +52,17 @@ def oriented_view(meta: AltoMeta, mode: int, rows, words, values, perm,
         words=words_from_np(np.asarray(words)).to(dev),
         values=torch.from_numpy(np.array(values)).to(dev),
         perm=torch.from_numpy(np.array(perm, np.int32)).to(dev))
+
+
+def host_stream(meta: AltoMeta, mode: int, length: int, rows, words,
+                values, checksum: int | None = None) -> HostStream:
+    """A `HostStream` from the JAX package's padded host arrays (rows
+    int32, words uint32, values): copies in (unpinned) CPU tensors."""
+    return HostStream(
+        meta=meta, mode=int(mode), length=int(length),
+        rows=torch.from_numpy(np.array(rows, np.int32)),
+        words=words_from_np(np.array(words)),
+        values=torch.from_numpy(np.array(values)), checksum=checksum)
 
 
 def factors(arrays, device=None) -> list[torch.Tensor]:

@@ -44,6 +44,8 @@ SIGNATURES = {
         "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _I, _P, _P],
         "alto_oriented_partials": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P,
                                            _P],
+        "alto_carry_chunk": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
+                                     _P, _P, _I, _P, _P, _P],
     },
     "mttkrp": {
         "alto_recursive_partials": _ALTO + [_P, _P, _P, _L, _L, _L, _I, _I,
@@ -57,6 +59,8 @@ SIGNATURES = {
                                                               _P, _P, _P],
         "alto_phi_oriented_partials": _ALTO + [_P, _P, _P] + _PHI + [
             _L, _L, _I, _P, _P],
+        "alto_phi_carry_chunk": _ALTO + [_P, _P, _P] + _PHI + [
+            _L, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
     "cpapr_phi": {
         "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [_L, _L, _L, _I,
@@ -66,7 +70,8 @@ SIGNATURES = {
 
 KERNELS = ("carry_runs", "carry_fixup", "oriented_partials",
            "recursive_partials", "delinearize", "phi_carry_runs",
-           "phi_oriented_partials", "phi_partials")
+           "phi_oriented_partials", "phi_partials", "carry_chunk",
+           "phi_carry_chunk")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 BUILD_LOG: dict[str, str] = {}     # library -> nvcc output (ptxas -v)

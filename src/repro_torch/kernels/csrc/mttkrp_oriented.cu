@@ -1,5 +1,5 @@
 // Output-oriented MTTKRP on Hopper: the carry kernel (K1), its fix-up pass,
-// and the per-block partials kernel (K2).
+// the per-block partials kernel (K2), and the out-of-core chunk kernel (K8).
 //
 // Replaces, in src/repro/kernels/mttkrp_oriented.py:
 //   K1  mttkrp_oriented_carry_pallas (:358; body _mttkrp_carry_kernel :333,
@@ -7,6 +7,10 @@
 //       open run of one block to the next;
 //   K2  mttkrp_oriented_partials_pallas (:132; body :108) — per-block run
 //       sums as a one-hot (block_m x block_m) matmul on the MXU;
+//   K8  mttkrp_oriented_carry_chunk_pallas (:541; body
+//       _mttkrp_carry_chunk_kernel :511) — K1 over one chunk of a
+//       host-resident stream, the running out and the open run carried in
+//       and out (carry_chunk.cuh: K1's runs pass + a chunk fix-up);
 // and the boundary merge ops.segment_merge (src/repro/kernels/ops.py:171).
 //
 // Design. The input is the row-sorted stream of one mode (rows, words,
@@ -41,6 +45,7 @@
 // the card holds several waves) rather than with shared-memory staging,
 // which is later work.
 #include "alto_scan.cuh"
+#include "carry_chunk.cuh"
 
 namespace {
 
@@ -115,6 +120,29 @@ int alto_carry_fixup(const void* carry_row, const void* carry_val,
       static_cast<const float*>(carry_val), n_pieces, slots, rank, r_block,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8: one chunk of the carry route. out is the running output (zeros at
+// rows no earlier chunk has reached); pieces_row (n_blocks, 2) and
+// pieces_val (n_blocks, 2, rank) are scratch; (cin_row, cin_val) is the
+// open run handed in, (cout_row, cout_val) the one handed on (-1 and zeros
+// after the final chunk). cin and cout must not alias.
+int alto_carry_chunk(const int64_t* factor_ptrs, const int* runs, int n_runs,
+                     int ndim, int nwords, int mode, int rank,
+                     const void* rows, const void* words, const void* values,
+                     long long block_m, long long n_blocks, int r_block,
+                     int slices_per_cta, void* out, void* pieces_row,
+                     void* pieces_val, const void* cin_row,
+                     const void* cin_val, int final_chunk, void* cout_row,
+                     void* cout_val, void* stream) {
+  AltoArgs a;
+  if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
+                      rank))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_carry_chunk(a, MttkrpTerm{}, rows, words, values, block_m,
+                            n_blocks, r_block, slices_per_cta, out,
+                            pieces_row, pieces_val, cin_row, cin_val,
+                            final_chunk, cout_row, cout_val, stream);
 }
 
 // K2. partials is (n_blocks, block_m, rank); every slot is written.

@@ -1,5 +1,6 @@
 """Output-oriented MTTKRP kernels (K1 carry, K2 partials), their fix-up,
-and the CP-APR Φ kernels of the same traversals (K5 carry, K6 partials).
+the CP-APR Φ kernels of the same traversals (K5 carry, K6 partials), and
+the out-of-core chunk kernels of the carry route (K8 MTTKRP, K9 Φ).
 
 Wrappers around the CUDA kernels of ``csrc/mttkrp_oriented.cu`` and
 ``csrc/phi_oriented.cu``, each with its plain PyTorch version beside it.
@@ -19,12 +20,19 @@ a maximal stretch of equal rows inside one slice.
 * `phi_carry_runs` (K5) and `phi_oriented_partials` (K6): the same two
   traversals summing the Φ term (`core.mttkrp.phi_contributions`) in
   place of the MTTKRP term, over the whole rank (``r_block == R``).
+* `carry_chunk` (K8) and `phi_carry_chunk` (K9): K1 / K5 over one chunk
+  of a longer stream (``csrc/carry_chunk.cuh``). They take the running
+  ``out`` and the open run so far, ``(carry_row (1,) int32, carry_val
+  (1, R))`` with row -1 for none, and return ``(out, carry_row,
+  carry_val)``: the run still open at the chunk's end, or (-1, zeros)
+  after the ``final`` chunk. ``out`` is updated in place.
 
 Accumulation order, shared by every kernel and plain version: a run sums
 its terms in stream order starting from 0.0, and a row's pieces add in
-block order. So K1 equals K2 + `ops.segment_merge` bit for bit, and K5
-equals K6 + `ops.segment_merge`, on the CPU through the plain versions and
-on the card through the kernels.
+block order. So K1 equals K2 + `ops.segment_merge` bit for bit, K5 equals
+K6 + `ops.segment_merge`, and K1 (K5) equals K8 (K9) chained over the
+chunks of the same stream, on the CPU through the plain versions and on
+the card through the kernels.
 """
 from __future__ import annotations
 
@@ -83,10 +91,12 @@ def block_run_sums(contrib: torch.Tensor, rows: torch.Tensor,
 
 
 def split_block_runs(partials: torch.Tensor, rows: torch.Tensor,
-                     out_dim: int):
+                     out_dim: int, out: torch.Tensor | None = None):
     """Per-slice run sums -> (out holding every inner run, carry rows,
     carry values): the hand-off from K1's first pass or K2 to
-    `carry_fixup`. Deterministic: inner runs go to distinct rows."""
+    `carry_fixup`. Deterministic: inner runs go to distinct rows. The
+    inner runs are stored into ``out`` when given (a chunk's running
+    output), else into zeros."""
     nb, bm, R = partials.shape
     rows_b = rows.reshape(nb, bm)
     seg = run_rank_segments(rows_b)
@@ -94,7 +104,8 @@ def split_block_runs(partials: torch.Tensor, rows: torch.Tensor,
     seg_rows = torch.zeros_like(rows_b).scatter_(1, seg, rows_b)
     j = torch.arange(bm, device=rows.device)[None, :]
     inner = (j > 0) & (j < last[:, None])
-    out = partials.new_zeros((out_dim, R))
+    if out is None:
+        out = partials.new_zeros((out_dim, R))
     out[seg_rows[inner].long()] = partials[inner]
     b = torch.arange(nb, device=rows.device)
     many = last > 0
@@ -123,6 +134,55 @@ def carry_fixup_plain(carry_row, carry_val, out):
     keep = rows >= 0
     return out.index_add_(0, rows[keep].long(),
                           carry_val.reshape(rows.shape[0], -1)[keep])
+
+
+def carry_fixup_chunk_plain(pieces_row, pieces_val, out, carry_row,
+                            carry_val, final: bool):
+    """Plain version of the chunk fix-up (K8, K9): the carry-in is the
+    first piece, every row's pieces add in piece order into ``out``, and
+    in a non-final chunk the last row's sum is handed on instead.
+    Returns ``(out, carry_row, carry_val)``."""
+    R = out.shape[1]
+    rows = torch.cat([carry_row.reshape(-1), pieces_row.reshape(-1)])
+    vals = torch.cat([carry_val.reshape(-1, R), pieces_val.reshape(-1, R)])
+    keep = rows >= 0
+    rows, vals = rows[keep].long(), vals[keep]
+    if final:
+        return (out.index_add_(0, rows, vals), carry_row.new_full((1,), -1),
+                carry_val.new_zeros((1, R)))
+    tail = rows == rows[-1]
+    out.index_add_(0, rows[~tail], vals[~tail])
+    cout = vals.new_zeros((1, R)).index_add_(
+        0, torch.zeros_like(rows[tail]), vals[tail])
+    return out, rows[-1:].to(torch.int32), cout
+
+
+def carry_chunk_plain(enc: AltoEncoding, mode: int, rows, words, values,
+                      factors, out, carry_row, carry_val, block_m: int,
+                      final: bool):
+    """Plain version of K8: ``(out, carry_row, carry_val)``."""
+    _build.count_plain("carry_chunk", rows)
+    sums = block_run_sums(contributions(enc, words, values, factors, mode),
+                          rows, block_m)
+    _, p_row, p_val = split_block_runs(sums, rows, enc.dims[mode], out=out)
+    return carry_fixup_chunk_plain(p_row, p_val, out, carry_row, carry_val,
+                                   final)
+
+
+def phi_carry_chunk_plain(enc: AltoEncoding, mode: int, eps: float, rows,
+                          words, values, B, out, carry_row, carry_val,
+                          factors=None, pi=None,
+                          block_m: int = DEFAULT_BLOCK_M,
+                          final: bool = True):
+    """Plain version of K9: ``(out, carry_row, carry_val)``."""
+    _build.count_plain("phi_carry_chunk", rows)
+    contrib = phi_contributions(enc, mode, words, values, rows, B,
+                                factors=factors, pi=pi, eps=eps)
+    _, p_row, p_val = split_block_runs(block_run_sums(contrib, rows,
+                                                      block_m),
+                                       rows, enc.dims[mode], out=out)
+    return carry_fixup_chunk_plain(p_row, p_val, out, carry_row, carry_val,
+                                   final)
 
 
 def oriented_partials_plain(enc: AltoEncoding, mode: int, rows, words,
@@ -327,3 +387,88 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
     _build.check(status, "alto_phi_oriented_partials")
     _build.count_launch("phi_oriented_partials")
     return partials
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core chunk kernels (K8, K9)
+# ---------------------------------------------------------------------------
+
+def _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R):
+    if M == 0:
+        raise ValueError("empty chunk: a chunk holds at least one block")
+    common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
+    common.check_tensor(carry_row, "carry_row", torch.int32, (1,))
+    common.check_tensor(carry_val, "carry_val", torch.float32, (1, R))
+
+
+def _chunk_scratch(nb: int, R: int, device):
+    """Pieces (n_blocks, 2) rows and (n_blocks, 2, R) values, and the
+    carry handed on: one (1,) row and one (1, R) value."""
+    return (torch.empty((nb, 2), dtype=torch.int32, device=device),
+            torch.empty((nb, 2, R), dtype=torch.float32, device=device),
+            torch.empty((1,), dtype=torch.int32, device=device),
+            torch.empty((1, R), dtype=torch.float32, device=device))
+
+
+def carry_chunk(enc: AltoEncoding, mode: int, rows, words, values, factors,
+                out, carry_row, carry_val, block_m: int = DEFAULT_BLOCK_M,
+                r_block: int | None = None, threads: int = DEFAULT_THREADS,
+                final: bool = True):
+    """K8: one chunk of the carry MTTKRP -> ``(out, carry_row,
+    carry_val)``. ``out`` is updated in place."""
+    factors = list(factors)
+    rb = r_block or factors[0].shape[1]
+    M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
+    _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R)
+    if not common.on_cuda(rows, words, values, *factors, out, carry_row,
+                          carry_val):
+        return carry_chunk_plain(enc, mode, rows, words, values, factors,
+                                 out, carry_row, carry_val, block_m, final)
+    nb = M // block_m
+    p_row, p_val, c_row, c_val = _chunk_scratch(nb, R, rows.device)
+    keep, args = common.alto_args(enc, mode, factors, R)
+    lib = _build.library("mttkrp_oriented")
+    status = lib.alto_carry_chunk(
+        *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
+        block_m, nb, rb, common.slices_per_cta(threads, rb), out.data_ptr(),
+        p_row.data_ptr(), p_val.data_ptr(), carry_row.data_ptr(),
+        carry_val.data_ptr(), int(final), c_row.data_ptr(), c_val.data_ptr(),
+        common.stream_ptr(rows))
+    del keep
+    _build.check(status, "alto_carry_chunk")
+    _build.count_launch("carry_chunk")
+    return out, c_row, c_val
+
+
+def phi_carry_chunk(enc: AltoEncoding, mode: int, eps: float, rows, words,
+                    values, B, out, carry_row, carry_val, factors=None,
+                    pi=None, block_m: int = DEFAULT_BLOCK_M,
+                    threads: int = DEFAULT_THREADS, final: bool = True):
+    """K9: one chunk of the carry Φ -> ``(out, carry_row, carry_val)``.
+    Pass ``pi`` (the chunk's Π rows, ALTO-PRE) or ``factors`` (ALTO-OTF).
+    ``out`` is updated in place."""
+    M = _check_rows(enc, rows, words, values, block_m)
+    factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
+                                           None)
+    _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R)
+    tensors = [rows, words, values, B, out, carry_row, carry_val] + (
+        factors or [pi])
+    if not common.on_cuda(*tensors):
+        return phi_carry_chunk_plain(enc, mode, eps, rows, words, values, B,
+                                     out, carry_row, carry_val, factors, pi,
+                                     block_m, final)
+    nb = M // block_m
+    p_row, p_val, c_row, c_val = _chunk_scratch(nb, R, rows.device)
+    keep, args = common.alto_args(enc, mode, factors, R)
+    lib = _build.library("phi_oriented")
+    status = lib.alto_phi_carry_chunk(
+        *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, block_m,
+        nb, common.slices_per_cta(threads, R), out.data_ptr(),
+        p_row.data_ptr(), p_val.data_ptr(), carry_row.data_ptr(),
+        carry_val.data_ptr(), int(final), c_row.data_ptr(), c_val.data_ptr(),
+        common.stream_ptr(rows))
+    del keep
+    _build.check(status, "alto_phi_carry_chunk")
+    _build.count_launch("phi_carry_chunk")
+    return out, c_row, c_val

@@ -10,6 +10,11 @@ consume the row-sorted stream padded to the block multiple by
 `pad_sorted_stream` (the final row and words replicated, values and Π
 rows zero).
 
+The chunked entries (`mttkrp_oriented_chunked`,
+`cpapr_phi_oriented_chunked`) run the out-of-core tier: a host-resident
+stream (`core.stream.HostStream`) flows through the card in chunks, K8 /
+K9 carrying the open run from one chunk to the next.
+
 `timing_stats` is the measurement primitive: CUDA events on the card, the
 host clock on the CPU, one bump of `timing_runs` per call.
 """
@@ -22,6 +27,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import mttkrp as core_mttkrp
+from repro_torch.core import stream as _stream
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.core.encoding import AltoEncoding
 from repro_torch.kernels import cpapr_phi as _phi
@@ -198,6 +204,246 @@ def cpapr_phi_oriented_carry(view: OrientedView, B: torch.Tensor,
     return _oriented.phi_oriented_carry(
         view.meta.enc, view.mode, eps, rows, words, values, B,
         factors=factors, pi=pi, block_m=block_m, threads=threads)
+
+
+# ---------------------------------------------------------------------------
+# Out-of-core chunked executors (host stream -> card, cross-chunk carry)
+# ---------------------------------------------------------------------------
+#
+# The host loop that drives K8 / K9. A `HostStream` is cut at
+# block_m-aligned bounds, and (out, carry_row, carry_val) thread from one
+# chunk to the next, all on the card: nothing in the loop reads a value
+# back or synchronizes the host with the compute stream.
+#
+# Double buffering on the card: two device chunk buffers, allocated on the
+# compute stream; the host-to-device copies run on a side stream
+# (`copy_(non_blocking=True)` from pinned memory), which first waits for
+# all work already queued on the compute stream. The compute stream waits
+# on a buffer's "copied" event before it computes on it; the copy stream
+# waits on its "consumed" event before it overwrites it. A stream that is
+# not pinned (a spill's memory map) is staged through two pinned buffers,
+# one chunk each: the host then waits for the copy that last read the
+# staging buffer, two chunks back. On the CPU the chunks are the stream's
+# own slices, and the kernels' plain versions run.
+
+_CHUNK_STATS = {"chunks": 0, "prefetches": 0}
+_COPY_STREAMS: dict[int, "torch.cuda.Stream"] = {}
+
+
+def chunk_stats() -> dict[str, int]:
+    """Chunk-executor counters: chunks executed, and chunk copies started
+    ahead of the compute (each chunk after a stream's first)."""
+    with _LOCK:
+        return dict(_CHUNK_STATS)
+
+
+def chunk_stats_clear() -> None:
+    with _LOCK:
+        for k in _CHUNK_STATS:
+            _CHUNK_STATS[k] = 0
+
+
+def _bump(counter: str, n: int = 1) -> None:
+    with _LOCK:
+        _CHUNK_STATS[counter] += n
+
+
+def _chunk_bounds(padded_len: int, chunk_m: int) -> list[tuple[int, int]]:
+    """Chunk slice bounds over the padded stream (the last may be
+    shorter)."""
+    return [(s, min(s + chunk_m, padded_len))
+            for s in range(0, padded_len, chunk_m)]
+
+
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _LOCK:
+        s = _COPY_STREAMS.get(idx)
+        if s is None:
+            s = _COPY_STREAMS[idx] = torch.cuda.Stream(device=idx)
+    return s
+
+
+def _chunks(hs: _stream.HostStream, bounds, device: torch.device):
+    """The chunks ``(rows, words, values)`` of ``hs`` at ``bounds`` on
+    ``device``, in order, the next chunk's copy in flight while the caller
+    computes on the current one. The caller must enqueue all its work on
+    a chunk before asking for the next."""
+    if not bounds:
+        return
+    _bump("prefetches", len(bounds) - 1)
+    if device.type != "cuda":
+        for s, e in bounds:
+            yield hs.chunk(s, e)
+        return
+    compute = torch.cuda.current_stream(device)
+    copy = _copy_stream(device)
+    # The buffers come from the compute stream's pool, where memory freed
+    # by earlier work (an earlier call's chunk buffers) is reused at once:
+    # the copy stream starts after everything queued on the compute stream.
+    copy.wait_stream(compute)
+    cap = max(e - s for s, e in bounds)
+    srcs = (hs.rows, hs.words, hs.values)
+
+    def buffers(**kw):
+        return tuple(torch.empty((cap,) + tuple(t.shape[1:]), dtype=t.dtype,
+                                 **kw) for t in srcs)
+
+    bufs = [buffers(device=device) for _ in range(2)]
+    for buf in bufs:
+        for t in buf:
+            t.record_stream(copy)
+    staging = (None if hs.pinned
+               else [buffers(pin_memory=True) for _ in range(2)])
+    copied = [torch.cuda.Event() for _ in range(2)]
+    consumed = [torch.cuda.Event() for _ in range(2)]
+
+    def start_copy(i):
+        s, e = bounds[i]
+        k, n = i % 2, e - s
+        src = hs.chunk(s, e)
+        if staging is not None:
+            if i >= 2:
+                copied[k].synchronize()     # chunk i-2 left staging[k]
+            src = tuple(st[:n].copy_(t) for st, t in zip(staging[k], src))
+        with torch.cuda.stream(copy):
+            if i >= 2:
+                copy.wait_event(consumed[k])
+            for dst, t in zip(bufs[k], src):
+                dst[:n].copy_(t, non_blocking=True)
+            copied[k].record(copy)
+
+    start_copy(0)
+    for i, (s, e) in enumerate(bounds):
+        if i + 1 < len(bounds):
+            start_copy(i + 1)
+        k = i % 2
+        compute.wait_event(copied[k])
+        yield tuple(t[:e - s] for t in bufs[k])
+        consumed[k].record(compute)
+
+
+def _chunk_setup(view, chunk_m: int, block_m: int):
+    hs = _stream.ensure_host(view)
+    if chunk_m % block_m:
+        raise ValueError(f"chunk_m {chunk_m} not a multiple of block_m "
+                         f"{block_m}")
+    return hs, _chunk_bounds(hs.padded_len(block_m), chunk_m)
+
+
+def _empty_carry(R: int, device):
+    return (torch.full((1,), -1, dtype=torch.int32, device=device),
+            torch.zeros((1, R), dtype=torch.float32, device=device))
+
+
+def mttkrp_oriented_chunked(view, factors, *, chunk_m: int,
+                            block_m: int = _oriented.DEFAULT_BLOCK_M,
+                            r_block: int | None = None,
+                            threads: int = _oriented.DEFAULT_THREADS
+                            ) -> torch.Tensor:
+    """Out-of-core carry MTTKRP: host stream -> (I_n, R) on the factors'
+    device, one K8 per chunk.
+
+    ``view`` is a `core.stream.HostStream` (or an in-core `OrientedView`,
+    adapted). Bit-identical to `mttkrp_oriented_carry` at equal tiling:
+    chunk bounds are block bounds of the same padded stream and the open
+    run rides the carry across them.
+    """
+    hs, bounds = _chunk_setup(view, chunk_m, block_m)
+    factors = list(factors)
+    dev, R = factors[0].device, factors[0].shape[1]
+    out = torch.zeros((hs.meta.dims[hs.mode], R), dtype=torch.float32,
+                      device=dev)
+    crow, cval = _empty_carry(R, dev)
+    last = len(bounds) - 1
+    for i, (rows, words, values) in enumerate(_chunks(hs, bounds, dev)):
+        out, crow, cval = _oriented.carry_chunk(
+            hs.meta.enc, hs.mode, rows, words, values, factors, out, crow,
+            cval, block_m=block_m, r_block=r_block, threads=threads,
+            final=i == last)
+        _bump("chunks")
+    return out
+
+
+def cpapr_phi_oriented_chunked(view, B: torch.Tensor, factors, *,
+                               pre: bool, eps: float = 1e-10, chunk_m: int,
+                               block_m: int = _oriented.DEFAULT_BLOCK_M,
+                               threads: int = _oriented.DEFAULT_THREADS
+                               ) -> torch.Tensor:
+    """Out-of-core carry Φ: host stream -> (I_n, R), one K9 per chunk.
+
+    Takes ``factors`` under both Π policies. Under ``pre=True`` each
+    chunk's Π rows are built on the device from the chunk's words (K4 and
+    `core.mttkrp.krp_rows`), element for element the rows of a full-stream
+    Π: bit-identical to the in-core ALTO-PRE carry path. (A padded
+    element's Π row is not zero here but its value is, so its term is
+    +0.0 as in core, for the non-negative factors of CP-APR.) Under
+    ``pre=False`` K9 gathers the factors itself (ALTO-OTF).
+    """
+    hs, bounds = _chunk_setup(view, chunk_m, block_m)
+    factors = list(factors)
+    enc, mode = hs.meta.enc, hs.mode
+    R = B.shape[1]
+    out = torch.zeros((enc.dims[mode], R), dtype=torch.float32,
+                      device=B.device)
+    crow, cval = _empty_carry(R, B.device)
+    last = len(bounds) - 1
+    for i, (rows, words, values) in enumerate(_chunks(hs, bounds,
+                                                      B.device)):
+        if pre:
+            kw = dict(pi=core_mttkrp.krp_rows(delinearize(enc, words),
+                                              factors, mode).contiguous())
+        else:
+            kw = dict(factors=factors)
+        out, crow, cval = _oriented.phi_carry_chunk(
+            enc, mode, eps, rows, words, values, B, out, crow, cval,
+            block_m=block_m, threads=threads, final=i == last, **kw)
+        _bump("chunks")
+    return out
+
+
+def mttkrp_oriented_chunked_reference(view, factors, *,
+                                      chunk_m: int) -> torch.Tensor:
+    """Reference-backend chunked MTTKRP: the same chunk loop over the
+    unpadded stream, each chunk a plain decode + Khatri-Rao +
+    ``index_add_``. Within float tolerance of the in-core reference (the
+    sums associate differently)."""
+    hs = _stream.ensure_host(view)
+    factors = list(factors)
+    dev, R = factors[0].device, factors[0].shape[1]
+    enc, mode = hs.meta.enc, hs.mode
+    out = torch.zeros((enc.dims[mode], R), dtype=torch.float32, device=dev)
+    for rows, words, values in _chunks(
+            hs, _chunk_bounds(hs.length, chunk_m), dev):
+        out.index_add_(0, rows.long(), core_mttkrp.contributions(
+            enc, words, values, factors, mode))
+        _bump("chunks")
+    return out
+
+
+def cpapr_phi_oriented_chunked_reference(view, B: torch.Tensor, factors, *,
+                                         pre: bool, eps: float = 1e-10,
+                                         chunk_m: int) -> torch.Tensor:
+    """Reference-backend chunked Φ: per chunk the plain Φ terms
+    (`core.mttkrp.phi_contributions`, Π rows rebuilt under ``pre``) and an
+    ``index_add_``. Within float tolerance of the in-core path."""
+    hs = _stream.ensure_host(view)
+    factors = list(factors)
+    enc, mode = hs.meta.enc, hs.mode
+    out = torch.zeros((enc.dims[mode], B.shape[1]), dtype=torch.float32,
+                      device=B.device)
+    for rows, words, values in _chunks(
+            hs, _chunk_bounds(hs.length, chunk_m), B.device):
+        if pre:
+            kw = dict(pi=core_mttkrp.krp_rows(
+                core_mttkrp.delinearize(enc, words), factors, mode))
+        else:
+            kw = dict(factors=factors)
+        out.index_add_(0, rows.long(), core_mttkrp.phi_contributions(
+            enc, mode, words, values, rows, B, eps=eps, **kw))
+        _bump("chunks")
+    return out
 
 
 # ---------------------------------------------------------------------------
