@@ -19,11 +19,15 @@ sm_90a), then:
    plan and 3 more under the JAX package's routing (one-hot partials on
    every mode), which must give the same fits bit for bit;
 4. holds the CP-APR kernels (K4 decode, K5 Φ carry, K6 Φ partials, K7 Φ
-   recursive) and the fixed-order pull reduction against their plain
-   versions on the same small layouts under both Π policies (K4 equal,
-   K5 equal to K6 + segment_merge, equal bits on a second run), and a
-   small CP-APR on the card against the same one on the CPU (log-
-   likelihoods within 1e-5 relative, factors within 1e-5);
+   recursive, K9 Φ chunk) and the fixed-order pull reduction against
+   their plain versions on the same small layouts under both Π policies
+   and at ranks 5, 16 and 40 (K4 equal, K5 equal to K6 + segment_merge,
+   K9 chained over chunks equal to K5, K7 in Temp windows of 1 and 3 rows
+   equal to K7 in one window, K5 and K7 equal bit for bit to their plain
+   versions run on CPU copies of the inputs with one CPU thread, equal
+   bits on a second run), and a small CP-APR on the card against the same
+   one on the CPU (log-likelihoods within 1e-5 relative, factors within
+   1e-5);
 5. runs CP-APR at rank 16 on the Chicago tensor (ALTO-OTF, 5 outer
    iterations, twice: equal bits) and on the DARPA tensor (ALTO-PRE, 2
    outer iterations under the port's plan, K5, and again under the JAX
@@ -42,7 +46,8 @@ sm_90a), then:
    all-carry plan; with the chunked ms per mode against in core, the copy
    alone, and peak device memory against the plan's byte model;
 8. at the main path's shapes, checks each kernel against its plain version
-   and times kernel, plain version and bound.
+   (K7 also in windows of 16 rows, equal to one window) and times kernel,
+   plain version and bound, and the pull with its cached order.
 
 Each CP-ALS and CP-APR run is driven with the launch counts set to 0 just
 before it and read just after; a run fails unless the kernels its plan
@@ -220,12 +225,35 @@ def _stream_tensor(row_counts, dims, seed):
     return SparseTensor(dims, coords, vals)
 
 
-def _factors(dims, seed, device=None):
+def _factors(dims, seed, device=None, rank=RANK):
     device = device or DEVICE
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    return [torch.rand((I, RANK), generator=g, device=device) + 0.05
+    return [torch.rand((I, rank), generator=g, device=device) + 0.05
             for I in dims]
+
+
+class _OneCpuThread:
+    """One CPU thread inside: PyTorch's CPU sums then run in index order,
+    the order the plain versions claim."""
+
+    def __enter__(self):
+        self.n = torch.get_num_threads()
+        torch.set_num_threads(1)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.n)
+
+
+def _cpu(x):
+    """A CPU copy of a tensor, a list of them, or a dict of them."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [t.cpu() for t in x]
+    return x.cpu()
 
 
 def phase_small(m) -> dict:
@@ -292,9 +320,11 @@ def _phi_operands(m, enc, words, factors, mode, policy) -> dict:
 
 
 def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
-                               label: str) -> dict:
+                               label: str, cpu_copies: bool = False) -> dict:
     """K5 runs and K6 against their plain versions on one oriented view;
-    K5 (runs + fix-up) == K6 + segment_merge; repeatability."""
+    K5 (runs + fix-up) == K6 + segment_merge; repeatability; with
+    ``cpu_copies``, K5 equal bit for bit to its plain version run on CPU
+    copies of the inputs."""
     ops, kori = m["ops"], m["kori"]
     enc, mode, eps = view.meta.enc, view.mode, 1e-10
     rows, words, values, pi = ops.pad_sorted_stream(
@@ -329,13 +359,26 @@ def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
                  ops.cpapr_phi_oriented(view, B, **kw))
     _check_equal(f"{label} K5 repeat", k5,
                  ops.cpapr_phi_oriented_carry(view, B, **kw))
+    if cpu_copies:
+        cview = dataclasses.replace(view, rows=view.rows.cpu(),
+                                    words=view.words.cpu(),
+                                    values=view.values.cpu(),
+                                    perm=view.perm.cpu())
+        with _OneCpuThread():
+            plain = ops.cpapr_phi_oriented_carry(
+                cview, B.cpu(), **_cpu(operands), eps=eps, block_m=block_m)
+        _check_equal(f"{label} K5 vs its plain version on CPU copies",
+                     k5.cpu(), plain)
     return errs
 
 
 def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
-                               label: str) -> dict:
+                               label: str, windows=(1, 3),
+                               cpu_copies: bool = False) -> dict:
     """K7 against its plain version, and the fixed-order pull against the
-    CPU's; both repeatable."""
+    CPU's; both repeatable; K7 with Temp windows of ``windows`` rows equal
+    to K7 in one window; with ``cpu_copies``, K7 equal bit for bit to its
+    plain version run on CPU copies of the inputs."""
     k7, ops = m["k7"], m["ops"]
     meta = at.meta
     args = (meta.enc, mode, meta.temp_rows[mode], 1e-10, at.words,
@@ -343,9 +386,22 @@ def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
     temp = k7.phi_partials(*args, **operands, threads=threads)
     _check_equal(f"{label} phi_partials repeat", temp,
                  k7.phi_partials(*args, **operands, threads=threads))
+    one = k7.phi_partials_windowed(*args, **operands, threads=threads,
+                                   window=meta.temp_rows[mode])
+    _check_equal(f"{label} phi_partials in one window", temp, one)
+    for w in windows:
+        _check_equal(f"{label} phi_partials windows of {w} rows", one,
+                     k7.phi_partials_windowed(*args, **operands,
+                                              threads=threads, window=w))
     errs = {"phi_partials": _check_close(
         f"{label} phi_partials", temp,
         k7.phi_partials_plain(*args, **operands))}
+    if cpu_copies:
+        cargs = (*args[:4], *_cpu(args[4:]))
+        with _OneCpuThread():
+            plain = k7.phi_partials_plain(*cargs, **_cpu(operands))
+        _check_equal(f"{label} K7 vs its plain version on CPU copies",
+                     temp.cpu(), plain)
     start = at.part_start[:, mode]
     pull = ops.pull_reduction(temp, start, meta.dims[mode])
     _check_equal(f"{label} pull_reduction repeat", pull,
@@ -368,39 +424,62 @@ def check_delinearize(m, enc, words, label: str) -> None:
 
 
 def phase_small_phi(m) -> dict:
-    """The CP-APR kernels on the adversarial run layouts, both Π
-    policies."""
+    """The CP-APR kernels on the adversarial run layouts, both Π policies,
+    at ranks 5, `RANK` and 40 (a partial sub-warp, a full one, several
+    columns per lane): K5, K6, K7 and the pull against their plain
+    versions, K5 and K7 equal bit for bit to their plain versions on CPU
+    copies, K7 in windows of 1 and 3 rows equal to K7 in one, and K9
+    chained over chunks of 2 blocks equal to K5 and, chunk by chunk, close
+    to its plain version."""
     dims = (29, 13, 7)
+    ops, stream = m["ops"], m["stream"]
     worst = {}
-    for block_m in (8, 64):
-        rng = np.random.default_rng(block_m)
-        layouts = {
-            "identical": np.eye(29, dtype=np.int64)[3] * (4 * block_m + 3),
-            "distinct": np.ones(29, dtype=np.int64),
-            "boundary_run": rng.integers(0, 3, size=29)
-            + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
-            "mixed": rng.integers(1, 2 * block_m, size=29),
-        }
-        for name, counts in layouts.items():
-            x = _stream_tensor(counts, dims, seed=block_m)
-            x.values[:] = np.abs(x.values) + 1.0       # counts are > 0
-            at = m["alto"].build_device(x, n_partitions=4)
-            fs = _factors(dims, seed=block_m)
-            B = fs[0] * 3.0
-            view = m["alto"].oriented_view_device(at, 0)
-            label = f"small phi {name} block_m={block_m}"
-            check_delinearize(m, at.meta.enc, at.words, label)
-            for policy in ("otf", "pre"):
-                errs = check_phi_oriented_kernels(
-                    m, view, B, _phi_operands(m, at.meta.enc, view.words,
-                                              fs, 0, policy),
-                    block_m, 64, f"{label} {policy}")
-                errs.update(check_phi_recursive_kernel(
-                    m, at, B, _phi_operands(m, at.meta.enc, at.words, fs, 0,
-                                            policy),
-                    0, 64, f"{label} {policy}"))
-                for k, v in errs.items():
-                    worst[k] = max(worst.get(k, 0.0), v)
+    for rank in (5, RANK, 40):
+        per_rank = worst.setdefault(f"R{rank}", {})
+        for block_m in (8, 64):
+            rng = np.random.default_rng(block_m)
+            layouts = {
+                "identical": np.eye(29, dtype=np.int64)[3]
+                * (4 * block_m + 3),
+                "distinct": np.ones(29, dtype=np.int64),
+                "boundary_run": rng.integers(0, 3, size=29)
+                + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
+                "mixed": rng.integers(1, 2 * block_m, size=29),
+            }
+            for name, counts in layouts.items():
+                x = _stream_tensor(counts, dims, seed=block_m)
+                x.values[:] = np.abs(x.values) + 1.0   # counts are > 0
+                at = m["alto"].build_device(x, n_partitions=4)
+                fs = _factors(dims, seed=block_m, rank=rank)
+                B = fs[0] * 3.0
+                view = m["alto"].oriented_view_device(at, 0)
+                hs = stream.host_stream(at, 0)
+                label = f"small phi {name} block_m={block_m} R={rank}"
+                if rank == RANK:
+                    check_delinearize(m, at.meta.enc, at.words, label)
+                for policy in ("otf", "pre"):
+                    operands = _phi_operands(m, at.meta.enc, view.words, fs,
+                                             0, policy)
+                    errs = check_phi_oriented_kernels(
+                        m, view, B, operands, block_m, 64,
+                        f"{label} {policy}", cpu_copies=True)
+                    errs.update(check_phi_recursive_kernel(
+                        m, at, B, _phi_operands(m, at.meta.enc, at.words,
+                                                fs, 0, policy),
+                        0, 64, f"{label} {policy}", cpu_copies=True))
+                    cm = 2 * block_m
+                    errs.update(check_chunk_kernels(
+                        m, hs, B, fs, block_m, cm, policy,
+                        f"{label} {policy} chunks of 2 blocks"))
+                    k5 = ops.cpapr_phi_oriented_carry(
+                        view, B, **operands, block_m=block_m, threads=64)
+                    _check_equal(
+                        f"{label} {policy} K9 chunked vs K5",
+                        ops.cpapr_phi_oriented_chunked(
+                            hs, B, fs, pre=policy == "pre", chunk_m=cm,
+                            block_m=block_m, threads=64), k5)
+                    for k, v in errs.items():
+                        per_rank[k] = max(per_rank.get(k, 0.0), v)
     print(f"chip_smoke: small CP-APR kernels ok, worst errors {worst}")
     return worst
 
@@ -1141,7 +1220,8 @@ def time_phi_recursive(m, at, res, mp, launches) -> dict:
     fs = res.factors
     B = fs[mode] * res.lam[None, :]
     errs = check_phi_recursive_kernel(m, at, B, {"factors": fs}, mode,
-                                      mp.threads, f"phi mode {mode} real size")
+                                      mp.threads, f"phi mode {mode} real size",
+                                      windows=(16,))
     args = (meta.enc, mode, T, 1e-10, at.words, at.values, at.part_start, B)
     stream = Mp * (4 * W + 4) + L * N * 4
     fac = _factor_bytes(meta, mode, R)
@@ -1165,8 +1245,12 @@ def time_phi_recursive(m, at, res, mp, launches) -> dict:
         _ms(m, plain_op, iters=3),
         stream + b_bytes + fac + 2 * temp_b + out_b)
     temp = k7.phi_partials(*args, fs, None, None, mp.threads)
-    e["pull_ms"] = _ms(m, ops.pull_reduction, temp, at.part_start[:, mode],
-                       meta.dims[mode], mp.threads)
+    start = at.part_start[:, mode]
+    e["pull_ms"] = _ms(m, ops.pull_reduction, temp, start, meta.dims[mode],
+                       mp.threads, m["views"].get_pull_order(at, mode))
+    e["pull_with_sort_ms"] = _ms(m, ops.pull_reduction, temp, start,
+                                 meta.dims[mode], mp.threads)
+    e["window_rows"] = k7.window_rows(T, R, k7.smem_limit(temp.device))
     return e
 
 

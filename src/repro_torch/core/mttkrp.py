@@ -115,11 +115,21 @@ def row_reduce_recursive(at: AltoTensor, mode: int,
     return pull_rows(temp, at.part_start[:, mode], meta.dims[mode])
 
 
+_PULL_SORTS = [0]
+
+
+def pull_sorts() -> int:
+    """How many times `pull_pieces` has sorted (the pull order is cached
+    per tensor and mode by `core.views.get_pull_order`)."""
+    return _PULL_SORTS[0]
+
+
 def pull_pieces(part_start_mode: torch.Tensor, T: int, out_dim: int):
     """The pull's pieces in a fixed order: the global rows of the ``L·T``
     Temp rows, stably sorted, and the permutation that sorts them. Each
     output row's pieces then come in partition order. Rows past a
     partition's interval hold zeros; their index is clamped into range."""
+    _PULL_SORTS[0] += 1
     rows = (part_start_mode.long()[:, None]
             + torch.arange(T, device=part_start_mode.device)[None, :])
     return torch.sort(rows.reshape(-1).clamp_max(out_dim - 1), stable=True)

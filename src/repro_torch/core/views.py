@@ -23,6 +23,10 @@ every caller shares the cached tensors (`plan.build_views` routes here).
 * **Host streams** — a streaming plan's out-of-core copies
   (`core.stream.HostStream`, in host memory) live in the same cache under
   keys tagged ``"stream"``, and count against the same bounds.
+* **Pull orders** — the recursive routes' fixed-order pull
+  (`kernels.ops.pull_reduction`) sorts the same ``L·T`` Temp rows for
+  every call on a (tensor, mode); `get_pull_order` keeps that order under
+  keys tagged ``"pull"``, which also carry the partitioning (`AltoMeta`).
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import threading
 import torch
 
 from repro_torch.core import alto, heuristics
+from repro_torch.core import mttkrp as mttkrp_mod
 from repro_torch.core import stream as stream_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.core.stream import HostStream
@@ -58,8 +63,22 @@ def _limits() -> tuple[int, int]:
                                DEFAULT_CACHE_BYTES)))
 
 
+@dataclasses.dataclass(frozen=True)
+class PullOrder:
+    """The pull's pieces of one (tensor, mode): the global row of each
+    Temp row in sorted order, ``(L·T, 1)`` int32 (the fix-up's one-slot
+    layout), and the permutation of the ``L·T`` Temp rows that sorts them
+    (`core.mttkrp.pull_pieces`)."""
+    rows: torch.Tensor
+    order: torch.Tensor
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.rows, self.order))
+
+
 def _view_bytes(v) -> int:
-    if isinstance(v, HostStream):
+    if isinstance(v, (HostStream, PullOrder)):
         return v.nbytes()
     return sum(a.numel() * a.element_size()
                for a in (v.rows, v.words, v.values, v.perm))
@@ -167,6 +186,20 @@ def get_stream(at: AltoTensor, mode: int) -> HostStream:
     return _rebind_meta(key, hs, at)
 
 
+def get_pull_order(at: AltoTensor, mode: int) -> PullOrder:
+    """The pull order of ``(at, mode)``: cached, sorted on a miss. The key
+    adds the tensor's `AltoMeta` to the mode's content key, since the
+    order follows the partition boxes and ``temp_rows``."""
+    key = ("pull", *mode_fingerprint(at, mode), at.meta)
+
+    def build():
+        rows, order = mttkrp_mod.pull_pieces(
+            at.part_start[:, mode], at.meta.temp_rows[mode],
+            at.meta.dims[mode])
+        return PullOrder(rows.to(torch.int32)[:, None].contiguous(), order)
+    return _get_or_build(key, build)
+
+
 def build_views(at: AltoTensor, plan) -> dict:
     """Cached views for exactly the modes ``plan`` routes oriented; host
     streams in their place when the plan streams."""
@@ -182,7 +215,8 @@ def invalidate(at: AltoTensor, modes=None) -> int:
         modes = range(len(at.dims))
     fps = {mode_fingerprint(at, int(m)) for m in modes}
     with _LOCK:
-        dead = [k for k in _CACHE if k[1:] in fps]
+        dead = [k for k in _CACHE
+                if k[1:] in fps or (k[0] == "pull" and k[1:-1] in fps)]
         for k in dead:
             del _CACHE[k]
             _CACHE_BYTES.pop(k, None)

@@ -55,16 +55,17 @@ SIGNATURES = {
         "alto_delinearize": [_P, _I, _I, _I, _P, _L, _L, _P, _P],
     },
     "phi_oriented": {
-        "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [_L, _L, _I, _P,
-                                                              _P, _P, _P],
+        "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [
+            _P, _L, _L, _I, _P, _P, _P, _P],
         "alto_phi_oriented_partials": _ALTO + [_P, _P, _P] + _PHI + [
             _L, _L, _I, _P, _P],
         "alto_phi_carry_chunk": _ALTO + [_P, _P, _P] + _PHI + [
-            _L, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+            _P, _L, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
     "cpapr_phi": {
-        "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [_L, _L, _L, _I,
-                                                            _P, _P],
+        "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [
+            _P, _L, _L, _L, _I, _I, _I, _I, _P, _P],
+        "alto_phi_smem_limit": [_P],
     },
 }
 

@@ -91,6 +91,39 @@ def runs_table(enc: AltoEncoding) -> np.ndarray:
     return _runs_table(enc)
 
 
+def decode_table_np(enc: AltoEncoding) -> np.ndarray:
+    """Byte decode tables of an encoding, ``(ndim, n_words, 4, 256)``
+    uint32: entry ``[m, k, j, v]`` holds the bits of mode m's coordinate
+    that byte j of word k carries when it equals v, in place. A
+    coordinate is the OR of its words' four lookups, since shifts and
+    masks distribute over OR (``alto_coord_table`` in
+    ``csrc/alto_decode.cuh``)."""
+    table = np.zeros((enc.ndim, enc.n_words, 4, 256), dtype=np.uint64)
+    v = np.arange(256, dtype=np.uint64)
+    for r in enc.runs:
+        mask = np.uint64((1 << r.length) - 1)
+        for j in range(4):
+            x = v << np.uint64(8 * j)
+            table[r.mode, r.word, j] |= (((x >> np.uint64(r.dst_shift))
+                                          & mask)
+                                         << np.uint64(r.src_shift))
+    return table.astype(np.uint32)
+
+
+_DECODE_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def decode_table(enc: AltoEncoding, device) -> torch.Tensor:
+    """`decode_table_np` as an int32 tensor on ``device``, cached."""
+    key = (enc, str(device))
+    table = _DECODE_TABLES.get(key)
+    if table is None:
+        table = torch.from_numpy(decode_table_np(enc).view(np.int32)).to(
+            device)
+        _DECODE_TABLES[key] = table
+    return table
+
+
 def alto_args(enc: AltoEncoding, mode: int, factors, rank: int):
     """The leading C arguments of every MTTKRP and Φ entry: factor
     addresses (null under ALTO-PRE, ``factors=None``), the BitRun table,

@@ -1,15 +1,22 @@
 """Recursive-traversal CP-APR Φ kernel (K7): per-partition Temp buffers.
 
 Wrapper around ``csrc/cpapr_phi.cu`` with its plain PyTorch version beside
-it. K3's traversal (`kernels.mttkrp`) summing the Φ term
-(`core.mttkrp.phi_contributions`) in place of the MTTKRP term: partition
-``l`` adds each of its elements' terms at ``Temp_l[row - part_start[l,
-mode]]`` of the ``(L, temp_rows, R)`` output, in stream order from 0.0,
-where ``row`` is the decoded target coordinate, which also selects the B
-row. No rank tiles: the denominator needs the whole rank. The pull into
+it. Partition ``l`` adds each of its elements' Φ terms
+(`core.mttkrp.phi_contributions`) at ``Temp_l[row - part_start[l, mode]]``
+of the ``(L, temp_rows, R)`` output, in stream order from 0.0, where
+``row`` is the decoded target coordinate, which also selects the B row.
+No rank tiles: the denominator needs the whole rank. The pull into
 ``(I_n, R)`` is `ops.pull_reduction`.
+
+On the card one CTA of ``threads`` (whole warps) runs each partition with
+its Temp in shared memory, ``window`` rows at a time (`window_rows`, from
+the card's shared memory per CTA): a Temp taller than one window is
+covered in several passes over the partition, and any window height gives
+the same bits (`phi_partials_windowed`).
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -38,12 +45,70 @@ def phi_partials_plain(enc: AltoEncoding, mode: int, temp_rows: int,
     return temp.reshape(L, temp_rows, R)
 
 
+TILE_BYTES = 16 * 1024        # the staging tile of terms, about
+
+
+def tile_nnz(rank: int) -> int:
+    """Nonzeros per staging tile of K7: 128 up to rank 32, fewer above so
+    the tile stays about `TILE_BYTES`, and at least 8."""
+    return max(8, min(128, TILE_BYTES // (4 * rank) // 8 * 8))
+
+
+def smem_bytes(window: int, rank: int, tile: int) -> int:
+    """Shared memory of one K7 CTA: the Temp window and the window's B
+    rows (``window × R`` floats each), the staging tile's terms
+    (``tile × R`` floats) and its rows (``tile`` ints)."""
+    return ((2 * window + tile) * rank + tile) * 4
+
+
+def window_rows(temp_rows: int, rank: int, limit_bytes: int) -> int:
+    """Temp rows K7 holds in shared memory at once: all ``temp_rows``
+    where they fit under ``limit_bytes`` (one CTA's shared memory), else
+    the most that do. Raises when not even one row fits."""
+    tile = tile_nnz(rank)
+    h = (limit_bytes - smem_bytes(0, rank, tile)) // (2 * rank * 4)
+    if h < 1:
+        raise ValueError(f"rank {rank}: one Temp row and the staging tile "
+                         f"need {smem_bytes(1, rank, tile)} bytes of shared "
+                         f"memory, the card has {limit_bytes}")
+    return int(min(temp_rows, h))
+
+
+_SMEM_LIMIT: dict[int, int] = {}
+
+
+def smem_limit(device: torch.device) -> int:
+    """The shared memory one CTA may opt in to on ``device`` (bytes), as
+    the CUDA runtime reports it."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMEM_LIMIT:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _build.check(_build.library("cpapr_phi").alto_phi_smem_limit(
+                ctypes.byref(out)), "alto_phi_smem_limit")
+        _SMEM_LIMIT[idx] = out.value
+    return _SMEM_LIMIT[idx]
+
+
 def phi_partials(enc: AltoEncoding, mode: int, temp_rows: int, eps: float,
                  words, values, part_start, B, factors=None, pi=None,
                  r_block: int | None = None,
                  threads: int = DEFAULT_THREADS) -> torch.Tensor:
     """K7: per-partition Φ Temp buffers (L, temp_rows, R). Pass ``pi``
     (Π rows in ALTO order, ALTO-PRE) or ``factors`` (ALTO-OTF)."""
+    return phi_partials_windowed(enc, mode, temp_rows, eps, words, values,
+                                 part_start, B, factors, pi, r_block,
+                                 threads, window=None)
+
+
+def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
+                          eps: float, words, values, part_start, B,
+                          factors=None, pi=None, r_block: int | None = None,
+                          threads: int = DEFAULT_THREADS,
+                          window: int | None = None) -> torch.Tensor:
+    """K7 with its Temp window height given (``None``: `window_rows` of
+    the card's shared memory). On the CPU the window changes nothing."""
     L = part_start.shape[0]
     Mp = words.shape[0]
     if Mp % L:
@@ -55,18 +120,25 @@ def phi_partials(enc: AltoEncoding, mode: int, temp_rows: int, eps: float,
                         (L, enc.ndim))
     factors, R = common.check_phi_operands(enc, mode, Mp, B, factors, pi,
                                            r_block)
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} < 1")
     tensors = [words, values, part_start, B] + (factors or [pi])
     if not common.on_cuda(*tensors):
         return phi_partials_plain(enc, mode, temp_rows, eps, words, values,
                                   part_start, B, factors, pi)
-    temp = torch.zeros((L, temp_rows, R), dtype=torch.float32,
+    tile = tile_nnz(R)
+    if window is None:
+        window = window_rows(temp_rows, R, smem_limit(words.device))
+    window = min(window, temp_rows)
+    temp = torch.empty((L, temp_rows, R), dtype=torch.float32,
                        device=words.device)
     keep, args = common.alto_args(enc, mode, factors, R)
     lib = _build.library("cpapr_phi")
     status = lib.alto_phi_partials(
         *args, words.data_ptr(), values.data_ptr(), part_start.data_ptr(),
-        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, L,
-        Mp // L, temp_rows, common.slices_per_cta(threads, R),
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
+        common.decode_table(enc, words.device).data_ptr(), L,
+        Mp // L, temp_rows, enc.dims[mode], window, tile, threads,
         temp.data_ptr(), common.stream_ptr(words))
     del keep
     _build.check(status, "alto_phi_partials")

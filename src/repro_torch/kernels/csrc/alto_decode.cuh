@@ -33,6 +33,8 @@ struct AltoArgs {
   unsigned char run_src[ALTO_MAX_RUNS];  // bit offset inside the coordinate
   unsigned char run_dst[ALTO_MAX_RUNS];  // bit offset inside the word
   unsigned char run_len[ALTO_MAX_RUNS];
+  const uint32_t* dtab;                  // byte decode tables, or nullptr:
+                                         // (ndim, nwords, 4, 256) entries
 };
 
 // Host side: fill the struct from a (n_runs, 5) int table of
@@ -47,6 +49,7 @@ static inline bool alto_make_args(AltoArgs* a, const int64_t* factor_ptrs,
     return false;
   a->ndim = ndim;
   a->nwords = nwords;
+  a->dtab = nullptr;
   a->mode = mode;
   a->rank = rank;
   for (int m = 0; m < ALTO_MAX_MODES; ++m)
@@ -79,6 +82,22 @@ __device__ __forceinline__ int alto_coord(const AltoArgs& a,
     const uint32_t len = a.run_len[k];
     const uint32_t mask = len >= 32 ? 0xffffffffu : ((1u << len) - 1u);
     c |= ((__ldg(w + a.run_word[k]) >> a.run_dst[k]) & mask) << a.run_src[k];
+  }
+  return static_cast<int>(c);
+}
+
+// Coordinate of mode m through the byte tables a.dtab: entry
+// ((m·nwords + k)·4 + j)·256 + v holds the bits of mode m that byte j of
+// word k carries when it equals v, already in place. Shifts and masks
+// distribute over OR, so the OR of the word's lookups is alto_coord.
+__device__ __forceinline__ int alto_coord_table(const AltoArgs& a,
+                                                const uint32_t* w, int m) {
+  const uint32_t* t = a.dtab + static_cast<int64_t>(m) * a.nwords * 1024;
+  uint32_t c = 0;
+  for (int k = 0; k < a.nwords; ++k, t += 1024) {
+    const uint32_t x = __ldg(w + k);
+    c |= __ldg(t + (x & 255u)) | __ldg(t + 256 + ((x >> 8) & 255u)) |
+         __ldg(t + 512 + ((x >> 16) & 255u)) | __ldg(t + 768 + (x >> 24));
   }
   return static_cast<int>(c);
 }

@@ -1,19 +1,27 @@
-// The three stream traversals of the hand-written kernels, each generic in
+// The stream traversals of the MTTKRP kernels and of K6, each generic in
 // the per-nonzero term it sums:
-//   carry_runs_kernel         K1 (MTTKRP) and K5 (Φ), first pass
+//   carry_runs_kernel         K1 (MTTKRP) first pass; K8 on one chunk
 //   oriented_partials_kernel  K2 (MTTKRP) and K6 (Φ)
-//   recursive_partials_kernel K3 (MTTKRP) and K7 (Φ)
+//   recursive_partials_kernel K3 (MTTKRP)
+// (The Φ carry and recursive routes, K5, K9 and K7, have their own
+// sub-warp traversals in phi_scan.cuh.)
 // A Term is a functor `float operator()(a, words, values, i, row, r)`: the
 // contribution of nonzero i to rank column r of output row `row`
 // (`MttkrpTerm` below, `PhiTerm` in phi_update.cuh). One template for both
-// drivers keeps the MTTKRP and Φ kernels on one thread map and one
-// summation order: a run or a Temp row sums its terms in stream order,
-// from 0.0, with __fadd_rn.
+// drivers keeps the MTTKRP and Φ kernels on one summation order: a run or
+// a Temp row sums its terms in stream order, from 0.0, with __fadd_rn.
 //
 // Thread map: a thread owns one rank column r of one slice (a block_m
 // slice of the row-sorted stream, or one ALTO partition) and walks the
 // slice in stream order. threadIdx.x is the column inside the rank tile,
 // threadIdx.y the slice inside the CTA, blockIdx.y the rank tile.
+//
+// What bounds them on an H100: a thread's walk of its slice is one
+// dependent chain per nonzero (decode, gather, add), so with one nonzero
+// in flight per thread they are latency bound, far above the bytes they
+// move; K3 also keeps its Temp in device memory. Their redesigns (a
+// sub-warp per slice as in phi_scan.cuh; Temp in shared memory) are later
+// work.
 #pragma once
 
 #include "alto_decode.cuh"

@@ -10,7 +10,9 @@
 // chunked executor (kernels/ops.py) hands the chunks over in stream order
 // with a running out (I_n, R) and the open run of the stream so far, as
 // (carry_row (1,) int32, carry_val (1, R) float32), row -1 for none.
-// launch_carry_chunk runs two kernels on one stream:
+// launch_carry_chunk (K8) runs two kernels on one stream; K9
+// (phi_oriented.cu) runs the same two with K5's runs pass
+// (phi_carry_runs_kernel, phi_scan.cuh) in the first place:
 //   1. carry_runs_kernel<Term> (alto_scan.cuh) over the chunk's blocks:
 //      inner runs are stored straight into the running out (their rows
 //      appear in no other chunk, so a store equals an add to zero); each
@@ -91,6 +93,30 @@ __global__ void carry_fixup_chunk_kernel(
   }
 }
 
+// The chunk fix-up over the pieces (n_blocks, 2) of a chunk's runs pass.
+inline int launch_carry_fixup_chunk(int R, int r_block, int slices_per_cta,
+                                    long long n_blocks,
+                                    const void* pieces_row,
+                                    const void* pieces_val,
+                                    const void* cin_row, const void* cin_val,
+                                    int final_chunk, void* out,
+                                    void* cout_row, void* cout_val,
+                                    void* stream) {
+  if (n_blocks < 1 || bad_tiling(R, r_block, slices_per_cta))
+    return static_cast<int>(cudaErrorInvalidValue);
+  carry_fixup_chunk_kernel<<<grid_for(2 * n_blocks, slices_per_cta, R,
+                                      r_block),
+                             dim3(r_block, slices_per_cta), 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(pieces_row),
+      static_cast<const float*>(pieces_val), 2 * n_blocks, R, r_block,
+      static_cast<const int*>(cin_row), static_cast<const float*>(cin_val),
+      final_chunk, static_cast<float*>(out), static_cast<int*>(cout_row),
+      static_cast<float*>(cout_val));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8: K1's runs pass over the chunk, then the chunk fix-up.
 template <class Term>
 int launch_carry_chunk(const AltoArgs& a, const Term& term, const void* rows,
                        const void* words, const void* values,
@@ -104,16 +130,10 @@ int launch_carry_chunk(const AltoArgs& a, const Term& term, const void* rows,
                                        n_blocks, r_block, slices_per_cta,
                                        out, pieces_row, pieces_val, stream);
   if (status != 0) return status;
-  carry_fixup_chunk_kernel<<<grid_for(2 * n_blocks, slices_per_cta, a.rank,
-                                      r_block),
-                             dim3(r_block, slices_per_cta), 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(pieces_row),
-      static_cast<const float*>(pieces_val), 2 * n_blocks, a.rank, r_block,
-      static_cast<const int*>(cin_row), static_cast<const float*>(cin_val),
-      final_chunk, static_cast<float*>(out), static_cast<int*>(cout_row),
-      static_cast<float*>(cout_val));
-  return static_cast<int>(cudaGetLastError());
+  return launch_carry_fixup_chunk(a.rank, r_block, slices_per_cta, n_blocks,
+                                  pieces_row, pieces_val, cin_row, cin_val,
+                                  final_chunk, out, cout_row, cout_val,
+                                  stream);
 }
 
 }  // namespace

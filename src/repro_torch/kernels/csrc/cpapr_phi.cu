@@ -5,42 +5,101 @@
 // partition in VMEM and scatters it into the partition's Temp through a
 // one-hot (chunk x temp_rows) matmul.
 //
-// Design. K3's traversal (alto_scan.cuh) with the Φ term of
-// phi_update.cuh: one thread per rank column of one ALTO partition, each
-// nonzero added at Temp[row - part_start] in ALTO order. The target row is
-// decoded from the words and selects the B row as well; under ALTO-PRE the
-// Π rows (in ALTO order) replace the factor gathers. No rank tiles: the
-// denominator needs the whole rank. The pull into (I_n, R) is
-// ops.pull_reduction, a fixed-order sum over the partitions covering
-// each row (sort + carry_fixup), so the route is bit-repeatable.
+// What bounds it on an H100: bytes — words, values and part_start, B at
+// the stream's rows, Π or the other factors, each once, and the
+// (L, T, R) Temp written once. The earlier form (one thread per rank
+// column of a partition: 128 CTAs, under one wave, and a read-modify-write
+// of Temp in device memory per nonzero) ran at 1,700 times that bound.
 //
-// What bounds it on an H100: bytes — words, values and part_start, B, Π or
-// the other factors, each once, and the (L, T, R) Temp written. The Temp
-// read-modify-write per nonzero stays in the thread's own column (L1/L2);
-// Temp in shared memory is later work.
-#include "alto_scan.cuh"
-#include "phi_update.cuh"
+// Design (phi_partials_smem_kernel, phi_scan.cuh): one CTA per partition,
+// its Temp window and the window's B rows in shared memory; the sub-warps
+// form the terms of a tile of nonzeros in parallel (K5's lane map and
+// rounding), then each Temp entry adds its terms in stream order. A Temp
+// larger than a CTA may hold is covered in row windows (`window` rows, the
+// wrapper's choice from alto_phi_smem_limit), the partition walked once
+// per window; any window height gives the same bits. The words are decoded
+// through byte tables (alto_coord_table); the factors of the other modes
+// are gathered through L1, not staged in shared memory. The pull into (I_n, R)
+// is ops.pull_reduction, a fixed-order sum over the partitions covering
+// each row (sort + carry_fixup), so the route is bit-repeatable.
+#include "phi_scan.cuh"
+
+namespace {
+
+template <int W, int COLS>
+struct PhiPartialsLaunch {
+  static int run(const PhiArgs& p) {
+    if (p.n_parts == 0) return 0;
+    const size_t smem = phi_partials_smem_bytes(p.a.rank, p.window, p.tile);
+    auto kernel = phi_partials_smem_kernel<W, COLS, phi_unroll<COLS>()>;
+    if (smem > 48 * 1024) {
+      const cudaError_t st = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (st != cudaSuccess) return static_cast<int>(st);
+    }
+    kernel<<<static_cast<unsigned>(p.n_parts), p.threads, smem, p.stream>>>(
+        p.a, p.B, p.pi, p.eps, p.words, p.values, p.part_start, p.chunk,
+        p.temp_rows, p.out_rows, p.window, p.tile, p.temp);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+int launch_phi_partials_smem(const AltoArgs& a, const void* B,
+                             const void* pi, float eps, const void* words,
+                             const void* values, const void* part_start,
+                             long long n_parts, long long chunk,
+                             long long temp_rows, int out_rows, int window,
+                             int tile, int threads, void* temp,
+                             void* stream) {
+  if (chunk < 0 || temp_rows < 1 || window < 1 || tile < 1 || n_parts < 0 ||
+      out_rows < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PhiArgs p = phi_args(a, B, pi, eps, words, values, threads, stream);
+  p.part_start = static_cast<const int*>(part_start);
+  p.n_parts = n_parts;
+  p.chunk = chunk;
+  p.temp_rows = temp_rows;
+  p.out_rows = out_rows;
+  p.window = window;
+  p.tile = tile;
+  p.temp = static_cast<float*>(temp);
+  return phi_dispatch<PhiPartialsLaunch>(a.rank, p);
+}
+
+}  // namespace
 
 extern "C" {
 
-// temp is (n_parts, temp_rows, rank) and must hold zeros. pi is null under
-// ALTO-OTF.
+// The shared memory one CTA may opt in to on the current device, bytes.
+int alto_phi_smem_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t st = cudaGetDevice(&dev);
+  if (st == cudaSuccess)
+    st = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+  return static_cast<int>(st);
+}
+
+// temp is (n_parts, temp_rows, rank); every entry is written. pi is null
+// under ALTO-OTF; dtab: the byte decode tables. out_rows: the rows of B. window: Temp rows per pass,
+// tile: nonzeros per staging tile, threads: CTA size (whole warps).
 int alto_phi_partials(const int64_t* factor_ptrs, const int* runs,
                       int n_runs, int ndim, int nwords, int mode, int rank,
                       const void* words, const void* values,
                       const void* part_start, const void* B, const void* pi,
-                      float eps, long long n_parts, long long chunk,
-                      long long temp_rows, int slices_per_cta, void* temp,
+                      float eps, const void* dtab, long long n_parts,
+                      long long chunk, long long temp_rows, int out_rows,
+                      int window, int tile, int threads, void* temp,
                       void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                      rank) || dtab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PhiTerm term{static_cast<const float*>(B),
-                     static_cast<const float*>(pi), eps};
-  return launch_recursive_partials(a, term, words, values, part_start,
-                                   n_parts, chunk, temp_rows, rank,
-                                   slices_per_cta, temp, stream);
+  a.dtab = static_cast<const uint32_t*>(dtab);
+  return launch_phi_partials_smem(a, B, pi, eps, words, values, part_start,
+                                  n_parts, chunk, temp_rows, out_rows,
+                                  window, tile, threads, temp, stream);
 }
 
 }  // extern "C"

@@ -10,70 +10,114 @@
 //       :602) — K5 over one chunk with K8's chunk contract
 //       (carry_chunk.cuh); under ALTO-PRE pi holds the chunk's Π rows.
 //
-// Design. K1's and K2's traversals (alto_scan.cuh) with the Φ term of
-// phi_update.cuh in place of the MTTKRP term: one thread per rank column
-// of one block_m slice, runs summed in stream order from 0.0. The Φ term
-// needs the whole rank, so there are no rank tiles: a CTA holds R threads
-// per slice. K5's carries go through K1's carry_fixup (mttkrp_oriented.cu),
-// K6's partials through ops.segment_merge, which stores the inner runs and
-// sends the boundary runs through the same fix-up; so K5 equals
-// K6 + segment_merge bit for bit. B is gathered by the view's rows. Under
-// ALTO-PRE the Π rows (in the view's order, padded with zero rows) replace
-// the factor gathers and the words are not decoded.
+// What bounds them on an H100: bytes — the stream (row, value; the words
+// under ALTO-OTF), Π (PRE, M·R·4) or the other factors, B at the stream's
+// rows, and the output, each once. The Φ term needs the whole rank of a
+// nonzero for its denominator, so there are no rank tiles.
 //
-// What bounds it on an H100: bytes — the stream (row, words, value), Π
-// (PRE, M·R·4) or the other factors, B, and the output, each once. Every
-// thread reads the whole B row and krp row of each nonzero (broadcasts
-// within the slice's threads) to form the denominator itself, R times the
-// MTTKRP's gathers, served from L1; a shuffle-shared denominator and
-// shared-memory staging are later work.
+// K5 and K9 (phi_scan.cuh): a sub-warp per block_m slice, its lanes on the
+// rank columns (four each at R = 16). Each lane loads its own Π (or
+// factor) and B entries, so a nonzero's rows are read once; the
+// denominator is a serial chain of shuffles in k order, a sub-warp keeps
+// several nonzeros in flight and a warp several slices. The runs pass keeps carry_runs_kernel's contract: inner runs to
+// out, the slice's first and last runs to the carries buffer, which K1's
+// carry_fixup (K5) or the chunk fix-up (K9, carry_chunk.cuh) merges in
+// block order.
+//
+// K6: K2's traversal (alto_scan.cuh) with PhiTerm (phi_update.cuh), one
+// thread per rank column forming the whole denominator itself; its
+// partials go through ops.segment_merge. PhiTerm and the sub-warp term
+// round alike, so K5 equals K6 + segment_merge bit for bit.
 #include "alto_scan.cuh"
 #include "carry_chunk.cuh"
+#include "phi_scan.cuh"
 #include "phi_update.cuh"
+
+namespace {
+
+template <int W, int COLS>
+struct PhiCarryRunsLaunch {
+  static int run(const PhiArgs& p) {
+    if (p.n_blocks == 0) return 0;
+    const int64_t per_cta = p.threads / W;
+    const unsigned grid =
+        static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta);
+    phi_carry_runs_kernel<W, COLS, phi_unroll<COLS>()>
+        <<<grid, p.threads, 0, p.stream>>>(
+            p.a, p.B, p.pi, p.eps, p.rows, p.words, p.values, p.block_m,
+            p.n_blocks, p.out, p.carry_row, p.carry_val);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+int launch_phi_carry_runs(const AltoArgs& a, const void* B, const void* pi,
+                          float eps, const void* rows, const void* words,
+                          const void* values, long long block_m,
+                          long long n_blocks, int threads, void* out,
+                          void* carry_row, void* carry_val, void* stream) {
+  if (block_m < 1 || n_blocks < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PhiArgs p = phi_args(a, B, pi, eps, words, values, threads, stream);
+  p.rows = static_cast<const int*>(rows);
+  p.block_m = block_m;
+  p.n_blocks = n_blocks;
+  p.out = static_cast<float*>(out);
+  p.carry_row = static_cast<int*>(carry_row);
+  p.carry_val = static_cast<float*>(carry_val);
+  return phi_dispatch<PhiCarryRunsLaunch>(a.rank, p);
+}
+
+}  // namespace
 
 extern "C" {
 
 // K5, first pass. out must hold zeros; carries finish in alto_carry_fixup.
-// pi is null under ALTO-OTF.
+// pi is null under ALTO-OTF; dtab: the byte decode tables.
+// threads: CTA size (rounded to whole warps).
 int alto_phi_carry_runs(const int64_t* factor_ptrs, const int* runs,
                         int n_runs, int ndim, int nwords, int mode, int rank,
                         const void* rows, const void* words,
                         const void* values, const void* B, const void* pi,
-                        float eps, long long block_m, long long n_blocks,
-                        int slices_per_cta, void* out, void* carry_row,
-                        void* carry_val, void* stream) {
+                        float eps, const void* dtab, long long block_m,
+                        long long n_blocks, int threads, void* out,
+                        void* carry_row, void* carry_val, void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                      rank) || dtab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PhiTerm term{static_cast<const float*>(B),
-                     static_cast<const float*>(pi), eps};
-  return launch_carry_runs(a, term, rows, words, values, block_m, n_blocks,
-                           rank, slices_per_cta, out, carry_row, carry_val,
-                           stream);
+  a.dtab = static_cast<const uint32_t*>(dtab);
+  return launch_phi_carry_runs(a, B, pi, eps, rows, words, values, block_m,
+                               n_blocks, threads, out, carry_row, carry_val,
+                               stream);
 }
 
 // K9: one chunk of the Φ carry route, with alto_carry_chunk's contract
-// (mttkrp_oriented.cu). pi (the chunk's Π rows) is null under ALTO-OTF.
+// (mttkrp_oriented.cu): K5's runs pass, then the chunk fix-up. pi (the
+// chunk's Π rows) is null under ALTO-OTF.
 int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                          int n_runs, int ndim, int nwords, int mode, int rank,
                          const void* rows, const void* words,
                          const void* values, const void* B, const void* pi,
-                         float eps, long long block_m, long long n_blocks,
-                         int slices_per_cta, void* out, void* pieces_row,
-                         void* pieces_val, const void* cin_row,
-                         const void* cin_val, int final_chunk,
-                         void* cout_row, void* cout_val, void* stream) {
+                         float eps, const void* dtab, long long block_m,
+                         long long n_blocks, int threads, void* out,
+                         void* pieces_row, void* pieces_val,
+                         const void* cin_row, const void* cin_val,
+                         int final_chunk, void* cout_row, void* cout_val,
+                         void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                      rank) || n_blocks < 1 || dtab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const PhiTerm term{static_cast<const float*>(B),
-                     static_cast<const float*>(pi), eps};
-  return launch_carry_chunk(a, term, rows, words, values, block_m, n_blocks,
-                            rank, slices_per_cta, out, pieces_row,
-                            pieces_val, cin_row, cin_val, final_chunk,
-                            cout_row, cout_val, stream);
+  a.dtab = static_cast<const uint32_t*>(dtab);
+  const int status = launch_phi_carry_runs(a, B, pi, eps, rows, words,
+                                           values, block_m, n_blocks,
+                                           threads, out, pieces_row,
+                                           pieces_val, stream);
+  if (status != 0) return status;
+  const int slices = threads / rank > 1 ? threads / rank : 1;
+  return launch_carry_fixup_chunk(rank, rank, slices, n_blocks, pieces_row,
+                                  pieces_val, cin_row, cin_val, final_chunk,
+                                  out, cout_row, cout_val, stream);
 }
 
 // K6. partials is (n_blocks, block_m, rank); every slot is written.

@@ -1,17 +1,17 @@
-// The per-nonzero CP-APR Φ term, shared by the three Φ kernels (K5, K6,
-// K7): contrib_r = v / max(<B[row, :], krp>, eps) · krp_r.
+// The per-nonzero CP-APR Φ term of the thread-per-column traversal (K6):
+// contrib_r = v / max(<B[row, :], krp>, eps) · krp_r.
 //
 // Replaces `_phi` (src/repro/core/cpapr.py:78), which every Pallas Φ
 // kernel inlines (mttkrp_oriented.py `_phi_oriented_kernel`,
 // `_phi_carry_kernel`; cpapr_phi.py `_phi_partial_kernel`).
 //
-// The denominator needs the whole rank of the nonzero, so the Φ kernels
-// take no rank tiles (r_block == R). Every thread of a slice computes the
-// denominator itself, serially in r order, from all R entries of the B row
-// and of the krp row; the slice's threads read the same addresses, so the
-// loads are broadcasts. No shared memory and no __syncthreads: the
-// traversal kernels return early for slices past the stream's end, which a
-// block-wide barrier would deadlock against.
+// What bounds it on an H100: the denominator needs the whole rank of the
+// nonzero, and here every thread of a slice forms it itself, serially in
+// r order, from all R entries of the B row and of the krp row: R times the
+// loads and divisions the work needs (broadcast loads within the slice's
+// threads). K6 keeps this form; K5, K7 and K9 share one denominator per
+// sub-warp through shuffles (phi_scan.cuh), with the same rounding, so
+// K5 equals K6 + segment_merge bit for bit.
 //
 // Rounding contract (extends alto_decode.cuh):
 //   * krp_k is the product of the other modes' factor entries in

@@ -19,7 +19,10 @@ a maximal stretch of equal rows inside one slice.
   slice's ``j``-th run, zeros elsewhere — the JAX partials layout.
 * `phi_carry_runs` (K5) and `phi_oriented_partials` (K6): the same two
   traversals summing the Φ term (`core.mttkrp.phi_contributions`) in
-  place of the MTTKRP term, over the whole rank (``r_block == R``).
+  place of the MTTKRP term, over the whole rank (``r_block == R``). K5
+  (and K9) give each slice a sub-warp whose lanes hold the rank columns
+  and share the denominator through shuffles; ``threads`` is then the CTA
+  size (whole warps). K6 keeps a thread per column.
 * `carry_chunk` (K8) and `phi_carry_chunk` (K9): K1 / K5 over one chunk
   of a longer stream (``csrc/carry_chunk.cuh``). They take the running
   ``out`` and the open run so far, ``(carry_row (1,) int32, carry_val
@@ -340,9 +343,10 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
     lib = _build.library("phi_oriented")
     status = lib.alto_phi_carry_runs(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
-        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, block_m,
-        nb, common.slices_per_cta(threads, R), out.data_ptr(),
-        carry_row.data_ptr(), carry_val.data_ptr(), common.stream_ptr(rows))
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
+        common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
+        threads, out.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(),
+        common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_carry_runs")
     _build.count_launch("phi_carry_runs")
@@ -463,11 +467,11 @@ def phi_carry_chunk(enc: AltoEncoding, mode: int, eps: float, rows, words,
     lib = _build.library("phi_oriented")
     status = lib.alto_phi_carry_chunk(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
-        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, block_m,
-        nb, common.slices_per_cta(threads, R), out.data_ptr(),
-        p_row.data_ptr(), p_val.data_ptr(), carry_row.data_ptr(),
-        carry_val.data_ptr(), int(final), c_row.data_ptr(), c_val.data_ptr(),
-        common.stream_ptr(rows))
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
+        common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
+        threads, out.data_ptr(), p_row.data_ptr(), p_val.data_ptr(),
+        carry_row.data_ptr(), carry_val.data_ptr(), int(final),
+        c_row.data_ptr(), c_val.data_ptr(), common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_carry_chunk")
     _build.count_launch("phi_carry_chunk")

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core import stream as _stream
+from repro_torch.core import views as _views
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.core.encoding import AltoEncoding
 from repro_torch.kernels import cpapr_phi as _phi
@@ -45,7 +46,8 @@ _TIMING_RUNS = 0
 
 def pull_reduction(partials: torch.Tensor, part_start_mode: torch.Tensor,
                    out_dim: int,
-                   threads: int = _oriented.DEFAULT_THREADS) -> torch.Tensor:
+                   threads: int = _oriented.DEFAULT_THREADS,
+                   order: "_views.PullOrder | None" = None) -> torch.Tensor:
     """Merge per-partition Temp buffers (Alg. 4 lines 14-18) in a fixed
     order: each output row adds the partitions covering it in partition
     order, so the recursive routes are bit-repeatable on the card.
@@ -53,12 +55,15 @@ def pull_reduction(partials: torch.Tensor, part_start_mode: torch.Tensor,
     The pieces are `core.mttkrp.pull_pieces` (the ``L·T`` Temp rows
     stably sorted by global row), handed to K1's fix-up with one slot per
     piece; it walks each row's pieces in sorted order. No float atomics.
+    ``order`` is that sort when the caller has it (`core.views.
+    get_pull_order`, cached per tensor and mode); else it is sorted here.
     """
     L, T, R = partials.shape
-    rows, order = core_mttkrp.pull_pieces(part_start_mode, T, out_dim)
+    if order is None:
+        rows, perm = core_mttkrp.pull_pieces(part_start_mode, T, out_dim)
+        order = _views.PullOrder(rows.to(torch.int32)[:, None], perm)
     return _oriented.carry_fixup(
-        rows.to(torch.int32)[:, None],
-        partials.reshape(L * T, R)[order][:, None],
+        order.rows, partials.reshape(L * T, R)[order.order][:, None],
         partials.new_zeros((out_dim, R)), threads=threads)
 
 
@@ -126,7 +131,8 @@ def mttkrp(at: AltoTensor, factors, mode: int, r_block: int | None = None,
     partials = _mttkrp.recursive_partials(
         meta.enc, mode, meta.temp_rows[mode], at.words, at.values,
         at.part_start, factors, r_block=r_block, threads=threads)
-    return pull_reduction(partials, at.part_start[:, mode], meta.dims[mode])
+    return pull_reduction(partials, at.part_start[:, mode], meta.dims[mode],
+                          order=_views.get_pull_order(at, mode))
 
 
 def mttkrp_oriented(view: OrientedView, factors,
@@ -172,7 +178,7 @@ def cpapr_phi(at: AltoTensor, B: torch.Tensor, mode: int, factors=None,
         meta.enc, mode, meta.temp_rows[mode], eps, at.words, at.values,
         at.part_start, B, factors=factors, pi=pi, threads=threads)
     return pull_reduction(partials, at.part_start[:, mode], meta.dims[mode],
-                          threads)
+                          threads, _views.get_pull_order(at, mode))
 
 
 def cpapr_phi_oriented(view: OrientedView, B: torch.Tensor, factors=None,

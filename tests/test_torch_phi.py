@@ -10,7 +10,13 @@ taken in another order.
 
 Within the port, K5 (runs + fix-up) equals K6 + `segment_merge` bit for
 bit on the adversarial run layouts of `tests/test_oriented_carry.py`.
+
+The parity tests run at ranks 5, 8 and 40: on the card those take a
+partial sub-warp, a full one and two columns per lane (``csrc/
+phi_scan.cuh``); here they hold the plain versions at the same ranks.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,15 +65,23 @@ def _port_view(at, ref_view):
         np.asarray(ref_view.perm), device="cpu")
 
 
-@pytest.fixture(scope="module")
-def pair():
+@functools.lru_cache(maxsize=None)
+def _pair(rank: int):
     x = jsyn.blocked_tensor(DIMS, 900, block=6, n_blocks=6, seed=5,
                             count_data=True)
     jat = jalto.build(x, n_partitions=8)
     rng = np.random.default_rng(6)
-    fs = [rng.random((I, R)).astype(np.float32) + 0.1 for I in DIMS]
-    Bs = [rng.random((I, R)).astype(np.float32) for I in DIMS]
+    fs = [rng.random((I, rank)).astype(np.float32) + 0.1 for I in DIMS]
+    Bs = [rng.random((I, rank)).astype(np.float32) for I in DIMS]
     return jat, _port_tensor(jat), fs, Bs
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(R)
+
+
+RANKS = [5, R, 40]
 
 
 def _pi(jat, words, fs, mode):
@@ -85,13 +99,14 @@ def _operands(policy, pi, fs):
             dict(factors=interop.factors(fs, device="cpu")))
 
 
+@pytest.mark.parametrize("rank", RANKS)
 @pytest.mark.parametrize("route", ["carry", "partials"])
 @pytest.mark.parametrize("block_m", [8, 32])
 @pytest.mark.parametrize("policy", ["otf", "pre"])
 @pytest.mark.parametrize("mode", range(3))
-def test_phi_oriented_matches_pallas_interpret(pair, mode, policy, block_m,
-                                               route):
-    jat, at, fs, Bs = pair
+def test_phi_oriented_matches_pallas_interpret(mode, policy, block_m, route,
+                                               rank):
+    jat, at, fs, Bs = _pair(rank)
     jview = jalto.oriented_view(jat, mode)
     view = _port_view(at, jview)
     jkw, tkw = _operands(policy, _pi(jat, jview.words, fs, mode), fs)
@@ -103,14 +118,15 @@ def test_phi_oriented_matches_pallas_interpret(pair, mode, policy, block_m,
                interpret=True, **jkw)
     got = tfn(view, torch.from_numpy(Bs[mode]), eps=EPS, block_m=block_m,
               **tkw)
-    assert got.shape == (DIMS[mode], R)
+    assert got.shape == (DIMS[mode], rank)
     assert _rel_err(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("rank", RANKS)
 @pytest.mark.parametrize("policy", ["otf", "pre"])
 @pytest.mark.parametrize("mode", range(3))
-def test_phi_recursive_matches_pallas_interpret(pair, mode, policy):
-    jat, at, fs, Bs = pair
+def test_phi_recursive_matches_pallas_interpret(mode, policy, rank):
+    jat, at, fs, Bs = _pair(rank)
     jkw, tkw = _operands(policy, _pi(jat, jat.words, fs, mode), fs)
     want = jops.cpapr_phi(jat, jnp.asarray(Bs[mode]), mode, eps=EPS,
                           interpret=True, **jkw)
@@ -119,12 +135,13 @@ def test_phi_recursive_matches_pallas_interpret(pair, mode, policy):
     assert _rel_err(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("rank", RANKS)
 @pytest.mark.parametrize("policy", ["otf", "pre"])
 @pytest.mark.parametrize("mode", range(3))
-def test_phi_partials_match_reference_oracle(pair, mode, policy):
+def test_phi_partials_match_reference_oracle(mode, policy, rank):
     """K7's (L, T, R) partials against the JAX package's `ref_phi_partials`
     (plain jnp, no Pallas)."""
-    jat, at, fs, Bs = pair
+    jat, at, fs, Bs = _pair(rank)
     jkw, tkw = _operands(policy, _pi(jat, jat.words, fs, mode), fs)
     m = at.meta
     want = jref.ref_phi_partials(jat.meta.enc, mode, m.temp_rows[mode], EPS,
