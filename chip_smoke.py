@@ -8,9 +8,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
 sm_90a), then:
 
 1. holds every kernel against its plain PyTorch version on small
-   adversarial run layouts: tolerance ``rtol=1e-5, atol=1e-6·max|plain|``,
-   K1 (carry) equal to K2 + segment_merge (``torch.equal``), and equal bits
-   on a second run;
+   adversarial run layouts at ranks 5, 16 and 40, each with the whole rank
+   and a smaller rank tile: tolerance ``rtol=1e-5, atol=1e-6·max|plain|``,
+   K1 (carry) equal to K2 + segment_merge (``torch.equal``) and bit for
+   bit to its plain version run on CPU copies with one CPU thread, every
+   row of K1's output written (run into a NaN-filled buffer it equals the
+   normal run; the runs pass leaves exactly the carried rows to the
+   fix-up), and equal bits on a second run;
 2. decomposes the Chicago-crime-comm shape (6,186 × 24 × 77 × 32, 4.86 M
    nonzeros from the repo's seeded ``blocked_tensor`` recipe) with
    ``build_device(n_partitions=1024)`` and 10 CP-ALS iterations at rank 16;
@@ -45,9 +49,17 @@ sm_90a), then:
    ALTO-OTF (2 outer iterations) against an in-core run of the same
    all-carry plan; with the chunked ms per mode against in core, the copy
    alone, and peak device memory against the plan's byte model;
-8. at the main path's shapes, checks each kernel against its plain version
-   (K7 also in windows of 16 rows, equal to one window) and times kernel,
+8. times K1's runs pass, its fix-up walk and the whole op apart on
+   Chicago modes 1-3 (with the K5 route's fix-up) and DARPA mode 2;
+9. at the main path's shapes, checks each kernel against its plain version
+   (K7 also in windows of 16 rows, equal to one window; K4 under each
+   decode route on the whole DARPA stream, one chunk's ragged length,
+   lengths 1, 1023 and 1025, and the Chicago stream) and times kernel,
    plain version and bound, and the pull with its cached order.
+
+After the build, ``ptxas -v`` must show a 0-byte stack frame for every
+instantiation of the kernels this slice redesigned (K1's runs pass, the
+fix-up walk, K4).
 
 Each CP-ALS and CP-APR run is driven with the launch counts set to 0 just
 before it and read just after; a run fails unless the kernels its plan
@@ -58,8 +70,10 @@ log-likelihoods must be finite and rise from the first outer iteration to
 the last, KKT violations finite, factors non-negative with column sums 1
 within 1e-3.
 
-Output: the card's name and power limit, a ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``. Any failed phase raises and
+Output: the card's name and power limit, a ``{"kernels": [...]}`` line
+(each kernel's main-path ``launches`` and ``elements``, the stream
+lengths summed over those launches), and last ``{"ok": true, "device":
+{...}}``. Any failed phase raises and
 exits non-zero; without CUDA, or outside a checkout of the repository,
 the script exits non-zero and prints no result. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -70,6 +84,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -106,7 +121,7 @@ def _imports():
     torch = torch_mod
     from repro_torch.core import (alto, cpals, cpapr, heuristics, mttkrp, plan,
                                   stream, views)
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, common, ops
     from repro_torch.kernels import cpapr_phi as k7
     from repro_torch.kernels import delinearize as k4
     from repro_torch.kernels import mttkrp as k3
@@ -114,7 +129,8 @@ def _imports():
     from repro_torch.kernels import ref
     from repro_torch.sparse import synthetic
     return dict(alto=alto, cpals=cpals, cpapr=cpapr, heuristics=heuristics,
-                mttkrp=mttkrp, plan=plan, build=_build, ops=ops, k3=k3,
+                mttkrp=mttkrp, plan=plan, build=_build, common=common,
+                ops=ops, k3=k3,
                 k4=k4, k7=k7, kori=kori, ref=ref, synthetic=synthetic,
                 stream=stream, views=views)
 
@@ -157,33 +173,52 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
-                           label: str) -> dict:
-    """K1 runs, carry fix-up and K2 against their plain versions on one
-    oriented view; K1 == K2 + segment_merge; repeatability."""
+                           label: str, cpu_copies: bool = False) -> dict:
+    """K1 runs, carry fix-up (under two rank tiles, equal) and K2 against
+    their plain versions on one oriented view; K1 == K2 + segment_merge; every row of
+    K1's output
+    written (a NaN-filled output equals the normal run, and the runs pass
+    leaves exactly the carried pieces' rows to the fix-up); repeatability;
+    with ``cpu_copies``, K1 equal bit for bit to its plain version run on
+    CPU copies of the inputs."""
     ops, kori = m["ops"], m["kori"]
     enc, mode = view.meta.enc, view.mode
     rows, words, values, _ = ops.pad_sorted_stream(view.rows, view.words,
                                                    view.values, block_m)
     args = (enc, mode, rows, words, values, factors)
     kw = dict(block_m=block_m, r_block=r_block, threads=threads)
-    out, crow, cval = kori.carry_runs(*args, **kw)
-    out2, crow2, cval2 = kori.carry_runs(*args, **kw)
+    shape = (enc.dims[mode], factors[0].shape[1])
+
+    def nan():
+        return torch.full(shape, float("nan"), device=rows.device)
+    out, crow, cval = kori.carry_runs(*args, **kw, out=nan())
+    out2, crow2, cval2 = kori.carry_runs(*args, **kw, out=nan())
     _sync()
     for a, b, what in ((out, out2, "out"), (crow, crow2, "carry_row"),
                        (cval, cval2, "carry_val")):
-        _check_equal(f"{label} carry_runs repeat {what}", a, b)
+        _check_equal(f"{label} carry_runs repeat {what}",
+                     a.nan_to_num(7.0), b.nan_to_num(7.0))
     p_out, p_crow, p_cval = kori.carry_runs_plain(*args, block_m)
     _check_equal(f"{label} carry_runs carry_row", crow, p_crow)
+    carried = torch.zeros(shape[0], dtype=torch.bool, device=rows.device)
+    carried[crow[crow >= 0].long()] = True
+    if not (bool(out[carried].isnan().all())
+            and not bool(out[~carried].isnan().any())):
+        _fail(f"{label} carry_runs: the rows written are not exactly the "
+              f"rows without a carried piece")
     errs = {"carry_runs": max(
-        _check_close(f"{label} carry_runs out", out, p_out),
+        _check_close(f"{label} carry_runs out", out[~carried],
+                     p_out[~carried]),
         _check_close(f"{label} carry_runs carry_val", cval, p_cval))}
 
     fix = kori.carry_fixup(crow, cval, out.clone(), r_block, threads)
     fix2 = kori.carry_fixup(crow, cval, out.clone(), r_block, threads)
     _check_equal(f"{label} carry_fixup repeat", fix, fix2)
+    _check_equal(f"{label} carry_fixup default rank tile", fix,
+                 kori.carry_fixup(crow, cval, out.clone(), None, threads))
     errs["carry_fixup"] = _check_close(
         f"{label} carry_fixup", fix,
-        kori.carry_fixup_plain(crow, cval, out.clone()))
+        kori.carry_fixup_plain(crow, cval, p_out.clone()))
 
     part = kori.oriented_partials(*args, **kw)
     _check_equal(f"{label} oriented_partials repeat", part,
@@ -197,6 +232,15 @@ def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
     _check_equal(f"{label} K1 vs K2+segment_merge", k1, k2)
     _check_equal(f"{label} K1 repeat", k1,
                  ops.mttkrp_oriented_carry(view, factors, **kw))
+    _check_equal(f"{label} K1 into a NaN-filled output", k1,
+                 kori.mttkrp_oriented_carry(*args, **kw, out=nan()))
+    if cpu_copies:
+        with _OneCpuThread():
+            o, r, v = kori.carry_runs_plain(enc, mode, *_cpu(args[2:5]),
+                                            _cpu(factors), block_m)
+            plain = kori.carry_fixup_plain(r, v, o)
+        _check_equal(f"{label} K1 vs its plain version on CPU copies",
+                     k1.cpu(), plain)
     return errs
 
 
@@ -257,31 +301,38 @@ def _cpu(x):
 
 
 def phase_small(m) -> dict:
-    """Adversarial run layouts (tests/test_oriented_carry.py) on the card."""
+    """Adversarial run layouts (tests/test_oriented_carry.py) on the card,
+    at ranks 5, `RANK` and 40, each with the whole rank as the rank tile
+    and with a smaller one; K1 equal bit for bit to its plain version on
+    CPU copies."""
     dims = (29, 13, 7)
     worst = {}
-    for block_m in (8, 64):
-        rng = np.random.default_rng(block_m)
-        layouts = {
-            "identical": np.eye(29, dtype=np.int64)[3] * (4 * block_m + 3),
-            "distinct": np.ones(29, dtype=np.int64),
-            "boundary_run": rng.integers(0, 3, size=29)
-            + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
-            "mixed": rng.integers(1, 2 * block_m, size=29),
-        }
-        for name, counts in layouts.items():
-            x = _stream_tensor(counts, dims, seed=block_m)
-            at = m["alto"].build_device(x, n_partitions=4)
-            fs = _factors(dims, seed=block_m)
-            label = f"small {name} block_m={block_m}"
-            for r_block in (4, RANK):
-                errs = check_oriented_kernels(
-                    m, m["alto"].oriented_view_device(at, 0), fs, block_m,
-                    r_block, 64, label)
-                errs["recursive_partials"] = check_recursive_kernel(
-                    m, at, fs, 0, r_block, 64, label)
-                for k, v in errs.items():
-                    worst[k] = max(worst.get(k, 0.0), v)
+    for rank, tiles in ((5, (5, 1)), (RANK, (RANK, 4)), (40, (40, 8))):
+        per_rank = worst.setdefault(f"R{rank}", {})
+        for block_m in (8, 64):
+            rng = np.random.default_rng(block_m)
+            layouts = {
+                "identical": np.eye(29, dtype=np.int64)[3]
+                * (4 * block_m + 3),
+                "distinct": np.ones(29, dtype=np.int64),
+                "boundary_run": rng.integers(0, 3, size=29)
+                + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
+                "mixed": rng.integers(1, 2 * block_m, size=29),
+            }
+            for name, counts in layouts.items():
+                x = _stream_tensor(counts, dims, seed=block_m)
+                at = m["alto"].build_device(x, n_partitions=4)
+                fs = _factors(dims, seed=block_m, rank=rank)
+                for r_block in tiles:
+                    label = (f"small {name} block_m={block_m} R={rank} "
+                             f"r_block={r_block}")
+                    errs = check_oriented_kernels(
+                        m, m["alto"].oriented_view_device(at, 0), fs,
+                        block_m, r_block, 64, label, cpu_copies=True)
+                    errs["recursive_partials"] = check_recursive_kernel(
+                        m, at, fs, 0, r_block, 64, label)
+                    for k, v in errs.items():
+                        per_rank[k] = max(per_rank.get(k, 0.0), v)
     print(f"chip_smoke: small layouts ok, worst errors {worst}")
     return worst
 
@@ -413,14 +464,22 @@ def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
     return errs
 
 
-def check_delinearize(m, enc, words, label: str) -> None:
-    """K4 equal to its plain version, and repeatable."""
+def check_delinearize(m, enc, words, label: str,
+                      lengths=(None,)) -> None:
+    """K4 equal to its plain version under each decode route, on the
+    first ``n`` words for each ``n`` of ``lengths`` (None: all), through
+    `ops.delinearize` and repeatably."""
     k4, ops = m["k4"], m["ops"]
-    got = ops.delinearize(enc, words)
-    _check_equal(f"{label} delinearize repeat", got,
-                 ops.delinearize(enc, words))
-    _check_equal(f"{label} delinearize", got,
-                 k4.delinearize_plain(enc, words))
+    for n in lengths:
+        w = words if n is None else words[:n]
+        plain = k4.delinearize_plain(enc, w)
+        got = ops.delinearize(enc, w)
+        _check_equal(f"{label} M={w.shape[0]} delinearize repeat", got,
+                     ops.delinearize(enc, w))
+        _check_equal(f"{label} M={w.shape[0]} delinearize", got, plain)
+        for route in k4.ROUTES:
+            _check_equal(f"{label} M={w.shape[0]} delinearize ({route})",
+                         k4.delinearize(enc, w, route=route), plain)
 
 
 def phase_small_phi(m) -> dict:
@@ -561,7 +620,7 @@ def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
                         label: str) -> dict:
     """K8 (policy None) or K9 against its plain version chunk by chunk,
     chaining the kernel's carry: out and carry value close, carry row
-    equal."""
+    equal; a second launch equal bit for bit."""
     ops, kori = m["ops"], m["kori"]
     enc, mode = hs.meta.enc, hs.mode
     n = hs.padded_len(block_m)
@@ -591,7 +650,17 @@ def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
             want = kori.phi_carry_chunk_plain(*args, out.clone(), crow, cval,
                                               **kw, block_m=block_m,
                                               final=final)
+        if policy is None:
+            again = kori.carry_chunk(*args, out.clone(), crow, cval,
+                                     block_m=block_m, r_block=4, threads=64,
+                                     final=final)
+        else:
+            again = kori.phi_carry_chunk(*args, out.clone(), crow, cval,
+                                         **kw, block_m=block_m, threads=64,
+                                         final=final)
         _sync()
+        for a, b, what in zip(got, again, ("out", "carry_row", "carry_val")):
+            _check_equal(f"{label} chunk {i} repeat {what}", a, b)
         _check_equal(f"{label} chunk {i} carry_row", got[1], want[1])
         err = max(err, _check_close(f"{label} chunk {i} out", got[0],
                                     want[0]),
@@ -709,7 +778,8 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
           f"in {seconds:.3f} s; launches {counts['launches']}; one more "
           f"iteration: {split}")
     return {"traversals": p.traversals(), "fits": fits, "seconds": seconds,
-            "launches": counts["launches"], "res": res, **split}
+            "launches": counts["launches"], "elements": counts["elements"],
+            "res": res, **split}
 
 
 def iteration_split(m, at, p, res, fit: bool = True) -> dict:
@@ -813,7 +883,7 @@ def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
             "s_per_outer": seconds / res.n_outer,
             "n_inner_total": res.n_inner_total,
             "kkt_wait_s": res.kkt_wait_s, "phi_ms_per_mode": phi_ms,
-            "launches": counts["launches"]}
+            "launches": counts["launches"], "elements": counts["elements"]}
     print(f"chip_smoke: {label}: traversals {p.traversals()} "
           f"{res.pi_policy}; {res.n_outer} outer iterations in "
           f"{seconds:.3f} s ({seconds / res.n_outer:.3f} s each, "
@@ -1076,8 +1146,8 @@ def phase_chicago_streamed(m, chicago) -> dict:
 CSRC = "src/repro_torch/kernels/csrc/"
 JAX_KERNELS = "src/repro/kernels/"
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
-    "carry_runs": ("mttkrp_oriented.cu", "mttkrp_oriented.py:358"),
-    "carry_fixup": ("mttkrp_oriented.cu", "mttkrp_oriented.py:254"),
+    "carry_runs": ("alto_scan.cuh", "mttkrp_oriented.py:358"),
+    "carry_fixup": ("carry_fixup.cuh", "mttkrp_oriented.py:254"),
     "oriented_partials": ("mttkrp_oriented.cu", "mttkrp_oriented.py:132"),
     "recursive_partials": ("mttkrp.cu", "mttkrp.py:75"),
     "delinearize": ("delinearize.cu", "delinearize.py:37"),
@@ -1092,14 +1162,16 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
 def _entry(name, launches, err, ms, plain_ms, nbytes, nops, library_ms,
            shape, op=None, op_ms=None, op_plain_ms=None,
            op_bytes=None) -> dict:
-    """One element of the ``kernels`` line."""
+    """One element of the ``kernels`` line. ``launches`` holds the main
+    path's launch counts and, under "elements", the stream lengths they
+    were launched on, summed."""
     bound, by = _bound(nbytes, nops)
     source, replaces = KERNEL_SOURCES[name]
     e = {"name": name, "route": "cuda", "source": CSRC + source,
          "replaces": JAX_KERNELS + replaces, "launches": launches[name],
-         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-         "shape": shape}
+         "elements": launches["elements"][name], "max_abs_err": err,
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+         "library_ms": library_ms, "shape": shape}
     if op is not None:          # the op the main path calls around it
         e.update(op=op, op_ms=op_ms, op_plain_ms=op_plain_ms,
                  op_bound_ms=_bound(op_bytes, nops)[0])
@@ -1164,7 +1236,7 @@ def time_oriented(m, view, factors, mp, launches) -> list[dict]:
                _ms(m, ops.mttkrp_oriented_carry, view, factors, bm, rb, th),
                _ms(m, k1_plain, iters=3), stream + fac + out_b),
         _entry("carry_fixup", launches, errs["carry_fixup"],
-               _ms(m, kori.carry_fixup, crow, cval, out.clone(), rb, th),
+               _ms(m, kori.carry_fixup, crow, cval, out.clone(), None, th),
                _ms(m, kori.carry_fixup_plain, crow, cval, out.clone(),
                    iters=3),
                carries + fix_rows * R * 4, present.numel() * R,
@@ -1250,7 +1322,8 @@ def time_phi_recursive(m, at, res, mp, launches) -> dict:
                        mp.threads, m["views"].get_pull_order(at, mode))
     e["pull_with_sort_ms"] = _ms(m, ops.pull_reduction, temp, start,
                                  meta.dims[mode], mp.threads)
-    e["window_rows"] = k7.window_rows(T, R, k7.smem_limit(temp.device))
+    e["window_rows"] = k7.window_rows(
+        T, R, m["common"].smem_limit(temp.device))
     return e
 
 
@@ -1311,21 +1384,43 @@ def time_phi_oriented(m, view, res, mp, launches) -> list[dict]:
     return entries
 
 
-def time_delinearize(m, at, launches) -> dict:
-    """K4 on a tensor's whole ALTO stream."""
+def time_delinearize(m, at, chicago_at, chunk_m, launches) -> dict:
+    """K4 on the DARPA tensor's whole ALTO stream (under each decode
+    route too), on one chunk's ragged length and on the Chicago stream;
+    equal to its plain version there and at lengths 1, 1023 and 1025,
+    under every route."""
     k4, ops = m["k4"], m["ops"]
     enc = at.meta.enc
-    check_delinearize(m, enc, at.words, "real size")
-    _, words, _, _ = ops.pad_sorted_stream(None, at.words, None,
-                                           k4.DEFAULT_BLOCK_M)
+    check_delinearize(m, enc, at.words, "darpa",
+                      lengths=(None, chunk_m, 1, 1023, 1025))
+    check_delinearize(m, chicago_at.meta.enc, chicago_at.words, "chicago")
+    words = at.words
     M, W, N = words.shape[0], enc.n_words, enc.ndim
-    nbytes = M * W * 4 + M * N * 4
-    return _entry(
+
+    def nbytes(enc, M):
+        return M * enc.n_words * 4 + M * enc.ndim * 4
+    chunk = words[:chunk_m]
+    cw = chicago_at.words
+    cenc = chicago_at.meta.enc
+    e = _entry(
         "delinearize", launches, 0.0, _ms(m, k4.delinearize, enc, words),
-        _ms(m, k4.delinearize_plain, enc, words, iters=3), nbytes,
+        _ms(m, k4.delinearize_plain, enc, words, iters=3), nbytes(enc, M),
         M * len(enc.runs) * 3, None, f"{enc.dims}, M={M}, W={W}",
-        "ops.delinearize", _ms(m, ops.delinearize, enc, at.words),
-        _ms(m, k4.delinearize_plain, enc, at.words, iters=3), nbytes)
+        "ops.delinearize", _ms(m, ops.delinearize, enc, words),
+        _ms(m, k4.delinearize_plain, enc, words, iters=3), nbytes(enc, M))
+    limit = m["common"].smem_limit(words.device)
+    e["route"] = k4.choose_route(enc, k4.TILE, limit)
+    e["route_ms"] = {r: _ms(m, k4.delinearize, enc, words, r)
+                     for r in k4.ROUTES}
+    e["chunk"] = {"M": chunk_m, "ms": _ms(m, ops.delinearize, enc, chunk),
+                  "bound_ms": _bound(nbytes(enc, chunk_m), 0)[0]}
+    e["chicago"] = {"M": cw.shape[0],
+                    "route": k4.choose_route(cenc, k4.TILE, limit),
+                    "ms": _ms(m, ops.delinearize, cenc, cw),
+                    "route_ms": {r: _ms(m, k4.delinearize, cenc, cw, r)
+                                 for r in k4.ROUTES},
+                    "bound_ms": _bound(nbytes(cenc, cw.shape[0]), 0)[0]}
+    return e
 
 
 def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
@@ -1386,6 +1481,88 @@ def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
     return entries
 
 
+def carry_split(m, at, p, fs, modes, label: str, apr_res=None) -> dict:
+    """ms of K1's runs pass, its fix-up and the whole op on each of
+    ``modes`` at the plan's tiles; with a CP-APR result, also the fix-up of the K5 route
+    (ALTO-OTF) on the same modes."""
+    ops, kori = m["ops"], m["kori"]
+    enc = at.meta.enc
+    out = {}
+    for n in modes:
+        mp = p.modes[n]
+        view = m["alto"].oriented_view_device(at, n)
+        rows, words, values, _ = ops.pad_sorted_stream(
+            view.rows, view.words, view.values, mp.block_m)
+        a = (enc, n, rows, words, values, fs, mp.block_m, mp.r_block,
+             mp.threads)
+        o, crow, cval = kori.carry_runs(*a)
+        e = {"M": rows.shape[0], "block_m": mp.block_m, "rows": at.dims[n],
+             "pieces": int((crow >= 0).sum()),
+             "runs_ms": _ms(m, kori.carry_runs, *a),
+             "fixup_ms": _ms(m, kori.carry_fixup, crow, cval, o, None,
+                             mp.threads),
+             "op_ms": _ms(m, ops.mttkrp_oriented_carry, view, fs,
+                          mp.block_m, mp.r_block, mp.threads)}
+        if apr_res is not None:
+            B = apr_res.factors[n] * apr_res.lam[None, :]
+            o, crow, cval = kori.phi_carry_runs(
+                enc, n, 1e-10, rows, words, values, B,
+                factors=apr_res.factors, block_m=mp.block_m,
+                threads=mp.threads)
+            e["k5_fixup_ms"] = _ms(m, kori.carry_fixup, crow, cval, o, None,
+                                   mp.threads)
+        out[f"mode{n}"] = e
+    print(f"chip_smoke: {label}: K1 runs pass / fix-up / op, ms: {out}")
+    return out
+
+
+NEW_KERNELS = ("mttkrp_carry_runs_kernel", "carry_fixup_tiles_kernel",
+               "delinearize_tiles_kernel")
+
+
+def stack_frames(build) -> dict:
+    """Stack frame bytes and registers of every function ptxas reported
+    (``-v``), by library and mangled name: ``{name: [stack, registers]}``
+    (registers None for a device function)."""
+    frames = {}
+    for lib, log in build.BUILD_LOG.items():
+        fn = None
+        for line in log.splitlines():
+            found = re.search(r"Function properties for (\S+)", line)
+            if found:
+                fn = f"{lib}:{found.group(1)}"
+                continue
+            found = re.search(r"(\d+) bytes stack frame", line)
+            if found and fn is not None:
+                frames[fn] = [int(found.group(1)), None]
+                continue
+            found = re.search(r"Used (\d+) registers", line)
+            if found and fn in frames:
+                frames[fn][1] = int(found.group(1))
+                fn = None
+    return frames
+
+
+def check_stack_frames(build) -> dict:
+    """Every instantiation of the kernels this slice redesigned has a
+    0-byte stack frame (a register array indexed at run time would put it
+    on the stack)."""
+    frames = stack_frames(build)
+    new = {k: v[0] for k, v in frames.items()
+           if any(n in k for n in NEW_KERNELS)}
+    for n in NEW_KERNELS:
+        if not any(n in k for k in new):
+            _fail(f"ptxas reported no stack frame for {n}: no build log "
+                  f"beside its library (delete build/repro_torch)")
+    if any(new.values()):
+        _fail(f"stack frames in the redesigned kernels: "
+              f"{ {k: v for k, v in new.items() if v} }")
+    print(f"chip_smoke: ptxas: {len(new)} instantiations of "
+          f"{NEW_KERNELS}, all with a 0-byte stack frame; registers "
+          f"{ {k.split(':')[1][-60:]: frames[k][1] for k in new} }")
+    return {k: frames[k] for k in new}
+
+
 def mode_times(m, at, p, views, factors) -> list[float]:
     """ms of one execute_mttkrp per mode, as the sweep calls it."""
     return [_ms(m, m["plan"].execute_mttkrp, p, at, views, factors, n,
@@ -1412,6 +1589,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"chip_smoke: ptxas {name}: {line.strip()}")
+    frames = check_stack_frames(m["build"])
     t_start = time.perf_counter()
     small = {"worst_err": phase_small(m), **phase_small_cp_als(m),
              "phi_worst_err": phase_small_phi(m),
@@ -1423,12 +1601,21 @@ def main() -> int:
     darpa_apr = phase_darpa_apr(m, darpa)
     d_str = phase_darpa_streamed(m, darpa, darpa_apr)
     c_str = phase_chicago_streamed(m, chicago)
+    split = {"chicago": carry_split(
+                 m, chicago["at"], chicago["plan"],
+                 chicago["run"]["res"].factors, (1, 2, 3), "chicago",
+                 chicago_apr["run"]["res"]),
+             "darpa": carry_split(m, darpa["at"], darpa["plan"],
+                                  darpa["run"]["res"].factors, (2,),
+                                  "darpa")}
     runs = [chicago["run"], darpa["run"], darpa["onehot_run"],
             chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
             c_str["run"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
+    launches["elements"] = {k: sum(r["elements"][k] for r in runs)
+                            for k in m["build"].KERNELS}
 
     trav = m["heuristics"].Traversal
     cp, dp = chicago["plan"], darpa["plan"]
@@ -1444,7 +1631,8 @@ def main() -> int:
                                       launches))
     kernels += time_phi_oriented(m, d_view, darpa_apr["run"]["res"], big,
                                  launches)
-    kernels.append(time_delinearize(m, darpa["at"], launches))
+    kernels.append(time_delinearize(m, darpa["at"], chicago["at"],
+                                    d_str["chunk_m"], launches))
     kernels += time_chunks(m, d_str["streams"][2], d_str["plan"].streaming,
                            d_str["plan"].modes[2], d_str["run"]["res"],
                            d_str["apr_run"]["res"], launches)
@@ -1479,7 +1667,8 @@ def main() -> int:
 
     detail = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_seconds": build_s, "small": small,
+        "build_seconds": build_s, "stack_frames": frames, "small": small,
+        "carry_split": split,
         "chicago": {k: chicago[k] for k in ("gen_s", "build_s", "nnz",
                                             "fiber_reuse")}
         | {"traversals": chicago["run"]["traversals"],

@@ -24,23 +24,29 @@ A plan answers, per mode:
     the JAX package's, term for term, so both packages pick the same
     chunks at equal ``block_m``.
 
-The Hopper model. In every kernel a thread owns one rank column of one
-slice of the stream (a ``block_m`` slice, or an ALTO partition for the
-recursive kernel) and walks it in order; factor rows are gathered from
-device memory and the output lives in device memory. So no kernel keeps
-a tile resident, shared memory per CTA is zero, and the carry variant —
-whose whole output stayed in the TPU's VMEM — has no resident-output
-gate here: on hyper-sparse long modes the port picks carry where the
-JAX package's VMEM gate forces the one-hot variant.
+The Hopper model. Every kernel walks each slice of the stream (a
+``block_m`` slice, or an ALTO partition for the recursive kernels) in
+stream order, because a run's terms are summed in that order: a thread
+per rank column in K2, K3 and K6, a sub-warp of lanes holding a few
+columns each in K1, K5 and K8/K9 (`kernels.mttkrp_oriented.lane_map`),
+a CTA per partition in K7. Factor rows are gathered from device memory
+and the output lives in device memory, so only K7 keeps a tile resident,
+and the carry variant — whose whole output stayed in the TPU's VMEM — has
+no resident-output gate here: on hyper-sparse long modes the port picks
+carry where the JAX package's VMEM gate forces the one-hot variant.
 
   * ``r_block``: the largest divisor of the rank up to `MAX_R_BLOCK`
-    (one thread per rank column; larger ranks split into rank tiles);
-  * threads per CTA: ``r_block`` times the slices a CTA holds, about
-    `THREADS_PER_CTA`;
+    (larger ranks split into rank tiles);
+  * threads per CTA: ``r_block`` times the slices a thread-per-column
+    CTA holds, about `THREADS_PER_CTA` (the sub-warp kernels take it as
+    their CTA size);
   * ``block_m``: the largest power of two in [`MIN_BLOCK_M`,
-    `MAX_BLOCK_M`] that still leaves `TARGET_WAVES` waves of slices on
-    the card's `SMS` multiprocessors — a slice is walked serially, so
-    the card needs many of them in flight.
+    `MAX_BLOCK_M`] that still leaves `TARGET_WAVES` waves of
+    thread-per-column slices on the card's `SMS` multiprocessors — each
+    slice is one serial walk, so the card needs many of them in flight.
+    The sub-warp kernels run the same slices (every bitwise contract
+    depends on equal ``block_m``); a ``block_m`` of their own is left to
+    the autotuning slice.
 """
 from __future__ import annotations
 
@@ -52,12 +58,12 @@ import torch
 from repro_torch.core import heuristics
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
-from repro_torch.kernels import ops
+from repro_torch.kernels import common, ops
 
 SMS = 132                    # H100 SXM multiprocessors
 MAX_THREADS_PER_SM = 2048
 THREADS_PER_CTA = 128
-MAX_R_BLOCK = 128
+MAX_R_BLOCK = common.MAX_RANK_TILE
 MIN_BLOCK_M = 8
 MAX_BLOCK_M = 1024
 TARGET_WAVES = 4
@@ -109,9 +115,9 @@ class ExecutionPlan:
 # ---------------------------------------------------------------------------
 
 def choose_rank_block(rank: int) -> int:
-    """Largest divisor of ``rank`` up to `MAX_R_BLOCK`."""
-    return max(d for d in range(1, min(rank, MAX_R_BLOCK) + 1)
-               if rank % d == 0)
+    """Largest divisor of ``rank`` up to `MAX_R_BLOCK`
+    (`common.rank_tile`)."""
+    return common.rank_tile(rank)
 
 
 def cta_threads(r_block: int) -> int:

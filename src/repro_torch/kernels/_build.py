@@ -4,16 +4,18 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with `ctypes`. The build
 runs at first use, from the sources in this checkout only, into
 ``build/repro_torch/`` at the repository root; a library's file name
-carries a digest of its sources and flags, so an edited source is rebuilt.
+carries a digest of its sources and flags, so an edited source is rebuilt;
+nvcc's output (the ptxas report) is kept beside it as ``<name>.log``.
 All missing libraries are compiled at once, one ``nvcc`` process each.
 There is no prebuilt binary and no fallback when ``nvcc`` fails.
 
 Every C entry returns ``cudaGetLastError()``; `check` raises when it is
-not 0. Launch counts: each kernel wrapper adds one to `LAUNCHES[name]`
-where it launches its kernel; each plain version adds one to
-`PLAIN_ON_CUDA[name]` when it runs on a CUDA tensor, so a driver can show
-that its main path went through the kernels and never through a plain
-version.
+not 0. Launch counts: each kernel wrapper adds one to `LAUNCHES[name]`,
+and the length of the stream it was launched on (nonzeros, or pieces for
+the fix-up) to `ELEMENTS[name]`, where it launches its kernel; each plain
+version adds one to `PLAIN_ON_CUDA[name]` when it runs on a CUDA tensor,
+so a caller can show that its main path went through the kernels and
+never through a plain version.
 """
 from __future__ import annotations
 
@@ -39,20 +41,20 @@ _ALTO = [_P, _P, _I, _I, _I, _I, _I]        # factor ptrs, runs table, ...
 _PHI = [_P, _P, _F]                          # B, Π or null, eps
 SIGNATURES = {
     "mttkrp_oriented": {
-        "alto_carry_runs": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
-                                    _P],
+        "alto_carry_runs": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                                    _I, _P, _P, _P, _P],
         "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _I, _P, _P],
         "alto_oriented_partials": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P,
                                            _P],
-        "alto_carry_chunk": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P, _P, _P,
-                                     _P, _P, _I, _P, _P, _P],
+        "alto_carry_chunk": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                                     _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
     "mttkrp": {
         "alto_recursive_partials": _ALTO + [_P, _P, _P, _L, _L, _L, _I, _I,
                                             _P, _P],
     },
     "delinearize": {
-        "alto_delinearize": [_P, _I, _I, _I, _P, _L, _L, _P, _P],
+        "alto_delinearize": [_I, _I, _P, _P, _L, _I, _I, _P, _P],
     },
     "phi_oriented": {
         "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [
@@ -60,7 +62,7 @@ SIGNATURES = {
         "alto_phi_oriented_partials": _ALTO + [_P, _P, _P] + _PHI + [
             _L, _L, _I, _P, _P],
         "alto_phi_carry_chunk": _ALTO + [_P, _P, _P] + _PHI + [
-            _P, _L, _L, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+            _P, _L, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
     "cpapr_phi": {
         "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [
@@ -74,17 +76,20 @@ KERNELS = ("carry_runs", "carry_fixup", "oriented_partials",
            "phi_oriented_partials", "phi_partials", "carry_chunk",
            "phi_carry_chunk")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+ELEMENTS = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
-BUILD_LOG: dict[str, str] = {}     # library -> nvcc output (ptxas -v)
+BUILD_LOG: dict[str, str] = {}     # library -> nvcc output (ptxas -v),
+                                   # from this build or the one cached
 BUILD_SECONDS: dict[str, float] = {}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, elements: int) -> None:
     with _LOCK:
         LAUNCHES[name] += 1
+        ELEMENTS[name] += int(elements)
 
 
 def count_plain(name: str, tensor) -> None:
@@ -97,12 +102,13 @@ def reset_counts() -> None:
     with _LOCK:
         for k in KERNELS:
             LAUNCHES[k] = 0
+            ELEMENTS[k] = 0
             PLAIN_ON_CUDA[k] = 0
 
 
 def counts() -> dict[str, dict[str, int]]:
     with _LOCK:
-        return {"launches": dict(LAUNCHES),
+        return {"launches": dict(LAUNCHES), "elements": dict(ELEMENTS),
                 "plain_on_cuda": dict(PLAIN_ON_CUDA)}
 
 
@@ -122,6 +128,12 @@ def _target(name: str) -> pathlib.Path:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _log_path(name: str) -> pathlib.Path:
+    """The nvcc output kept beside a built library, so a library loaded
+    from an earlier build still has its ptxas report."""
+    return _target(name).with_suffix(".log")
 
 
 def build_all() -> dict[str, float]:
@@ -151,12 +163,15 @@ def build_all() -> dict[str, float]:
                 if proc.returncode != 0:
                     failed.append(f"{name}:\n{out}")
                 else:
+                    _log_path(name).write_text(out)
                     os.replace(tmp, _target(name))
             if failed:
                 raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name, sigs in SIGNATURES.items():
             if name in _LIBS:
                 continue
+            if name not in BUILD_LOG and _log_path(name).exists():
+                BUILD_LOG[name] = _log_path(name).read_text()
             lib = ctypes.CDLL(str(_target(name)))
             for fn, argtypes in sigs.items():
                 getattr(lib, fn).argtypes = argtypes

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.encoding import AltoEncoding
+from repro_torch.kernels import _build
 
 MAX_MODES = 8      # ALTO_MAX_MODES in csrc/alto_decode.cuh
 MAX_RUNS = 128     # ALTO_MAX_RUNS
@@ -124,6 +125,23 @@ def decode_table(enc: AltoEncoding, device) -> torch.Tensor:
     return table
 
 
+_SMEM_LIMIT: dict[int, int] = {}
+
+
+def smem_limit(device: torch.device) -> int:
+    """The shared memory one CTA may opt in to on ``device`` (bytes), as
+    the CUDA runtime reports it."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMEM_LIMIT:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _build.check(_build.library("cpapr_phi").alto_phi_smem_limit(
+                ctypes.byref(out)), "alto_phi_smem_limit")
+        _SMEM_LIMIT[idx] = out.value
+    return _SMEM_LIMIT[idx]
+
+
 def alto_args(enc: AltoEncoding, mode: int, factors, rank: int):
     """The leading C arguments of every MTTKRP and Φ entry: factor
     addresses (null under ALTO-PRE, ``factors=None``), the BitRun table,
@@ -145,3 +163,19 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 def slices_per_cta(threads: int, r_block: int) -> int:
     return max(1, threads // r_block)
+
+
+def cta_threads(threads: int) -> int:
+    """``threads`` rounded up to whole warps, at least one, at most 1024."""
+    return min(1024, max(32, -(-threads // 32) * 32))
+
+
+MAX_RANK_TILE = 128   # 32 · FIX_MAX_COLS in csrc/carry_fixup.cuh; the
+                      # widest lane map of K1
+
+
+def rank_tile(rank: int) -> int:
+    """Largest divisor of ``rank`` up to `MAX_RANK_TILE`: a launch's rank
+    tile where the caller gives none."""
+    return max(d for d in range(1, min(rank, MAX_RANK_TILE) + 1)
+               if rank % d == 0)

@@ -16,8 +16,6 @@ the same bits (`phi_partials_windowed`).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.encoding import AltoEncoding, extract_mode
@@ -74,23 +72,6 @@ def window_rows(temp_rows: int, rank: int, limit_bytes: int) -> int:
     return int(min(temp_rows, h))
 
 
-_SMEM_LIMIT: dict[int, int] = {}
-
-
-def smem_limit(device: torch.device) -> int:
-    """The shared memory one CTA may opt in to on ``device`` (bytes), as
-    the CUDA runtime reports it."""
-    idx = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    if idx not in _SMEM_LIMIT:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(idx):
-            _build.check(_build.library("cpapr_phi").alto_phi_smem_limit(
-                ctypes.byref(out)), "alto_phi_smem_limit")
-        _SMEM_LIMIT[idx] = out.value
-    return _SMEM_LIMIT[idx]
-
-
 def phi_partials(enc: AltoEncoding, mode: int, temp_rows: int, eps: float,
                  words, values, part_start, B, factors=None, pi=None,
                  r_block: int | None = None,
@@ -128,7 +109,7 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
                                   part_start, B, factors, pi)
     tile = tile_nnz(R)
     if window is None:
-        window = window_rows(temp_rows, R, smem_limit(words.device))
+        window = window_rows(temp_rows, R, common.smem_limit(words.device))
     window = min(window, temp_rows)
     temp = torch.empty((L, temp_rows, R), dtype=torch.float32,
                        device=words.device)
@@ -142,5 +123,5 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
         temp.data_ptr(), common.stream_ptr(words))
     del keep
     _build.check(status, "alto_phi_partials")
-    _build.count_launch("phi_partials")
+    _build.count_launch("phi_partials", Mp)
     return temp

@@ -1,5 +1,6 @@
-// Output-oriented MTTKRP on Hopper: the carry kernel (K1), its fix-up pass,
-// the per-block partials kernel (K2), and the out-of-core chunk kernel (K8).
+// Output-oriented MTTKRP on Hopper: the carry kernel (K1: runs pass and
+// fix-up walk), the per-block partials kernel (K2), and the out-of-core
+// chunk kernel (K8).
 //
 // Replaces, in src/repro/kernels/mttkrp_oriented.py:
 //   K1  mttkrp_oriented_carry_pallas (:358; body _mttkrp_carry_kernel :333,
@@ -10,119 +11,160 @@
 //   K8  mttkrp_oriented_carry_chunk_pallas (:541; body
 //       _mttkrp_carry_chunk_kernel :511) — K1 over one chunk of a
 //       host-resident stream, the running out and the open run carried in
-//       and out (carry_chunk.cuh: K1's runs pass + a chunk fix-up);
+//       and out (carry_chunk.cuh: K1's runs pass + the chunk fix-up);
 // and the boundary merge ops.segment_merge (src/repro/kernels/ops.py:171).
 //
 // Design. The input is the row-sorted stream of one mode (rows, words,
-// values), padded to a multiple of block_m. A thread owns one rank column
-// of one block_m slice and walks the slice in stream order, summing each
-// run of equal rows (no one-hot: the GPU has no use for it). Blocks of
-// threads run in parallel and in no order, so nothing is carried from one
-// slice to the next inside the kernel:
-//   * K1 stores every run that begins and ends inside its slice straight
-//     to out (that row has no other nonzeros), and the slice's first and
-//     last runs, with their rows, to a carries buffer (n_blocks, 2, R).
-//   * carry_fixup then adds the carried pieces of each row in block order:
-//     the thread that owns a chain head walks forward while the row
-//     repeats. Deterministic, no float atomics.
+// values), padded to a multiple of block_m. Blocks of the stream run in
+// parallel and in no order, so nothing is carried from one slice to the
+// next inside a kernel:
+//   * K1's runs pass (mttkrp_carry_runs_kernel, alto_scan.cuh): a sub-warp
+//     per block_m slice, its lanes on the rank columns (four each at
+//     r_block 16), words decoded once per nonzero through the byte tables.
+//     It stores every run that begins and ends inside its slice straight
+//     to out, zeros to the rows the stream skips, and the slice's first
+//     and last runs, with their rows, to a carries buffer (n_blocks, 2, R).
+//   * The fix-up walk (carry_fixup.cuh) adds the carried pieces of each
+//     row in block order and stores the row: a warp per tile of 32
+//     pieces, the tile's values staged in shared memory, a chain that
+//     leaves the tile walked on 32 steps a window. Deterministic, no
+//     float atomics. So every row of out is written
+//     exactly once, and K1's wrapper allocates out without a memset.
 //   * K2 writes slot j of block b = the sum of the block's j-th run (zeros
-//     in unused slots), the JAX partials layout; the port's segment_merge
-//     stores the inner runs and sends the first/last runs through the same
-//     carry_fixup. So K1 and K2+segment_merge add the same pieces in the
-//     same order and agree bit for bit.
-// The traversal loops live in alto_scan.cuh, shared with the Φ kernels
-// (phi_oriented.cu); carry_fixup also finishes the Φ carry route and,
-// with one slot per piece, the deterministic pull reduction
-// (ops.pull_reduction: the Temp rows sorted by global row).
+//     in unused slots), the JAX partials layout, a thread per rank column;
+//     the port's segment_merge stores the inner runs and sends the
+//     first/last runs through the same fix-up. K1 and K2 + segment_merge
+//     add the same terms in the same order and agree bit for bit.
+// The fix-up also finishes the Φ carry route (K5) and, with one slot per
+// piece, the deterministic pull reduction (ops.pull_reduction).
 //
 // What bounds it on an H100: bytes. Each nonzero reads its row (4 B), its
-// words (4·W B), its value (4 B) and, per rank column, one factor entry of
-// each other mode (gathers, mostly from L2 when the factors fit in 50 MB);
-// the output is written once. K2 also writes the (M, R) partials that the
-// merge reads back — the round trip the carry design removes. A thread
-// walks its slice serially, so a slice's dependent loads are latency
-// bound; the design answers with many slices in flight (block_m chosen so
-// the card holds several waves) rather than with shared-memory staging,
-// which is later work.
+// words (4·W B), its value (4 B) and one factor row of each other mode
+// (gathers, mostly from L2 when the factors fit in 50 MB); out is written
+// once. K2 also writes the (M, R) partials that the merge reads back — the
+// round trip the carry design removes.
 #include "alto_scan.cuh"
 #include "carry_chunk.cuh"
 
 namespace {
 
-// Pieces are numbered p = slots·b + slot. With two slots (K1's carries,
-// segment_merge) slot 0 holds a block's first run and slot 1 its last run,
-// row -1 when absent. With one slot (the pull reduction) every piece is
-// present and the pieces are sorted by row. Either way a row's pieces are
-// consecutive present pieces.
-__global__ void carry_fixup_kernel(const int* __restrict__ carry_row,
-                                   const float* __restrict__ carry_val,
-                                   int64_t n_pieces, int slots, int R,
-                                   int r_block, float* __restrict__ out) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.y +
-                    threadIdx.y;
-  if (p >= n_pieces) return;
-  const int r = blockIdx.y * r_block + threadIdx.x;
-  const int row = carry_row[p];
-  if (row < 0) return;
-  const int64_t b = p / slots;
-  if (p == slots * b && b > 0) {
-    int prev = carry_row[p - 1];         // previous block's last run ...
-    if (prev < 0 && slots == 2) prev = carry_row[p - 2];  // ... or its only
-    if (prev == row) return;             // not the head of its chain
+struct CarryRunsArgs {     // the operands of K1's runs pass (and K8's)
+  AltoArgs a;              // a.dtab: the byte decode tables
+  const int* rows;
+  const uint32_t* words;
+  const float* values;
+  int64_t block_m, n_blocks;
+  int r_block;
+  int n_rows;              // rows of out
+  bool zero_gaps;
+  int threads;             // CTA threads, whole warps
+  float* out;
+  int* carry_row;
+  float* carry_val;
+  cudaStream_t stream;
+};
+
+// Rows of the factors, out and the carries start on 16 bytes in the rank
+// tile: a lane's four columns may move as one float4.
+inline bool aligned4(const CarryRunsArgs& p) {
+  bool ok = p.a.rank % 4 == 0 && p.r_block % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(p.out) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(p.carry_val) % 16 == 0;
+  for (int m = 0; m < p.a.ndim; ++m)
+    ok = ok && reinterpret_cast<uintptr_t>(p.a.factors[m]) % 16 == 0;
+  return ok;
+}
+
+template <int W, int COLS>
+struct MttkrpCarryRunsLaunch {
+  static int run(const CarryRunsArgs& p) {
+    const int64_t per_cta = p.threads / W;
+    const dim3 grid(
+        static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta),
+        static_cast<unsigned>(p.a.rank / p.r_block));
+    mttkrp_carry_runs_kernel<W, COLS, K1_UNROLL>
+        <<<grid, p.threads, 0, p.stream>>>(
+            p.a, p.rows, p.words, p.values, p.block_m, p.n_blocks,
+            p.r_block, p.n_rows, p.zero_gaps, aligned4(p), p.out, p.carry_row,
+            p.carry_val);
+    return static_cast<int>(cudaGetLastError());
   }
-  float acc = carry_val[p * R + r];
-  int64_t q = p;
-  for (;;) {
-    const int64_t qb = q / slots;
-    // A first run followed by a last run in the same block: the next
-    // piece holds another row.
-    if (slots == 2 && q == 2 * qb && carry_row[q + 1] >= 0) break;
-    const int64_t nq = slots * (qb + 1);
-    if (nq >= n_pieces || carry_row[nq] != row) break;
-    acc = __fadd_rn(acc, carry_val[nq * R + r]);
-    q = nq;
-  }
-  out[static_cast<int64_t>(row) * R + r] = acc;
+};
+
+// K1's runs pass under the lane map (lanes, cols): a sub-warp of `lanes`
+// lanes per slice, `cols` columns per lane, chosen by the wrapper from
+// r_block (kernels/mttkrp_oriented.py `LANE_MAPS`: about four columns a
+// lane, as K5's). Only these maps are built; any other is refused.
+inline int launch_mttkrp_carry_runs(int lanes, int cols,
+                                    const CarryRunsArgs& p) {
+  const AltoArgs& a = p.a;
+  if (p.r_block < 1 || a.rank % p.r_block != 0 || lanes * cols < p.r_block ||
+      p.threads < 32 || p.threads > 1024 || p.threads % 32 != 0 ||
+      p.block_m < 1 || p.n_blocks < 0 || a.dtab == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n_blocks == 0) return 0;
+  if (lanes == 2 && cols == 4) return MttkrpCarryRunsLaunch<2, 4>::run(p);
+  if (lanes == 4 && cols == 4) return MttkrpCarryRunsLaunch<4, 4>::run(p);
+  if (lanes == 8 && cols == 4) return MttkrpCarryRunsLaunch<8, 4>::run(p);
+  if (lanes == 32 && cols == 4) return MttkrpCarryRunsLaunch<32, 4>::run(p);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1, first pass. out must hold zeros; inner runs are stored into it.
+// K1, runs pass: inner runs and the zeros of skipped rows into out (of
+// n_rows rows), the slices' first and last runs into the carries. dtab:
+// the byte decode tables; (lanes, cols): the lane map; threads: CTA size
+// (whole warps).
 int alto_carry_runs(const int64_t* factor_ptrs, const int* runs, int n_runs,
                     int ndim, int nwords, int mode, int rank,
                     const void* rows, const void* words, const void* values,
-                    long long block_m, long long n_blocks, int r_block,
-                    int slices_per_cta, void* out, void* carry_row,
-                    void* carry_val, void* stream) {
-  AltoArgs a;
-  if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
+                    const void* dtab, long long block_m, long long n_blocks,
+                    int r_block, int lanes, int cols, int threads,
+                    int n_rows, void* out, void* carry_row, void* carry_val,
+                    void* stream) {
+  CarryRunsArgs p{};
+  if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
                       rank))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_carry_runs(a, MttkrpTerm{}, rows, words, values, block_m,
-                           n_blocks, r_block, slices_per_cta, out,
-                           carry_row, carry_val, stream);
+  p.a.dtab = static_cast<const uint32_t*>(dtab);
+  p.rows = static_cast<const int*>(rows);
+  p.words = static_cast<const uint32_t*>(words);
+  p.values = static_cast<const float*>(values);
+  p.block_m = block_m;
+  p.n_blocks = n_blocks;
+  p.r_block = r_block;
+  p.n_rows = n_rows;
+  p.zero_gaps = true;
+  p.threads = threads;
+  p.out = static_cast<float*>(out);
+  p.carry_row = static_cast<int*>(carry_row);
+  p.carry_val = static_cast<float*>(carry_val);
+  p.stream = static_cast<cudaStream_t>(stream);
+  return launch_mttkrp_carry_runs(lanes, cols, p);
 }
 
-// K1, second pass (also the deterministic half of segment_merge and of
-// the pull reduction).
+// K1, fix-up walk (also the deterministic half of segment_merge, of the K5
+// route and of the pull reduction): n_pieces pieces in `slots` slots per
+// block, rank tile r_block, CTAs of `threads` (carry_fixup.cuh).
 int alto_carry_fixup(const void* carry_row, const void* carry_val,
                      long long n_pieces, int slots, int rank, int r_block,
-                     int slices_per_cta, void* out, void* stream) {
-  if (bad_tiling(rank, r_block, slices_per_cta) || slots < 1 || slots > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pieces == 0) return 0;
-  carry_fixup_kernel<<<grid_for(n_pieces, slices_per_cta, rank, r_block),
-                       dim3(r_block, slices_per_cta), 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(carry_row),
-      static_cast<const float*>(carry_val), n_pieces, slots, rank, r_block,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+                     int threads, void* out, void* stream) {
+  FixupArgs f{};
+  f.row = static_cast<const int*>(carry_row);
+  f.val = static_cast<const float*>(carry_val);
+  f.n = n_pieces;
+  f.slots = slots;
+  f.R = rank;
+  f.rb = r_block;
+  f.out = static_cast<float*>(out);
+  return launch_carry_fixup(f, threads, static_cast<cudaStream_t>(stream));
 }
 
-// K8: one chunk of the carry route. out is the running output (zeros at
+// K8: one chunk of the carry route: K1's runs pass, then the chunk fix-up,
+// both in rank tiles of r_block. out is the running output (zeros at
 // rows no earlier chunk has reached); pieces_row (n_blocks, 2) and
 // pieces_val (n_blocks, 2, rank) are scratch; (cin_row, cin_val) is the
 // open run handed in, (cout_row, cout_val) the one handed on (-1 and zeros
@@ -130,19 +172,36 @@ int alto_carry_fixup(const void* carry_row, const void* carry_val,
 int alto_carry_chunk(const int64_t* factor_ptrs, const int* runs, int n_runs,
                      int ndim, int nwords, int mode, int rank,
                      const void* rows, const void* words, const void* values,
-                     long long block_m, long long n_blocks, int r_block,
-                     int slices_per_cta, void* out, void* pieces_row,
-                     void* pieces_val, const void* cin_row,
-                     const void* cin_val, int final_chunk, void* cout_row,
-                     void* cout_val, void* stream) {
-  AltoArgs a;
-  if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                     const void* dtab, long long block_m, long long n_blocks,
+                     int r_block, int lanes, int cols, int threads,
+                     void* out, void* pieces_row, void* pieces_val,
+                     const void* cin_row, const void* cin_val,
+                     int final_chunk, void* cout_row, void* cout_val,
+                     void* stream) {
+  CarryRunsArgs p{};
+  if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
+                      rank) || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_carry_chunk(a, MttkrpTerm{}, rows, words, values, block_m,
-                            n_blocks, r_block, slices_per_cta, out,
-                            pieces_row, pieces_val, cin_row, cin_val,
-                            final_chunk, cout_row, cout_val, stream);
+  p.a.dtab = static_cast<const uint32_t*>(dtab);
+  p.rows = static_cast<const int*>(rows);
+  p.words = static_cast<const uint32_t*>(words);
+  p.values = static_cast<const float*>(values);
+  p.block_m = block_m;
+  p.n_blocks = n_blocks;
+  p.r_block = r_block;
+  p.n_rows = 0;
+  p.zero_gaps = false;
+  p.threads = threads;
+  p.out = static_cast<float*>(out);
+  p.carry_row = static_cast<int*>(pieces_row);
+  p.carry_val = static_cast<float*>(pieces_val);
+  p.stream = static_cast<cudaStream_t>(stream);
+  const int status = launch_mttkrp_carry_runs(lanes, cols, p);
+  if (status != 0) return status;
+  return launch_carry_fixup_chunk(rank, r_block, threads, n_blocks,
+                                  pieces_row,
+                                  pieces_val, cin_row, cin_val, final_chunk,
+                                  out, cout_row, cout_val, p.stream);
 }
 
 // K2. partials is (n_blocks, block_m, rank); every slot is written.

@@ -19,10 +19,13 @@
 // rank columns (four each at R = 16). Each lane loads its own Π (or
 // factor) and B entries, so a nonzero's rows are read once; the
 // denominator is a serial chain of shuffles in k order, a sub-warp keeps
-// several nonzeros in flight and a warp several slices. The runs pass keeps carry_runs_kernel's contract: inner runs to
-// out, the slice's first and last runs to the carries buffer, which K1's
-// carry_fixup (K5) or the chunk fix-up (K9, carry_chunk.cuh) merges in
-// block order.
+// several nonzeros in flight and a warp several slices. The runs pass
+// keeps K1's contract (mttkrp_carry_runs_kernel, alto_scan.cuh): inner
+// runs to out, the slice's first and last runs to the carries buffer,
+// which the fix-up walk (carry_fixup.cuh; K5 through alto_carry_fixup, K9
+// through the chunk fix-up of carry_chunk.cuh) merges in block order.
+// Unlike K1 it does not zero the rows the stream skips: K5's wrapper
+// zeroes out first.
 //
 // K6: K2's traversal (alto_scan.cuh) with PhiTerm (phi_update.cuh), one
 // thread per rank column forming the whole denominator itself; its
@@ -92,15 +95,16 @@ int alto_phi_carry_runs(const int64_t* factor_ptrs, const int* runs,
 }
 
 // K9: one chunk of the Φ carry route, with alto_carry_chunk's contract
-// (mttkrp_oriented.cu): K5's runs pass, then the chunk fix-up. pi (the
-// chunk's Π rows) is null under ALTO-OTF.
+// (mttkrp_oriented.cu): K5's runs pass over the whole rank, then the chunk
+// fix-up in rank tiles of fixup_rb. pi (the chunk's Π rows) is null under
+// ALTO-OTF.
 int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                          int n_runs, int ndim, int nwords, int mode, int rank,
                          const void* rows, const void* words,
                          const void* values, const void* B, const void* pi,
                          float eps, const void* dtab, long long block_m,
-                         long long n_blocks, int threads, void* out,
-                         void* pieces_row, void* pieces_val,
+                         long long n_blocks, int threads, int fixup_rb,
+                         void* out, void* pieces_row, void* pieces_val,
                          const void* cin_row, const void* cin_val,
                          int final_chunk, void* cout_row, void* cout_val,
                          void* stream) {
@@ -114,10 +118,10 @@ int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                                            threads, out, pieces_row,
                                            pieces_val, stream);
   if (status != 0) return status;
-  const int slices = threads / rank > 1 ? threads / rank : 1;
-  return launch_carry_fixup_chunk(rank, rank, slices, n_blocks, pieces_row,
-                                  pieces_val, cin_row, cin_val, final_chunk,
-                                  out, cout_row, cout_val, stream);
+  return launch_carry_fixup_chunk(rank, fixup_rb, phi_cta_threads(threads),
+                                  n_blocks, pieces_row, pieces_val, cin_row,
+                                  cin_val, final_chunk, out, cout_row,
+                                  cout_val, static_cast<cudaStream_t>(stream));
 }
 
 // K6. partials is (n_blocks, block_m, rank); every slot is written.

@@ -160,10 +160,10 @@ __device__ __forceinline__ void phi_subwarp_terms(
   }
 }
 
-// K5 first pass, one sub-warp per block_m slice; the carry_runs_kernel
-// contract (alto_scan.cuh): inner runs to out, the first and last runs to
-// the carries buffer (n_blocks, 2, R), row -1 in slot 1 when one run
-// covers the slice.
+// K5 first pass, one sub-warp per block_m slice; K1's runs-pass contract
+// (mttkrp_carry_runs_kernel, alto_scan.cuh): inner runs to out, the first
+// and last runs to the carries buffer (n_blocks, 2, R), row -1 in slot 1
+// when one run covers the slice.
 template <int W, int COLS, int U>
 __global__ void phi_carry_runs_kernel(
     const __grid_constant__ AltoArgs a, const float* __restrict__ B,

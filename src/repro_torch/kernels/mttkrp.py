@@ -68,5 +68,5 @@ def recursive_partials(enc: AltoEncoding, mode: int, temp_rows: int, words,
         temp.data_ptr(), common.stream_ptr(words))
     del keep
     _build.check(status, "alto_recursive_partials")
-    _build.count_launch("recursive_partials")
+    _build.count_launch("recursive_partials", Mp)
     return temp

@@ -12,9 +12,16 @@ a maximal stretch of equal rows inside one slice.
 * `carry_runs` (K1, first pass): per slice, every run that begins and
   ends inside it goes straight to ``out``; the first and last runs go to
   the carries ``(n_blocks, 2)`` rows / ``(n_blocks, 2, R)`` values (row
-  -1 where a slice holds a single run).
+  -1 where a slice holds a single run). On the card a sub-warp of lanes
+  owns a slice, about four rank columns a lane (`lane_map`), and the pass
+  also stores zeros to the rows the stream skips, so ``out`` needs no
+  zeroing first.
 * `carry_fixup` (K1, second pass): adds each row's carried pieces in
-  block order into ``out``.
+  block order and stores the sum to the row of ``out`` (on the card a
+  warp per tile of 32 pieces, staged in shared memory, a chain that
+  leaves the tile walked on a window of 32 steps at a time;
+  ``csrc/carry_fixup.cuh``). With the runs pass, every row of K1's
+  ``out`` is written exactly once.
 * `oriented_partials` (K2): slot ``j`` of slice ``b`` holds the sum of the
   slice's ``j``-th run, zeros elsewhere — the JAX partials layout.
 * `phi_carry_runs` (K5) and `phi_oriented_partials` (K6): the same two
@@ -47,6 +54,22 @@ from repro_torch.kernels import _build, common
 
 DEFAULT_BLOCK_M = 256
 DEFAULT_THREADS = 128
+
+# K1's lane maps, (lanes per slice, columns per lane), smallest first: the
+# runs pass takes the first whose lanes × columns cover r_block (the
+# `launch_mttkrp_carry_runs` dispatch in csrc/mttkrp_oriented.cu builds
+# these and no other).
+LANE_MAPS = ((2, 4), (4, 4), (8, 4), (32, 4))
+
+
+def lane_map(r_block: int) -> tuple[int, int]:
+    """K1's lane map for a rank tile of ``r_block`` columns: about four
+    columns a lane, as K5's (``phi_dispatch``)."""
+    for lanes, cols in LANE_MAPS:
+        if lanes * cols >= r_block:
+            return lanes, cols
+    raise ValueError(f"r_block {r_block} exceeds the widest lane map "
+                     f"{LANE_MAPS[-1]}")
 
 
 def run_rank_segments(rows: torch.Tensor) -> torch.Tensor:
@@ -130,13 +153,14 @@ def carry_runs_plain(enc: AltoEncoding, mode: int, rows, words, values,
 
 
 def carry_fixup_plain(carry_row, carry_val, out):
-    """Plain version of the fix-up: add every carried piece to its row in
-    piece order (out holds zeros at those rows)."""
+    """Plain version of the fix-up: store to each carried row the sum of
+    its pieces, added in piece order from 0.0."""
     _build.count_plain("carry_fixup", out)
     rows = carry_row.reshape(-1)
     keep = rows >= 0
-    return out.index_add_(0, rows[keep].long(),
-                          carry_val.reshape(rows.shape[0], -1)[keep])
+    dst = rows[keep].long()
+    return out.index_fill_(0, dst, 0.0).index_add_(
+        0, dst, carry_val.reshape(rows.shape[0], -1)[keep])
 
 
 def carry_fixup_chunk_plain(pieces_row, pieces_val, out, carry_row,
@@ -224,17 +248,32 @@ def phi_oriented_partials_plain(enc: AltoEncoding, mode: int, eps: float,
 
 def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
                block_m: int = DEFAULT_BLOCK_M, r_block: int | None = None,
-               threads: int = DEFAULT_THREADS):
-    """K1, first pass: (out with inner runs, carry_row, carry_val)."""
+               threads: int = DEFAULT_THREADS, out=None):
+    """K1, first pass: (out with inner runs, carry_row, carry_val). On the
+    card ``out`` (``torch.empty`` unless given) gets every row except the
+    carried pieces' rows, which `carry_fixup` stores."""
     factors = list(factors)
-    rb = r_block or factors[0].shape[1]
+    rb = r_block or common.rank_tile(factors[0].shape[1])
     M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
-    if not common.on_cuda(rows, words, values, *factors):
-        return carry_runs_plain(enc, mode, rows, words, values, factors,
-                                block_m)
+    lanes, cols = lane_map(rb)
+    if out is not None:
+        common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
+    if not common.on_cuda(rows, words, values, *factors,
+                          *([] if out is None else [out])):
+        plain = carry_runs_plain(enc, mode, rows, words, values, factors,
+                                 block_m)
+        if out is None:
+            return plain
+        # The kernel's write set: every row but the carried ones, which
+        # the fix-up stores.
+        written = torch.ones(out.shape[0], dtype=torch.bool)
+        written[plain[1][plain[1] >= 0].long()] = False
+        out[written] = plain[0][written]
+        return (out,) + plain[1:]
     nb = M // block_m
-    out = torch.zeros((enc.dims[mode], R), dtype=torch.float32,
-                      device=rows.device)
+    if out is None:
+        out = torch.empty((enc.dims[mode], R), dtype=torch.float32,
+                          device=rows.device)
     carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
     carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
                             device=rows.device)
@@ -242,28 +281,32 @@ def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_carry_runs(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
-        block_m, nb, rb, common.slices_per_cta(threads, rb),
+        common.decode_table(enc, rows.device).data_ptr(), block_m, nb, rb,
+        lanes, cols, common.cta_threads(threads), enc.dims[mode],
         out.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(),
         common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_carry_runs")
-    _build.count_launch("carry_runs")
+    _build.count_launch("carry_runs", M)
     return out, carry_row, carry_val
 
 
 def carry_fixup(carry_row, carry_val, out, r_block: int | None = None,
                 threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K1, second pass: adds each row's carried pieces in piece order into
-    ``out`` (in place) and returns it.
+    """K1, second pass: stores each row's carried pieces, added in piece
+    order, to its row of ``out`` (in place) and returns it.
 
     ``carry_row`` is ``(n, slots)``: two slots per block for K1's carries
     (first and last run, row -1 when absent), or one slot per piece, every
-    piece present and sorted by row (the pull reduction)."""
+    piece present and sorted by row (the pull reduction). ``r_block`` is
+    the launch's rank tile (default `common.rank_tile`; it changes no
+    bit); ``threads`` its CTA size."""
     nb, slots = carry_row.shape
     R = out.shape[1]
-    rb = r_block or R
-    if R % rb:
-        raise ValueError(f"rank {R} not a multiple of r_block {rb}")
+    rb = r_block or common.rank_tile(R)
+    if R % rb or rb > common.MAX_RANK_TILE:
+        raise ValueError(f"rank {R}: r_block {rb} does not divide it or "
+                         f"exceeds {common.MAX_RANK_TILE}")
     if slots not in (1, 2):
         raise ValueError(f"carry_row has {slots} slots, not 1 or 2")
     common.check_tensor(carry_row, "carry_row", torch.int32, (nb, slots))
@@ -275,22 +318,24 @@ def carry_fixup(carry_row, carry_val, out, r_block: int | None = None,
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_carry_fixup(
         carry_row.data_ptr(), carry_val.data_ptr(), slots * nb, slots, R,
-        rb, common.slices_per_cta(threads, rb), out.data_ptr(),
+        rb, common.cta_threads(threads), out.data_ptr(),
         common.stream_ptr(out))
     _build.check(status, "alto_carry_fixup")
-    _build.count_launch("carry_fixup")
+    _build.count_launch("carry_fixup", slots * nb)
     return out
 
 
 def mttkrp_oriented_carry(enc: AltoEncoding, mode: int, rows, words, values,
                           factors, block_m: int = DEFAULT_BLOCK_M,
                           r_block: int | None = None,
-                          threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K1: sorted stream -> final (I_n, R) MTTKRP (both passes)."""
+                          threads: int = DEFAULT_THREADS,
+                          out=None) -> torch.Tensor:
+    """K1: sorted stream -> final (I_n, R) MTTKRP (both passes), into
+    ``out`` when given (every row is overwritten)."""
     out, carry_row, carry_val = carry_runs(enc, mode, rows, words, values,
                                            factors, block_m, r_block,
-                                           threads)
-    return carry_fixup(carry_row, carry_val, out, r_block, threads)
+                                           threads, out)
+    return carry_fixup(carry_row, carry_val, out, threads=threads)
 
 
 def oriented_partials(enc: AltoEncoding, mode: int, rows, words, values,
@@ -315,7 +360,7 @@ def oriented_partials(enc: AltoEncoding, mode: int, rows, words, values,
         partials.data_ptr(), common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_oriented_partials")
-    _build.count_launch("oriented_partials")
+    _build.count_launch("oriented_partials", M)
     return partials
 
 
@@ -349,7 +394,7 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
         common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_carry_runs")
-    _build.count_launch("phi_carry_runs")
+    _build.count_launch("phi_carry_runs", M)
     return out, carry_row, carry_val
 
 
@@ -389,7 +434,7 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
         common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_oriented_partials")
-    _build.count_launch("phi_oriented_partials")
+    _build.count_launch("phi_oriented_partials", M)
     return partials
 
 
@@ -421,7 +466,7 @@ def carry_chunk(enc: AltoEncoding, mode: int, rows, words, values, factors,
     """K8: one chunk of the carry MTTKRP -> ``(out, carry_row,
     carry_val)``. ``out`` is updated in place."""
     factors = list(factors)
-    rb = r_block or factors[0].shape[1]
+    rb = r_block or common.rank_tile(factors[0].shape[1])
     M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
     _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R)
     if not common.on_cuda(rows, words, values, *factors, out, carry_row,
@@ -429,18 +474,20 @@ def carry_chunk(enc: AltoEncoding, mode: int, rows, words, values, factors,
         return carry_chunk_plain(enc, mode, rows, words, values, factors,
                                  out, carry_row, carry_val, block_m, final)
     nb = M // block_m
+    lanes, cols = lane_map(rb)
     p_row, p_val, c_row, c_val = _chunk_scratch(nb, R, rows.device)
     keep, args = common.alto_args(enc, mode, factors, R)
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_carry_chunk(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
-        block_m, nb, rb, common.slices_per_cta(threads, rb), out.data_ptr(),
+        common.decode_table(enc, rows.device).data_ptr(), block_m, nb, rb,
+        lanes, cols, common.cta_threads(threads), out.data_ptr(),
         p_row.data_ptr(), p_val.data_ptr(), carry_row.data_ptr(),
         carry_val.data_ptr(), int(final), c_row.data_ptr(), c_val.data_ptr(),
         common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_carry_chunk")
-    _build.count_launch("carry_chunk")
+    _build.count_launch("carry_chunk", M)
     return out, c_row, c_val
 
 
@@ -469,10 +516,11 @@ def phi_carry_chunk(enc: AltoEncoding, mode: int, eps: float, rows, words,
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
-        threads, out.data_ptr(), p_row.data_ptr(), p_val.data_ptr(),
+        threads, common.rank_tile(R), out.data_ptr(),
+        p_row.data_ptr(), p_val.data_ptr(),
         carry_row.data_ptr(), carry_val.data_ptr(), int(final),
         c_row.data_ptr(), c_val.data_ptr(), common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_carry_chunk")
-    _build.count_launch("phi_carry_chunk")
+    _build.count_launch("phi_carry_chunk", M)
     return out, c_row, c_val

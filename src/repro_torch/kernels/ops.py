@@ -68,7 +68,7 @@ def pull_reduction(partials: torch.Tensor, part_start_mode: torch.Tensor,
 
 
 def segment_merge(partials: torch.Tensor, rows: torch.Tensor,
-                  out_dim: int, r_block: int | None = None,
+                  out_dim: int,
                   threads: int = _oriented.DEFAULT_THREADS) -> torch.Tensor:
     """Scatter per-slice run sums to global rows, merging boundary runs.
 
@@ -79,7 +79,7 @@ def segment_merge(partials: torch.Tensor, rows: torch.Tensor,
     """
     out, carry_row, carry_val = _oriented.split_block_runs(partials, rows,
                                                            out_dim)
-    return _oriented.carry_fixup(carry_row, carry_val, out, r_block, threads)
+    return _oriented.carry_fixup(carry_row, carry_val, out, threads=threads)
 
 
 def pad_sorted_stream(rows, words, values, mult: int, pi=None):
@@ -111,13 +111,11 @@ def pad_sorted_stream(rows, words, values, mult: int, pi=None):
     return rows, words, values, pi
 
 
-def delinearize(enc: AltoEncoding, words: torch.Tensor,
-                block_m: int = _delin.DEFAULT_BLOCK_M) -> torch.Tensor:
-    """ALTO index words -> (M, N) int32 coordinates through K4. The words
-    are padded to the block multiple by `pad_sorted_stream` and the tail
-    is sliced off the coordinates."""
-    _, padded, _, _ = pad_sorted_stream(None, words, None, block_m)
-    return _delin.delinearize(enc, padded, block_m)[:words.shape[0]]
+def delinearize(enc: AltoEncoding, words: torch.Tensor) -> torch.Tensor:
+    """ALTO index words -> (M, N) int32 coordinates through K4, at any
+    length: the kernel bounds-checks its last tile, so the words are
+    neither padded nor copied."""
+    return _delin.delinearize(enc, words)
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +145,7 @@ def mttkrp_oriented(view: OrientedView, factors,
         view.meta.enc, view.mode, rows, words, values, factors,
         block_m=block_m, r_block=r_block, threads=threads)
     return segment_merge(partials, rows, view.meta.dims[view.mode],
-                         r_block, threads)
+                         threads)
 
 
 def mttkrp_oriented_carry(view: OrientedView, factors,

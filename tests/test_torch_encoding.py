@@ -89,13 +89,13 @@ def test_sort_by_key_stable_order(dims):
 def test_delinearize_kernel_matches_pallas(dims, block_m):
     """K4 through `ops.delinearize` (its plain version on the CPU) equals
     the JAX package's Pallas decode in interpret mode, bit for bit; 500
-    words pad to the block multiple and the tail is sliced off."""
+    words, a ragged last tile of the port's kernel, unpadded."""
     coords = _coords(dims, 500, seed=4)
     words = jenc.linearize_np(jenc.make_encoding(dims), coords)
     ref = jops.delinearize(jenc.make_encoding(dims), jnp.asarray(words),
                            block_m=block_m, interpret=True)
     got = tops.delinearize(tenc.make_encoding(dims),
-                           tenc.words_from_np(words), block_m=block_m)
+                           tenc.words_from_np(words))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.numpy(), coords)
