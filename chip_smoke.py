@@ -10,11 +10,13 @@ sm_90a), then:
 1. holds every kernel against its plain PyTorch version on small
    adversarial run layouts at ranks 5, 16 and 40, each with the whole rank
    and a smaller rank tile: tolerance ``rtol=1e-5, atol=1e-6·max|plain|``,
-   K1 (carry) equal to K2 + segment_merge (``torch.equal``) and bit for
-   bit to its plain version run on CPU copies with one CPU thread, every
-   row of K1's output written (run into a NaN-filled buffer it equals the
-   normal run; the runs pass leaves exactly the carried rows to the
-   fix-up), and equal bits on a second run;
+   K1 (carry) equal to K2 + segment_merge (``torch.equal``), K1 and K3
+   (recursive) bit for bit to their plain versions run on CPU copies with
+   one CPU thread, every row of K1's output written (run into a
+   NaN-filled buffer it equals the normal run; the runs pass leaves
+   exactly the carried rows to the fix-up), K3 into a NaN-filled Temp and
+   in Temp windows of 1 and 3 rows equal to K3 in one window, and equal
+   bits on a second run;
 2. decomposes the Chicago-crime-comm shape (6,186 × 24 × 77 × 32, 4.86 M
    nonzeros from the repo's seeded ``blocked_tensor`` recipe) with
    ``build_device(n_partitions=1024)`` and 10 CP-ALS iterations at rank 16;
@@ -27,11 +29,11 @@ sm_90a), then:
    their plain versions on the same small layouts under both Π policies
    and at ranks 5, 16 and 40 (K4 equal, K5 equal to K6 + segment_merge,
    K9 chained over chunks equal to K5, K7 in Temp windows of 1 and 3 rows
-   equal to K7 in one window, K5 and K7 equal bit for bit to their plain
-   versions run on CPU copies of the inputs with one CPU thread, equal
-   bits on a second run), and a small CP-APR on the card against the same
-   one on the CPU (log-likelihoods within 1e-5 relative, factors within
-   1e-5);
+   equal to K7 in one window, K5, K6 and K7 equal bit for bit to their
+   plain versions run on CPU copies of the inputs with one CPU thread,
+   every row of K5's output written as K1's, equal bits on a second run),
+   and a small CP-APR on the card against the same one on the CPU
+   (log-likelihoods within 1e-5 relative, factors within 1e-5);
 5. runs CP-APR at rank 16 on the Chicago tensor (ALTO-OTF, 5 outer
    iterations, twice: equal bits) and on the DARPA tensor (ALTO-PRE, 2
    outer iterations under the port's plan, K5, and again under the JAX
@@ -52,14 +54,15 @@ sm_90a), then:
 8. times K1's runs pass, its fix-up walk and the whole op apart on
    Chicago modes 1-3 (with the K5 route's fix-up) and DARPA mode 2;
 9. at the main path's shapes, checks each kernel against its plain version
-   (K7 also in windows of 16 rows, equal to one window; K4 under each
+   (K3 and K7 also in windows of 16 rows, equal to one window, K3 and K5
+   also into NaN-filled outputs; K4 under each
    decode route on the whole DARPA stream, one chunk's ragged length,
    lengths 1, 1023 and 1025, and the Chicago stream) and times kernel,
    plain version and bound, and the pull with its cached order.
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
-instantiation of the kernels this slice redesigned (K1's runs pass, the
-fix-up walk, K4).
+instantiation of the redesigned kernels (K1's runs pass, the fix-up walk,
+K4, K3, and the runs pass that K5, K6 and K9 share).
 
 Each CP-ALS and CP-APR run is driven with the launch counts set to 0 just
 before it and read just after; a run fails unless the kernels its plan
@@ -245,15 +248,36 @@ def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
 
 
 def check_recursive_kernel(m, at, factors, mode, r_block, threads,
-                           label: str) -> float:
+                           label: str, windows=(1, 3),
+                           cpu_copies: bool = False) -> float:
+    """K3 against its plain version, repeatable; K3 with Temp windows of
+    ``windows`` rows equal to K3 in one window; K3 into a NaN-filled Temp
+    equal to the normal run (every entry written); with ``cpu_copies``,
+    K3 equal bit for bit to its plain version run on CPU copies of the
+    inputs."""
     k3 = m["k3"]
     meta = at.meta
-    args = (meta.enc, mode, meta.temp_rows[mode], at.words, at.values,
-            at.part_start, factors)
-    temp = k3.recursive_partials(*args, r_block=r_block, threads=threads)
+    T = meta.temp_rows[mode]
+    args = (meta.enc, mode, T, at.words, at.values, at.part_start, factors)
+    kw = dict(r_block=r_block, threads=threads)
+    temp = k3.recursive_partials(*args, **kw)
     _check_equal(f"{label} recursive_partials repeat", temp,
-                 k3.recursive_partials(*args, r_block=r_block,
-                                       threads=threads))
+                 k3.recursive_partials(*args, **kw))
+    one = k3.recursive_partials_windowed(*args, **kw, window=T)
+    _check_equal(f"{label} recursive_partials in one window", temp, one)
+    for w in windows:
+        _check_equal(f"{label} recursive_partials windows of {w} rows", one,
+                     k3.recursive_partials_windowed(*args, **kw, window=w))
+    nan = torch.full(temp.shape, float("nan"), device=temp.device)
+    _check_equal(f"{label} recursive_partials into a NaN-filled Temp", temp,
+                 k3.recursive_partials(*args, **kw, out=nan))
+    if cpu_copies:
+        with _OneCpuThread():
+            plain = k3.recursive_partials_plain(*args[:3],
+                                                *_cpu(args[3:6]),
+                                                _cpu(factors))
+        _check_equal(f"{label} K3 vs its plain version on CPU copies",
+                     temp.cpu(), plain)
     return _check_close(f"{label} recursive_partials", temp,
                         k3.recursive_partials_plain(*args))
 
@@ -303,8 +327,9 @@ def _cpu(x):
 def phase_small(m) -> dict:
     """Adversarial run layouts (tests/test_oriented_carry.py) on the card,
     at ranks 5, `RANK` and 40, each with the whole rank as the rank tile
-    and with a smaller one; K1 equal bit for bit to its plain version on
-    CPU copies."""
+    and with a smaller one; K1 and K3 equal bit for bit to their plain
+    versions on CPU copies, K3 in windows of 1 and 3 rows equal to one
+    window and into a NaN-filled Temp equal to the normal run."""
     dims = (29, 13, 7)
     worst = {}
     for rank, tiles in ((5, (5, 1)), (RANK, (RANK, 4)), (40, (40, 8))):
@@ -330,7 +355,7 @@ def phase_small(m) -> dict:
                         m, m["alto"].oriented_view_device(at, 0), fs,
                         block_m, r_block, 64, label, cpu_copies=True)
                     errs["recursive_partials"] = check_recursive_kernel(
-                        m, at, fs, 0, r_block, 64, label)
+                        m, at, fs, 0, r_block, 64, label, cpu_copies=True)
                     for k, v in errs.items():
                         per_rank[k] = max(per_rank.get(k, 0.0), v)
     print(f"chip_smoke: small layouts ok, worst errors {worst}")
@@ -373,28 +398,42 @@ def _phi_operands(m, enc, words, factors, mode, policy) -> dict:
 def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
                                label: str, cpu_copies: bool = False) -> dict:
     """K5 runs and K6 against their plain versions on one oriented view;
-    K5 (runs + fix-up) == K6 + segment_merge; repeatability; with
-    ``cpu_copies``, K5 equal bit for bit to its plain version run on CPU
-    copies of the inputs."""
+    K5 (runs + fix-up) == K6 + segment_merge; every row of K5's output
+    written (into a NaN-filled output the runs pass leaves exactly the
+    carried pieces' rows to the fix-up, and K5 equals the normal run);
+    repeatability; with ``cpu_copies``, K5 and K6 equal bit for bit to
+    their plain versions run on CPU copies of the inputs."""
     ops, kori = m["ops"], m["kori"]
     enc, mode, eps = view.meta.enc, view.mode, 1e-10
     rows, words, values, pi = ops.pad_sorted_stream(
         view.rows, view.words, view.values, block_m, pi=operands.get("pi"))
     kw = dict(factors=operands.get("factors"), pi=pi)
     args = (enc, mode, eps, rows, words, values, B)
+    shape = (enc.dims[mode], B.shape[1])
+
+    def nan():
+        return torch.full(shape, float("nan"), device=rows.device)
     out, crow, cval = kori.phi_carry_runs(*args, **kw, block_m=block_m,
-                                          threads=threads)
+                                          threads=threads, out=nan())
     out2, crow2, cval2 = kori.phi_carry_runs(*args, **kw, block_m=block_m,
-                                             threads=threads)
+                                             threads=threads, out=nan())
     _sync()
     for a, b, what in ((out, out2, "out"), (crow, crow2, "carry_row"),
                        (cval, cval2, "carry_val")):
-        _check_equal(f"{label} phi_carry_runs repeat {what}", a, b)
+        _check_equal(f"{label} phi_carry_runs repeat {what}",
+                     a.nan_to_num(7.0), b.nan_to_num(7.0))
     p_out, p_crow, p_cval = kori.phi_carry_runs_plain(*args, **kw,
                                                       block_m=block_m)
     _check_equal(f"{label} phi_carry_runs carry_row", crow, p_crow)
+    carried = torch.zeros(shape[0], dtype=torch.bool, device=rows.device)
+    carried[crow[crow >= 0].long()] = True
+    if not (bool(out[carried].isnan().all())
+            and not bool(out[~carried].isnan().any())):
+        _fail(f"{label} phi_carry_runs: the rows written are not exactly "
+              f"the rows without a carried piece")
     errs = {"phi_carry_runs": max(
-        _check_close(f"{label} phi_carry_runs out", out, p_out),
+        _check_close(f"{label} phi_carry_runs out", out[~carried],
+                     p_out[~carried]),
         _check_close(f"{label} phi_carry_runs carry_val", cval, p_cval))}
     part = kori.phi_oriented_partials(*args, **kw, block_m=block_m,
                                       threads=threads)
@@ -410,6 +449,9 @@ def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
                  ops.cpapr_phi_oriented(view, B, **kw))
     _check_equal(f"{label} K5 repeat", k5,
                  ops.cpapr_phi_oriented_carry(view, B, **kw))
+    _check_equal(f"{label} K5 into a NaN-filled output", k5,
+                 kori.phi_oriented_carry(*args, operands.get("factors"), pi,
+                                         block_m, threads, out=nan()))
     if cpu_copies:
         cview = dataclasses.replace(view, rows=view.rows.cpu(),
                                     words=view.words.cpu(),
@@ -418,8 +460,13 @@ def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
         with _OneCpuThread():
             plain = ops.cpapr_phi_oriented_carry(
                 cview, B.cpu(), **_cpu(operands), eps=eps, block_m=block_m)
+            plain_part = kori.phi_oriented_partials_plain(
+                enc, mode, eps, *_cpu(args[3:]),
+                _cpu(operands.get("factors")), _cpu(pi), block_m)
         _check_equal(f"{label} K5 vs its plain version on CPU copies",
                      k5.cpu(), plain)
+        _check_equal(f"{label} K6 vs its plain version on CPU copies",
+                     part.cpu(), plain_part)
     return errs
 
 
@@ -1149,10 +1196,10 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "carry_runs": ("alto_scan.cuh", "mttkrp_oriented.py:358"),
     "carry_fixup": ("carry_fixup.cuh", "mttkrp_oriented.py:254"),
     "oriented_partials": ("mttkrp_oriented.cu", "mttkrp_oriented.py:132"),
-    "recursive_partials": ("mttkrp.cu", "mttkrp.py:75"),
+    "recursive_partials": ("alto_scan.cuh", "mttkrp.py:75"),
     "delinearize": ("delinearize.cu", "delinearize.py:37"),
     "phi_carry_runs": ("phi_oriented.cu", "mttkrp_oriented.py:437"),
-    "phi_oriented_partials": ("phi_oriented.cu", "mttkrp_oriented.py:204"),
+    "phi_oriented_partials": ("phi_scan.cuh", "mttkrp_oriented.py:204"),
     "phi_partials": ("cpapr_phi.cu", "cpapr_phi.py:57"),
     "carry_chunk": ("mttkrp_oriented.cu", "mttkrp_oriented.py:541"),
     "phi_carry_chunk": ("phi_oriented.cu", "mttkrp_oriented.py:637"),
@@ -1259,7 +1306,8 @@ def time_recursive(m, at, factors, mp, launches) -> dict:
     L, T = meta.n_partitions, meta.temp_rows[mode]
     Mp = at.words.shape[0]
     err = check_recursive_kernel(m, at, factors, mode, mp.r_block,
-                                 mp.threads, f"mode {mode} real size")
+                                 mp.threads, f"mode {mode} real size",
+                                 windows=(16,))
     args = (meta.enc, mode, T, at.words, at.values, at.part_start, factors)
     stream = Mp * (4 * W + 4) + L * N * 4
     fac = _factor_bytes(meta, mode, R)
@@ -1269,7 +1317,7 @@ def time_recursive(m, at, factors, mp, launches) -> dict:
         return ops.pull_reduction(k3.recursive_partials_plain(*args),
                                   at.part_start[:, mode], meta.dims[mode])
 
-    return _entry(
+    e = _entry(
         "recursive_partials", launches, err,
         _ms(m, k3.recursive_partials, *args, mp.r_block, mp.threads),
         _ms(m, k3.recursive_partials_plain, *args, iters=3),
@@ -1279,6 +1327,9 @@ def time_recursive(m, at, factors, mp, launches) -> dict:
         _ms(m, ops.mttkrp, at, factors, mode, mp.r_block, mp.threads),
         _ms(m, plain_op, iters=3),
         stream + fac + 2 * temp_b + meta.dims[mode] * R * 4)
+    e["window_rows"] = m["common"].window_rows(
+        T, mp.r_block, m["common"].smem_limit(at.words.device), False)
+    return e
 
 
 def time_phi_recursive(m, at, res, mp, launches) -> dict:
@@ -1322,8 +1373,8 @@ def time_phi_recursive(m, at, res, mp, launches) -> dict:
                        mp.threads, m["views"].get_pull_order(at, mode))
     e["pull_with_sort_ms"] = _ms(m, ops.pull_reduction, temp, start,
                                  meta.dims[mode], mp.threads)
-    e["window_rows"] = k7.window_rows(
-        T, R, m["common"].smem_limit(temp.device))
+    e["window_rows"] = m["common"].window_rows(
+        T, R, m["common"].smem_limit(temp.device), True)
     return e
 
 
@@ -1517,7 +1568,8 @@ def carry_split(m, at, p, fs, modes, label: str, apr_res=None) -> dict:
 
 
 NEW_KERNELS = ("mttkrp_carry_runs_kernel", "carry_fixup_tiles_kernel",
-               "delinearize_tiles_kernel")
+               "delinearize_tiles_kernel", "mttkrp_partials_smem_kernel",
+               "phi_carry_runs_kernel")
 
 
 def stack_frames(build) -> dict:
@@ -1544,9 +1596,10 @@ def stack_frames(build) -> dict:
 
 
 def check_stack_frames(build) -> dict:
-    """Every instantiation of the kernels this slice redesigned has a
-    0-byte stack frame (a register array indexed at run time would put it
-    on the stack)."""
+    """Every instantiation of the kernels the last two slices redesigned
+    (K1's runs pass, the fix-up walk, K4, K3, and the runs pass K5, K6 and
+    K9 share) has a 0-byte stack frame (a register array indexed at run
+    time would put it on the stack)."""
     frames = stack_frames(build)
     new = {k: v[0] for k, v in frames.items()
            if any(n in k for n in NEW_KERNELS)}

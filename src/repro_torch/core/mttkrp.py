@@ -57,7 +57,7 @@ def phi_contributions(enc, mode: int, words: torch.Tensor,
     ``rows`` is the target row of each element, or None to decode it from
     the words. The denominator is summed serially in rank order from 0.0
     and floored with ``fmax`` (NaN-ignoring, as C's ``fmaxf``), the order
-    of the Φ kernels (``csrc/phi_update.cuh``), so every route's plain
+    of the Φ kernels (``csrc/phi_scan.cuh``), so every route's plain
     version rounds each term as its kernel does.
     """
     if (pi is None) == (factors is None):

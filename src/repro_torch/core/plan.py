@@ -27,11 +27,11 @@ A plan answers, per mode:
 The Hopper model. Every kernel walks each slice of the stream (a
 ``block_m`` slice, or an ALTO partition for the recursive kernels) in
 stream order, because a run's terms are summed in that order: a thread
-per rank column in K2, K3 and K6, a sub-warp of lanes holding a few
-columns each in K1, K5 and K8/K9 (`kernels.mttkrp_oriented.lane_map`),
-a CTA per partition in K7. Factor rows are gathered from device memory
-and the output lives in device memory, so only K7 keeps a tile resident,
-and the carry variant — whose whole output stayed in the TPU's VMEM — has
+per rank column in K2, a sub-warp of lanes holding a few columns each in
+K1, K5, K6 and K8/K9 (`kernels.mttkrp_oriented.lane_map`), a CTA per
+partition in K3 and K7. Factor rows are gathered from device memory and
+the output lives in device memory, so only K3 and K7 keep a tile (their
+Temp window) resident, and the carry variant — whose whole output stayed in the TPU's VMEM — has
 no resident-output gate here: on hyper-sparse long modes the port picks
 carry where the JAX package's VMEM gate forces the one-hot variant.
 

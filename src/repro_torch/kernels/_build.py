@@ -50,17 +50,17 @@ SIGNATURES = {
                                      _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
     "mttkrp": {
-        "alto_recursive_partials": _ALTO + [_P, _P, _P, _L, _L, _L, _I, _I,
-                                            _P, _P],
+        "alto_recursive_partials": _ALTO + [_P, _P, _P, _P, _L, _L, _L, _I,
+                                            _I, _I, _I, _I, _I, _P, _P],
     },
     "delinearize": {
         "alto_delinearize": [_I, _I, _P, _P, _L, _I, _I, _P, _P],
     },
     "phi_oriented": {
         "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [
-            _P, _L, _L, _I, _P, _P, _P, _P],
+            _P, _L, _L, _I, _I, _P, _P, _P, _P],
         "alto_phi_oriented_partials": _ALTO + [_P, _P, _P] + _PHI + [
-            _L, _L, _I, _P, _P],
+            _P, _L, _L, _I, _P, _P],
         "alto_phi_carry_chunk": _ALTO + [_P, _P, _P] + _PHI + [
             _P, _L, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },

@@ -179,3 +179,44 @@ def rank_tile(rank: int) -> int:
     tile where the caller gives none."""
     return max(d for d in range(1, min(rank, MAX_RANK_TILE) + 1)
                if rank % d == 0)
+
+
+# ---------------------------------------------------------------------------
+# The recursive kernels' shared memory (K3 and K7)
+# ---------------------------------------------------------------------------
+
+TILE_BYTES = 16 * 1024        # the staging tile of terms, about
+
+
+def tile_nnz(cols: int) -> int:
+    """Nonzeros per staging tile of K3 and K7 for ``cols`` columns (K7:
+    the rank; K3: the rank tile): 128 up to 32 columns, fewer above so the
+    tile stays about `TILE_BYTES`, and at least 8."""
+    return max(8, min(128, TILE_BYTES // (4 * cols) // 8 * 8))
+
+
+def smem_bytes(window: int, cols: int, tile: int, b_rows: bool) -> int:
+    """Shared memory of one K3 or K7 CTA: the Temp window (``window ×
+    cols`` floats) and, with ``b_rows`` (K7), the window's B rows as
+    many; the staging tile's terms (``tile × cols`` floats) and its rows
+    (``tile`` ints). ``partials_smem_bytes`` in csrc/alto_scan.cuh is the
+    same rule."""
+    return (((2 if b_rows else 1) * window + tile) * cols + tile) * 4
+
+
+def window_rows(temp_rows: int, cols: int, limit_bytes: int,
+                b_rows: bool) -> int:
+    """Temp rows K3 (``b_rows`` False) or K7 (True) holds in shared memory
+    at once: all ``temp_rows`` where they fit under ``limit_bytes`` (one
+    CTA's shared memory), else the most that do. Raises when not even one
+    row fits."""
+    tile = tile_nnz(cols)
+    per_row = smem_bytes(1, cols, tile, b_rows) - smem_bytes(0, cols, tile,
+                                                              b_rows)
+    h = (limit_bytes - smem_bytes(0, cols, tile, b_rows)) // per_row
+    if h < 1:
+        raise ValueError(f"{cols} columns: one Temp row and the staging "
+                         f"tile need {smem_bytes(1, cols, tile, b_rows)} "
+                         f"bytes of shared memory, the card has "
+                         f"{limit_bytes}")
+    return int(min(temp_rows, h))

@@ -9,10 +9,11 @@ No rank tiles: the denominator needs the whole rank. The pull into
 ``(I_n, R)`` is `ops.pull_reduction`.
 
 On the card one CTA of ``threads`` (whole warps) runs each partition with
-its Temp in shared memory, ``window`` rows at a time (`window_rows`, from
-the card's shared memory per CTA): a Temp taller than one window is
-covered in several passes over the partition, and any window height gives
-the same bits (`phi_partials_windowed`).
+its Temp and the window's B rows in shared memory, ``window`` rows at a
+time (`common.window_rows` with B rows, from the card's shared memory per
+CTA): a Temp taller than one window is covered in several passes over the
+partition, and any window height gives the same bits
+(`phi_partials_windowed`).
 """
 from __future__ import annotations
 
@@ -43,35 +44,6 @@ def phi_partials_plain(enc: AltoEncoding, mode: int, temp_rows: int,
     return temp.reshape(L, temp_rows, R)
 
 
-TILE_BYTES = 16 * 1024        # the staging tile of terms, about
-
-
-def tile_nnz(rank: int) -> int:
-    """Nonzeros per staging tile of K7: 128 up to rank 32, fewer above so
-    the tile stays about `TILE_BYTES`, and at least 8."""
-    return max(8, min(128, TILE_BYTES // (4 * rank) // 8 * 8))
-
-
-def smem_bytes(window: int, rank: int, tile: int) -> int:
-    """Shared memory of one K7 CTA: the Temp window and the window's B
-    rows (``window × R`` floats each), the staging tile's terms
-    (``tile × R`` floats) and its rows (``tile`` ints)."""
-    return ((2 * window + tile) * rank + tile) * 4
-
-
-def window_rows(temp_rows: int, rank: int, limit_bytes: int) -> int:
-    """Temp rows K7 holds in shared memory at once: all ``temp_rows``
-    where they fit under ``limit_bytes`` (one CTA's shared memory), else
-    the most that do. Raises when not even one row fits."""
-    tile = tile_nnz(rank)
-    h = (limit_bytes - smem_bytes(0, rank, tile)) // (2 * rank * 4)
-    if h < 1:
-        raise ValueError(f"rank {rank}: one Temp row and the staging tile "
-                         f"need {smem_bytes(1, rank, tile)} bytes of shared "
-                         f"memory, the card has {limit_bytes}")
-    return int(min(temp_rows, h))
-
-
 def phi_partials(enc: AltoEncoding, mode: int, temp_rows: int, eps: float,
                  words, values, part_start, B, factors=None, pi=None,
                  r_block: int | None = None,
@@ -88,8 +60,9 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
                           factors=None, pi=None, r_block: int | None = None,
                           threads: int = DEFAULT_THREADS,
                           window: int | None = None) -> torch.Tensor:
-    """K7 with its Temp window height given (``None``: `window_rows` of
-    the card's shared memory). On the CPU the window changes nothing."""
+    """K7 with its Temp window height given (``None``: `common.
+    window_rows` of the card's shared memory). On the CPU the window
+    changes nothing."""
     L = part_start.shape[0]
     Mp = words.shape[0]
     if Mp % L:
@@ -107,9 +80,10 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
     if not common.on_cuda(*tensors):
         return phi_partials_plain(enc, mode, temp_rows, eps, words, values,
                                   part_start, B, factors, pi)
-    tile = tile_nnz(R)
+    tile = common.tile_nnz(R)
     if window is None:
-        window = window_rows(temp_rows, R, common.smem_limit(words.device))
+        window = common.window_rows(temp_rows, R,
+                                    common.smem_limit(words.device), True)
     window = min(window, temp_rows)
     temp = torch.empty((L, temp_rows, R), dtype=torch.float32,
                        device=words.device)

@@ -1,10 +1,9 @@
-// The stream traversals of the MTTKRP kernels and of K6:
-//   mttkrp_carry_runs_kernel  K1 (MTTKRP) runs pass; K8 on one chunk
-//   oriented_partials_kernel  K2 (MTTKRP) and K6 (Φ), generic in the term
-//   recursive_partials_kernel K3 (MTTKRP), generic in the term
-// (The Φ carry and recursive routes, K5, K9 and K7, have their own
-// sub-warp traversals in phi_scan.cuh; the carry route's fix-up is
-// carry_fixup.cuh.)
+// The stream traversals of the MTTKRP kernels:
+//   mttkrp_carry_runs_kernel     K1 (MTTKRP) runs pass; K8 on one chunk
+//   mttkrp_partials_smem_kernel  K3 (MTTKRP), one CTA per ALTO partition
+//   oriented_partials_kernel     K2 (MTTKRP), a thread per rank column
+// (The Φ routes, K5, K6, K7 and K9, have their sub-warp traversals in
+// phi_scan.cuh; the carry route's fix-up is carry_fixup.cuh.)
 //
 // K1's runs pass replaces the sequential scan of mttkrp_oriented_carry_pallas
 // (src/repro/kernels/mttkrp_oriented.py:358; body :333, _carry_step :254).
@@ -20,17 +19,26 @@
 // flight; the thread-per-column walk it replaces decoded every nonzero
 // once per rank column with one nonzero in flight.
 //
-// K2, K6 and K3 keep a thread per rank column of one slice (a block_m
-// slice, or one ALTO partition) walking it in stream order, generic in a
-// Term functor `float operator()(a, words, values, i, row, r)`
-// (`MttkrpTerm` below, `PhiTerm` in phi_update.cuh): threadIdx.x is the
-// column inside the rank tile, threadIdx.y the slice inside the CTA,
-// blockIdx.y the rank tile. One nonzero in flight per thread keeps them
-// latency bound; K3 also keeps its Temp in device memory.
+// K3 (mttkrp_partials_smem_kernel) replaces mttkrp_partials_pallas
+// (src/repro/kernels/mttkrp.py:75), which scatters a partition into its
+// Temp through a one-hot (chunk x temp_rows) matmul. It is K7's form
+// (phi_partials_smem_kernel, phi_scan.cuh) over the MTTKRP term: one CTA
+// per partition and rank tile, the Temp window in shared memory; the
+// sub-warps form the terms of a staging tile of nonzeros in parallel with
+// K1's lanes and loads, then each Temp row adds its tile terms in stream
+// order. Every Temp entry is stored once, at the end of its window.
 //
-// Summation order, shared by all: a run or a Temp row sums its terms in
-// stream order, from 0.0, with __fadd_rn; a term rounds as MttkrpTerm
-// (or PhiTerm). So K1 ≡ K2 + segment_merge bit for bit.
+// K2 keeps a thread per rank column of one block_m slice walking it in
+// stream order, generic in a Term functor `float operator()(a, words,
+// values, i, row, r)` (`MttkrpTerm` below): threadIdx.x is the column
+// inside the rank tile, threadIdx.y the slice inside the CTA, blockIdx.y
+// the rank tile. One nonzero in flight per thread keeps it latency bound.
+//
+// Summation order, shared by all: a run or a Temp entry sums its terms in
+// stream order, from 0.0, with __fadd_rn; a term is the other modes'
+// factor entries multiplied in increasing mode order, then by the value,
+// all __fmul_rn (MttkrpTerm, mttkrp_subwarp_terms). So K1 ≡ K2 +
+// segment_merge bit for bit, and K3 equals its plain version.
 #pragma once
 
 #include "alto_decode.cuh"
@@ -247,8 +255,161 @@ __global__ void mttkrp_carry_runs_kernel(
     zero_rows<COLS>(out0, cur + 1, n_rows, R, r_block, lane, vec4);
 }
 
-// Slot j of slice b = the sum of the slice's j-th run, zeros in unused
-// slots: the JAX partials layout.
+// Shared memory of one recursive-traversal CTA (K3, K7): the Temp window
+// (window x cols floats), with B_rows the window's B rows too (K7), the
+// staging tile's terms (tile x cols floats) and its local rows (tile
+// ints). kernels/common.py `smem_bytes` is the same rule.
+inline size_t partials_smem_bytes(int cols, int window, int tile,
+                                  bool b_rows) {
+  return (static_cast<size_t>((b_rows ? 2 : 1) * window + tile) * cols +
+          tile) * 4;
+}
+
+// row[c] += t[c] (__fadd_rn) for the lane's columns lane·COLS + c inside
+// rb, both in shared memory; a float4 where `vec4`.
+template <int COLS>
+__device__ __forceinline__ void smem_add_cols(float* row, const float* t,
+                                              int rb, int lane, bool vec4) {
+  if constexpr (COLS == 4) {
+    if (vec4 && lane * 4 + 4 <= rb) {
+      float4* r4 = reinterpret_cast<float4*>(row) + lane;
+      const float4 x = reinterpret_cast<const float4*>(t)[lane];
+      float4 y = *r4;
+      y.x = __fadd_rn(y.x, x.x);
+      y.y = __fadd_rn(y.y, x.y);
+      y.z = __fadd_rn(y.z, x.z);
+      y.w = __fadd_rn(y.w, x.w);
+      *r4 = y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int col = lane * COLS + c;
+    if (col < rb) row[col] = __fadd_rn(row[col], t[col]);
+  }
+}
+
+// K3: one CTA per partition l (blockIdx.x) and rank tile blockIdx.y of
+// r_block columns; Temp_l (temp_rows, R) built in shared memory, `window`
+// rows at a time, and every entry stored once, at the end of its window.
+//
+// A window walks the partition in tiles of `tile` nonzeros. Term phase:
+// sub-warp q of W lanes forms the terms of nonzeros q·U .. q·U+U-1 of the
+// tile (then the next nsub·U), K1's lanes and loads (mttkrp_subwarp_terms),
+// into the staging tile in shared memory, with the nonzero's row in the
+// window (-1 outside it: no loads). Sum phase: sub-warp q owns the window
+// rows with row % nsub == q, its lanes their columns; a warp reads 32
+// slot rows at a time and a ballot per sub-warp marks the slots of its
+// rows, which it adds in slot (stream) order. So each Temp entry receives
+// its terms in stream order from 0.0 whatever the window height, the tile
+// size or the lane map: the bits of recursive_partials_plain.
+template <int W, int COLS, int U>
+__global__ void mttkrp_partials_smem_kernel(
+    const __grid_constant__ AltoArgs a, const uint32_t* __restrict__ words,
+    const float* __restrict__ values, const int* __restrict__ part_start,
+    int64_t chunk, int64_t temp_rows, int r_block, int window, int tile,
+    bool vec4, float* __restrict__ temp) {
+  extern __shared__ __align__(16) float k3_smem[];
+  const int R = a.rank;
+  const int rb = r_block;
+  const int col0 = blockIdx.y * rb;
+  float* s_temp = k3_smem;
+  float* s_term = s_temp + window * rb;
+  int* s_row = reinterpret_cast<int*>(s_term + tile * rb);
+  const int64_t l = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid % W;
+  const int sub = tid / W;
+  const int nsub = nthreads / W;
+  const int wl = tid & 31;                 // lane in the warp
+  const int warp_sub = (tid - wl) / W;     // the warp's first sub-warp
+  const int start = __ldg(part_start + l * a.ndim + a.mode);
+  const int64_t s = l * chunk;
+  for (int64_t w0 = 0; w0 < temp_rows; w0 += window) {
+    const int h = static_cast<int>(
+        temp_rows - w0 < window ? temp_rows - w0 : window);
+    const int64_t base = start + w0;
+    for (int k = tid; k < h * rb; k += nthreads) s_temp[k] = 0.0f;
+    __syncthreads();
+    for (int64_t t0 = 0; t0 < chunk; t0 += tile) {
+      const int n = static_cast<int>(chunk - t0 < tile ? chunk - t0 : tile);
+      for (int j0 = sub * U; j0 < n; j0 += nsub * U) {
+        int64_t idx[U];
+        bool live[U];
+        int local[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          idx[u] = s + t0 + j0 + u;
+          local[u] = -1;
+          if (j0 + u < n) {
+            const int64_t lr =
+                alto_coord_table(a, words + idx[u] * a.nwords, a.mode) - base;
+            if (lr >= 0 && lr < h) local[u] = static_cast<int>(lr);
+          }
+          live[u] = local[u] >= 0;
+        }
+        float term[U][COLS];
+        mttkrp_subwarp_terms<COLS, U>(a, words, values, idx, live, col0, rb,
+                                      lane, vec4, term);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j0 + u >= n) break;
+          if (lane == 0) s_row[j0 + u] = local[u];
+          if (live[u])
+            store_cols<COLS>(s_term + (j0 + u) * rb, rb, lane, vec4,
+                             term[u]);
+        }
+      }
+      __syncthreads();
+      for (int j0 = 0; j0 < n; j0 += 32) {
+        const int lr_l = j0 + wl < n ? s_row[j0 + wl] : -1;
+        const int q_l = lr_l >= 0 ? lr_l % nsub : -1;
+        unsigned mine = 0;
+#pragma unroll
+        for (int q = 0; q < 32 / W; ++q) {
+          const unsigned m = __ballot_sync(0xffffffffu, q_l == warp_sub + q);
+          if (sub == warp_sub + q) mine = m;
+        }
+        while (mine != 0) {
+          const int j = j0 + __ffs(mine) - 1;
+          mine &= mine - 1;
+          smem_add_cols<COLS>(s_temp + s_row[j] * rb, s_term + j * rb, rb,
+                              lane, vec4);
+        }
+      }
+      __syncthreads();
+    }
+    float* tl = temp + (l * temp_rows + w0) * R + col0;
+    if (vec4) {
+      const int q = rb / 4;
+      for (int k = tid; k < h * q; k += nthreads)
+        reinterpret_cast<float4*>(tl + static_cast<int64_t>(k / q) * R)[k % q] =
+            reinterpret_cast<const float4*>(s_temp)[k];
+    } else {
+      for (int k = tid; k < h * rb; k += nthreads)
+        tl[static_cast<int64_t>(k / rb) * R + k % rb] = s_temp[k];
+    }
+    __syncthreads();
+  }
+}
+
+// Runs L<W, COLS>::run(args) for K1's lane map (lanes, cols): a sub-warp
+// of `lanes` lanes, `cols` contiguous columns a lane (kernels/
+// mttkrp_oriented.py `LANE_MAPS`, shared by K1, K8 and K3). Only these
+// maps are built; any other is refused.
+template <template <int, int> class L, class Args>
+int k1_lane_dispatch(int lanes, int cols, const Args& args) {
+  if (lanes == 2 && cols == 4) return L<2, 4>::run(args);
+  if (lanes == 4 && cols == 4) return L<4, 4>::run(args);
+  if (lanes == 8 && cols == 4) return L<8, 4>::run(args);
+  if (lanes == 32 && cols == 4) return L<32, 4>::run(args);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K2: slot j of slice b = the sum of the slice's j-th run, zeros in
+// unused slots: the JAX partials layout.
 template <class Term>
 __global__ void oriented_partials_kernel(
     const __grid_constant__ AltoArgs a, const Term term,
@@ -280,30 +441,6 @@ __global__ void oriented_partials_kernel(
   for (++j; j < block_m; ++j) pb[j * R] = 0.0f;
 }
 
-// Partition l of the ALTO-ordered stream adds each nonzero's term at
-// Temp_l[row - part_start[l, mode]] of the (L, temp_rows, R) buffer, which
-// the wrapper zeroes. No two threads touch one address: no atomics.
-template <class Term>
-__global__ void recursive_partials_kernel(
-    const __grid_constant__ AltoArgs a, const Term term,
-    const uint32_t* __restrict__ words, const float* __restrict__ values,
-    const int* __restrict__ part_start, int64_t n_parts, int64_t chunk,
-    int64_t temp_rows, int r_block, float* __restrict__ temp) {
-  const int64_t l = static_cast<int64_t>(blockIdx.x) * blockDim.y +
-                    threadIdx.y;
-  if (l >= n_parts) return;
-  const int R = a.rank;
-  const int r = blockIdx.y * r_block + threadIdx.x;
-  const int start = __ldg(part_start + l * a.ndim + a.mode);
-  float* tl = temp + l * temp_rows * R + r;
-  const int64_t s = l * chunk;
-  for (int64_t i = s; i < s + chunk; ++i) {
-    const int row = alto_coord(a, words + i * a.nwords, a.mode);
-    float* p = tl + static_cast<int64_t>(row - start) * R;
-    *p = __fadd_rn(*p, term(a, words, values, i, row, r));
-  }
-}
-
 inline dim3 grid_for(int64_t n, int slices_per_cta, int rank, int r_block) {
   return dim3(static_cast<unsigned>((n + slices_per_cta - 1) /
                                     slices_per_cta),
@@ -333,28 +470,6 @@ int launch_oriented_partials(const AltoArgs& a, const Term& term,
           static_cast<const uint32_t*>(words),
           static_cast<const float*>(values), block_m, n_blocks, r_block,
           static_cast<float*>(partials));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class Term>
-int launch_recursive_partials(const AltoArgs& a, const Term& term,
-                              const void* words, const void* values,
-                              const void* part_start, long long n_parts,
-                              long long chunk, long long temp_rows,
-                              int r_block, int slices_per_cta, void* temp,
-                              void* stream) {
-  if (bad_tiling(a.rank, r_block, slices_per_cta) || chunk < 0 ||
-      temp_rows < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_parts == 0) return 0;
-  recursive_partials_kernel<Term>
-      <<<grid_for(n_parts, slices_per_cta, a.rank, r_block),
-         dim3(r_block, slices_per_cta), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          a, term, static_cast<const uint32_t*>(words),
-          static_cast<const float*>(values),
-          static_cast<const int*>(part_start), n_parts, chunk, temp_rows,
-          r_block, static_cast<float*>(temp));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,8 @@ template <int W, int COLS>
 struct PhiPartialsLaunch {
   static int run(const PhiArgs& p) {
     if (p.n_parts == 0) return 0;
-    const size_t smem = phi_partials_smem_bytes(p.a.rank, p.window, p.tile);
+    const size_t smem =
+        partials_smem_bytes(p.a.rank, p.window, p.tile, true);
     auto kernel = phi_partials_smem_kernel<W, COLS, phi_unroll<COLS>()>;
     if (smem > 48 * 1024) {
       const cudaError_t st = cudaFuncSetAttribute(

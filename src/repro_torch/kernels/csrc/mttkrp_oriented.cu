@@ -94,7 +94,7 @@ struct MttkrpCarryRunsLaunch {
 // K1's runs pass under the lane map (lanes, cols): a sub-warp of `lanes`
 // lanes per slice, `cols` columns per lane, chosen by the wrapper from
 // r_block (kernels/mttkrp_oriented.py `LANE_MAPS`: about four columns a
-// lane, as K5's). Only these maps are built; any other is refused.
+// lane, as K5's; k1_lane_dispatch refuses any other).
 inline int launch_mttkrp_carry_runs(int lanes, int cols,
                                     const CarryRunsArgs& p) {
   const AltoArgs& a = p.a;
@@ -103,11 +103,7 @@ inline int launch_mttkrp_carry_runs(int lanes, int cols,
       p.block_m < 1 || p.n_blocks < 0 || a.dtab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.n_blocks == 0) return 0;
-  if (lanes == 2 && cols == 4) return MttkrpCarryRunsLaunch<2, 4>::run(p);
-  if (lanes == 4 && cols == 4) return MttkrpCarryRunsLaunch<4, 4>::run(p);
-  if (lanes == 8 && cols == 4) return MttkrpCarryRunsLaunch<8, 4>::run(p);
-  if (lanes == 32 && cols == 4) return MttkrpCarryRunsLaunch<32, 4>::run(p);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return k1_lane_dispatch<MttkrpCarryRunsLaunch>(lanes, cols, p);
 }
 
 }  // namespace

@@ -12,29 +12,29 @@
 //
 // What bounds them on an H100: bytes — the stream (row, value; the words
 // under ALTO-OTF), Π (PRE, M·R·4) or the other factors, B at the stream's
-// rows, and the output, each once. The Φ term needs the whole rank of a
-// nonzero for its denominator, so there are no rank tiles.
+// rows, and the output (K6: its (n_blocks, block_m, R) slots), each once.
+// The Φ term needs the whole rank of a nonzero for its denominator, so
+// there are no rank tiles.
 //
-// K5 and K9 (phi_scan.cuh): a sub-warp per block_m slice, its lanes on the
-// rank columns (four each at R = 16). Each lane loads its own Π (or
-// factor) and B entries, so a nonzero's rows are read once; the
-// denominator is a serial chain of shuffles in k order, a sub-warp keeps
-// several nonzeros in flight and a warp several slices. The runs pass
-// keeps K1's contract (mttkrp_carry_runs_kernel, alto_scan.cuh): inner
-// runs to out, the slice's first and last runs to the carries buffer,
-// which the fix-up walk (carry_fixup.cuh; K5 through alto_carry_fixup, K9
-// through the chunk fix-up of carry_chunk.cuh) merges in block order.
-// Unlike K1 it does not zero the rows the stream skips: K5's wrapper
-// zeroes out first.
-//
-// K6: K2's traversal (alto_scan.cuh) with PhiTerm (phi_update.cuh), one
-// thread per rank column forming the whole denominator itself; its
-// partials go through ops.segment_merge. PhiTerm and the sub-warp term
-// round alike, so K5 equals K6 + segment_merge bit for bit.
-#include "alto_scan.cuh"
+// K5, K6 and K9 share one runs pass (phi_carry_runs_kernel, phi_scan.cuh):
+// a sub-warp per block_m slice, its lanes on the rank columns (four each
+// at R = 16). Each lane loads its own Π (or factor) and B entries, so a
+// nonzero's rows are read once; the denominator is a serial chain of
+// shuffles in k order, a sub-warp keeps several nonzeros in flight and a
+// warp several slices. For K5 and K9 it keeps K1's contract
+// (mttkrp_carry_runs_kernel, alto_scan.cuh): inner runs to out, the
+// slice's first and last runs to the carries buffer, which the fix-up walk
+// (carry_fixup.cuh; K5 through alto_carry_fixup, K9 through the chunk
+// fix-up of carry_chunk.cuh) merges in block order. K5's pass also stores
+// zeros to the rows the stream skips, as K1's does, so every row of its
+// out is written once and the wrapper allocates out without a memset. For
+// K6 it stores the slice's j-th run sum to slot j and zeros to the unused
+// slots, the layout ops.segment_merge reads; the one-thread-per-column
+// form it replaces formed every nonzero's denominator once per column.
+// The same terms added in the same order: K5 equals K6 + segment_merge
+// bit for bit.
 #include "carry_chunk.cuh"
 #include "phi_scan.cuh"
-#include "phi_update.cuh"
 
 namespace {
 
@@ -48,7 +48,8 @@ struct PhiCarryRunsLaunch {
     phi_carry_runs_kernel<W, COLS, phi_unroll<COLS>()>
         <<<grid, p.threads, 0, p.stream>>>(
             p.a, p.B, p.pi, p.eps, p.rows, p.words, p.values, p.block_m,
-            p.n_blocks, p.out, p.carry_row, p.carry_val);
+            p.n_blocks, p.out_rows, p.zero_gaps, p.out, p.carry_row,
+            p.carry_val, p.partials);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -56,17 +57,21 @@ struct PhiCarryRunsLaunch {
 int launch_phi_carry_runs(const AltoArgs& a, const void* B, const void* pi,
                           float eps, const void* rows, const void* words,
                           const void* values, long long block_m,
-                          long long n_blocks, int threads, void* out,
-                          void* carry_row, void* carry_val, void* stream) {
-  if (block_m < 1 || n_blocks < 0)
+                          long long n_blocks, int threads, int n_rows,
+                          bool zero_gaps, void* out, void* carry_row,
+                          void* carry_val, void* partials, void* stream) {
+  if (block_m < 1 || n_blocks < 0 || a.dtab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   PhiArgs p = phi_args(a, B, pi, eps, words, values, threads, stream);
   p.rows = static_cast<const int*>(rows);
   p.block_m = block_m;
   p.n_blocks = n_blocks;
+  p.out_rows = n_rows;
+  p.zero_gaps = zero_gaps;
   p.out = static_cast<float*>(out);
   p.carry_row = static_cast<int*>(carry_row);
   p.carry_val = static_cast<float*>(carry_val);
+  p.partials = static_cast<float*>(partials);
   return phi_dispatch<PhiCarryRunsLaunch>(a.rank, p);
 }
 
@@ -74,30 +79,33 @@ int launch_phi_carry_runs(const AltoArgs& a, const void* B, const void* pi,
 
 extern "C" {
 
-// K5, first pass. out must hold zeros; carries finish in alto_carry_fixup.
-// pi is null under ALTO-OTF; dtab: the byte decode tables.
-// threads: CTA size (rounded to whole warps).
+// K5, first pass: inner runs and the zeros of the skipped rows into out
+// (n_rows rows; written once with the fix-up, no memset), the slices'
+// first and last runs into the carries, finished by alto_carry_fixup. pi
+// is null under ALTO-OTF; dtab: the byte decode tables. threads: CTA size
+// (rounded to whole warps).
 int alto_phi_carry_runs(const int64_t* factor_ptrs, const int* runs,
                         int n_runs, int ndim, int nwords, int mode, int rank,
                         const void* rows, const void* words,
                         const void* values, const void* B, const void* pi,
                         float eps, const void* dtab, long long block_m,
-                        long long n_blocks, int threads, void* out,
-                        void* carry_row, void* carry_val, void* stream) {
+                        long long n_blocks, int threads, int n_rows,
+                        void* out, void* carry_row, void* carry_val,
+                        void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || dtab == nullptr)
+                      rank))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dtab = static_cast<const uint32_t*>(dtab);
   return launch_phi_carry_runs(a, B, pi, eps, rows, words, values, block_m,
-                               n_blocks, threads, out, carry_row, carry_val,
-                               stream);
+                               n_blocks, threads, n_rows, true, out,
+                               carry_row, carry_val, nullptr, stream);
 }
 
 // K9: one chunk of the Φ carry route, with alto_carry_chunk's contract
-// (mttkrp_oriented.cu): K5's runs pass over the whole rank, then the chunk
-// fix-up in rank tiles of fixup_rb. pi (the chunk's Π rows) is null under
-// ALTO-OTF.
+// (mttkrp_oriented.cu): K5's runs pass over the whole rank (no zeroed
+// gaps: out is the executor's running output), then the chunk fix-up in
+// rank tiles of fixup_rb. pi (the chunk's Π rows) is null under ALTO-OTF.
 int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                          int n_runs, int ndim, int nwords, int mode, int rank,
                          const void* rows, const void* words,
@@ -110,13 +118,14 @@ int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                          void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || n_blocks < 1 || dtab == nullptr)
+                      rank) || n_blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   a.dtab = static_cast<const uint32_t*>(dtab);
   const int status = launch_phi_carry_runs(a, B, pi, eps, rows, words,
                                            values, block_m, n_blocks,
-                                           threads, out, pieces_row,
-                                           pieces_val, stream);
+                                           threads, 0, false, out,
+                                           pieces_row, pieces_val, nullptr,
+                                           stream);
   if (status != 0) return status;
   return launch_carry_fixup_chunk(rank, fixup_rb, phi_cta_threads(threads),
                                   n_blocks, pieces_row, pieces_val, cin_row,
@@ -124,23 +133,24 @@ int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                                   cout_val, static_cast<cudaStream_t>(stream));
 }
 
-// K6. partials is (n_blocks, block_m, rank); every slot is written.
+// K6: the runs pass into partials (n_blocks, block_m, rank); every slot is
+// written. pi is null under ALTO-OTF; dtab: the byte decode tables;
+// threads: CTA size (rounded to whole warps).
 int alto_phi_oriented_partials(const int64_t* factor_ptrs, const int* runs,
                                int n_runs, int ndim, int nwords, int mode,
                                int rank, const void* rows, const void* words,
                                const void* values, const void* B,
-                               const void* pi, float eps, long long block_m,
-                               long long n_blocks, int slices_per_cta,
-                               void* partials, void* stream) {
+                               const void* pi, float eps, const void* dtab,
+                               long long block_m, long long n_blocks,
+                               int threads, void* partials, void* stream) {
   AltoArgs a;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
                       rank))
     return static_cast<int>(cudaErrorInvalidValue);
-  const PhiTerm term{static_cast<const float*>(B),
-                     static_cast<const float*>(pi), eps};
-  return launch_oriented_partials(a, term, rows, words, values, block_m,
-                                  n_blocks, rank, slices_per_cta, partials,
-                                  stream);
+  a.dtab = static_cast<const uint32_t*>(dtab);
+  return launch_phi_carry_runs(a, B, pi, eps, rows, words, values, block_m,
+                               n_blocks, threads, 0, false, nullptr, nullptr,
+                               nullptr, partials, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
-// The CP-APR Φ traversals of the redesigned K5 (carry runs; K9 runs it on
-// one chunk) and K7 (one CTA per ALTO partition, Temp in shared memory).
+// The CP-APR Φ traversals: the runs pass of K5 and K6 (K9 runs it on one
+// chunk) and K7 (one CTA per ALTO partition, Temp in shared memory).
 //
 // Replace, in src/repro/kernels/:
 //   K5  mttkrp_oriented.py phi_oriented_carry_pallas (:437) — the
 //       sequential carry scan over the fused Φ update, full rank;
+//   K6  mttkrp_oriented.py phi_oriented_partials_pallas (:204) — per-block
+//       Φ run sums through a one-hot (block_m x block_m) matmul;
 //   K9  mttkrp_oriented.py phi_oriented_carry_chunk_pallas (:637) — K5
 //       over one chunk (its runs pass is phi_carry_runs_kernel below);
 //   K7  cpapr_phi.py phi_partials_pallas (:57) — one partition's Φ into
@@ -14,23 +16,25 @@
 // thread-per-column form they replace had every thread load whole rows
 // and divide by itself, R times the work, one nonzero in flight.
 //
-// Lane map. A sub-warp of W lanes owns one slice (K5) or one nonzero at a
-// time (K7), and lane l owns rank columns c·W + l for c < COLS: about four
+// Lane map. A sub-warp of W lanes owns one slice (K5, K6) or one nonzero
+// at a time (K7), and lane l owns rank columns c·W + l for c < COLS: about four
 // columns per lane (phi_dispatch: W = 4, COLS = 4 at R = 16; W = 16 at
 // R = 40; a whole warp with up to 32 columns per lane for the largest
 // ranks). Per nonzero each lane loads its own Π entries (ALTO-PRE) or
 // gathers its own factor entries (ALTO-OTF), and its B entries: each row
 // read once, in W-lane coalesced pieces.
 //
-// Rounding contract: phi_update.cuh's, bit for bit. krp_r is the product
-// of the other modes' entries in increasing mode order (__fmul_rn) or the
-// Π entry; prod_r = __fmul_rn(B[row, r], krp_r); the denominator is a
-// serial chain of __shfl_sync reads in k order from 0.0,
-// dot = __fadd_rn(dot, prod_k), then fmaxf(dot, eps); the term is
-// __fmul_rn(__fdiv_rn(v, denom), krp_r). So these kernels give the same
-// terms as PhiTerm (K6) and as core.mttkrp.phi_contributions, and the sums
-// below add them in stream order from 0.0 with __fadd_rn: K5 equals
-// K6 + segment_merge, and K7 equals its plain version on the CPU.
+// Rounding contract, the term `_phi` (src/repro/core/cpapr.py:78) forms:
+// krp_r is the product of the other modes' entries in increasing mode
+// order (__fmul_rn) or the Π entry; prod_r = __fmul_rn(B[row, r], krp_r);
+// the denominator is a serial chain of __shfl_sync reads in k order from
+// 0.0, dot = __fadd_rn(dot, prod_k), then fmaxf(dot, eps); the term is
+// __fmul_rn(__fdiv_rn(v, denom), krp_r), the order of
+// `(vals / denom)[:, None] * krp`. Explicit intrinsics keep nvcc from
+// contracting into FMAs. So every kernel here forms the terms of
+// core.mttkrp.phi_contributions, and the sums below add them in stream
+// order from 0.0 with __fadd_rn: K5 equals K6 + segment_merge, and K5,
+// K6 and K7 equal their plain versions on the CPU, bit for bit.
 //
 // Latency: the chains of U nonzeros of one sub-warp are interleaved (their
 // loads issued first), so only the run sums are serial; with narrow
@@ -54,7 +58,7 @@
 // Temp row is written once, at the end of its window.
 #pragma once
 
-#include "alto_decode.cuh"
+#include "alto_scan.cuh"
 
 namespace {
 
@@ -160,17 +164,51 @@ __device__ __forceinline__ void phi_subwarp_terms(
   }
 }
 
-// K5 first pass, one sub-warp per block_m slice; K1's runs-pass contract
-// (mttkrp_carry_runs_kernel, alto_scan.cuh): inner runs to out, the first
-// and last runs to the carries buffer (n_blocks, 2, R), row -1 in slot 1
-// when one run covers the slice.
+// The lane's columns c·W + lane of a row: dst[col] = x[c].
+template <int W, int COLS>
+__device__ __forceinline__ void phi_store(float* dst, int R, int lane,
+                                          const float (&x)[COLS]) {
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) {
+    const int col = c * W + lane;
+    if (col < R) dst[col] = x[c];
+  }
+}
+
+// Rows [r0, r1) of out (row stride R) get zeros in the lane's columns.
+template <int W, int COLS>
+__device__ __forceinline__ void phi_zero_rows(float* out, int64_t r0,
+                                              int64_t r1, int R, int lane) {
+  float zero[COLS];
+#pragma unroll
+  for (int c = 0; c < COLS; ++c) zero[c] = 0.0f;
+  for (int64_t r = r0; r < r1; ++r) phi_store<W, COLS>(out + r * R, R, lane,
+                                                       zero);
+}
+
+// The Φ runs pass, one sub-warp per block_m slice; each run sums its terms
+// in stream order from 0.0. Two layouts of the run sums:
+//  * carry (partials == nullptr; K5, and K9 on one chunk): K1's runs-pass
+//    contract (mttkrp_carry_runs_kernel, alto_scan.cuh): inner runs to
+//    out, the first and last runs to the carries buffer (n_blocks, 2, R),
+//    row -1 in slot 1 when one run covers the slice. With zero_gaps (K5)
+//    it also stores zeros to the rows the stream skips, as K1's does
+//    (between two rows: the later's slice, which reads rows[s - 1]; below
+//    the first row: slice 0; above the last, up to n_rows: the last
+//    slice), so with the fix-up storing the carried rows every row of out
+//    is written once. K9 adds into a running out its executor zeroes.
+//  * partials (K6): slot j of the slice's block_m slots in partials
+//    (n_blocks, block_m, R) gets the slice's j-th run, the unused slots
+//    zeros: the JAX partials layout that ops.segment_merge reads.
+// The two add the same terms in the same order: K5 ≡ K6 + segment_merge.
 template <int W, int COLS, int U>
 __global__ void phi_carry_runs_kernel(
     const __grid_constant__ AltoArgs a, const float* __restrict__ B,
     const float* __restrict__ pi, float eps, const int* __restrict__ rows,
     const uint32_t* __restrict__ words, const float* __restrict__ values,
-    int64_t block_m, int64_t n_blocks, float* __restrict__ out,
-    int* __restrict__ carry_row, float* __restrict__ carry_val) {
+    int64_t block_m, int64_t n_blocks, int n_rows, bool zero_gaps,
+    float* __restrict__ out, int* __restrict__ carry_row,
+    float* __restrict__ carry_val, float* __restrict__ partials) {
   const int lane = threadIdx.x % W;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / W) +
                     threadIdx.x / W;
@@ -179,11 +217,15 @@ __global__ void phi_carry_runs_kernel(
   const int R = a.rank;
   const int64_t s = b * block_m;
   const int64_t e = s + block_m;
+  float* const slots = partials == nullptr ? nullptr : partials + s * R;
   int cur = __ldg(rows + s);
+  if (zero_gaps)
+    phi_zero_rows<W, COLS>(out, b == 0 ? 0 : __ldg(rows + s - 1) + 1, cur, R,
+                           lane);
   float acc[COLS];
 #pragma unroll
   for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
-  bool first = true;
+  int64_t j = 0;                       // runs closed so far
   for (int64_t i0 = s; i0 < e; i0 += U) {
     int64_t idx[U];
     bool live[U];
@@ -204,26 +246,35 @@ __global__ void phi_carry_runs_kernel(
       if (!live[u]) break;
       if (row[u] != cur) {
         float* dst;
-        if (first) {
+        if (slots != nullptr) {
+          dst = slots + j * R;
+        } else if (j == 0) {
           if (lane == 0) carry_row[2 * b] = cur;
           dst = carry_val + (2 * b) * R;
-          first = false;
         } else {
           dst = out + static_cast<int64_t>(cur) * R;
         }
+        phi_store<W, COLS>(dst, R, lane, acc);
 #pragma unroll
-        for (int c = 0; c < COLS; ++c) {
-          const int col = c * W + lane;
-          if (col < R) dst[col] = acc[c];
-          acc[c] = 0.0f;
-        }
+        for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
+        ++j;
+        if (zero_gaps)
+          phi_zero_rows<W, COLS>(out, cur + 1, row[u], R, lane);
         cur = row[u];
       }
 #pragma unroll
       for (int c = 0; c < COLS; ++c) acc[c] = __fadd_rn(acc[c], term[u][c]);
     }
   }
-  float* last = carry_val + (first ? 2 * b : 2 * b + 1) * R;
+  if (slots != nullptr) {
+    phi_store<W, COLS>(slots + j * R, R, lane, acc);
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
+    for (++j; j < block_m; ++j) phi_store<W, COLS>(slots + j * R, R, lane,
+                                                   acc);
+    return;
+  }
+  const bool first = j == 0;
   if (lane == 0) {
     if (first) {
       carry_row[2 * b] = cur;
@@ -232,13 +283,15 @@ __global__ void phi_carry_runs_kernel(
       carry_row[2 * b + 1] = cur;
     }
   }
+  phi_store<W, COLS>(carry_val + (first ? 2 * b : 2 * b + 1) * R, R, lane,
+                     acc);
+  if (first) {
 #pragma unroll
-  for (int c = 0; c < COLS; ++c) {
-    const int col = c * W + lane;
-    if (col >= R) continue;
-    last[col] = acc[c];
-    if (first) carry_val[(2 * b + 1) * R + col] = 0.0f;
+    for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
+    phi_store<W, COLS>(carry_val + (2 * b + 1) * R, R, lane, acc);
   }
+  if (zero_gaps && b == n_blocks - 1)
+    phi_zero_rows<W, COLS>(out, cur + 1, n_rows, R, lane);
 }
 
 // K7: one CTA per partition l, Temp_l (temp_rows, R) built in shared
@@ -392,22 +445,21 @@ struct PhiArgs {           // the operands of both Φ launches
   const float* values;
   int threads;             // CTA threads, whole warps
   cudaStream_t stream;
-  // K5 runs pass
+  int out_rows;             // rows of B and out
+  // the runs pass (K5, K6, K9)
   const int* rows;
   int64_t block_m, n_blocks;
+  bool zero_gaps;
   float* out;
   int* carry_row;
   float* carry_val;
+  float* partials;         // K6's slots, or nullptr
   // K7
   const int* part_start;
   int64_t n_parts, chunk, temp_rows;
-  int out_rows, window, tile;
+  int window, tile;
   float* temp;
 };
-
-inline size_t phi_partials_smem_bytes(int R, int window, int tile) {
-  return (static_cast<size_t>(2 * window + tile) * R + tile) * 4;
-}
 
 // The operands every Φ launch shares.
 inline PhiArgs phi_args(const AltoArgs& a, const void* B, const void* pi,

@@ -5,6 +5,14 @@ it. Partition ``l`` of the ALTO-ordered stream is its ``chunk`` elements;
 each contributes ``values · krp`` at ``Temp_l[row - part_start[l, mode]]``
 of the ``(L, temp_rows, R)`` output, summed in stream order from 0.0. The
 pull reduction into ``(I_n, R)`` is `ops.pull_reduction`.
+
+On the card one CTA of ``threads`` (whole warps) runs each partition and
+rank tile with its Temp in shared memory, ``window`` rows at a time
+(`common.window_rows` without B rows, from the card's shared memory per
+CTA); its sub-warps use K1's lane map (`mttkrp_oriented.lane_map`). A Temp
+taller than one window is covered in several passes over the partition,
+any window height gives the same bits (`recursive_partials_windowed`),
+and every Temp entry is written once, so Temp is not zeroed first.
 """
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ import torch
 from repro_torch.core.encoding import AltoEncoding, delinearize
 from repro_torch.core.mttkrp import krp_rows
 from repro_torch.kernels import _build, common
+from repro_torch.kernels.mttkrp_oriented import lane_map
 
 DEFAULT_THREADS = 128
 
@@ -38,34 +47,64 @@ def recursive_partials_plain(enc: AltoEncoding, mode: int, temp_rows: int,
 def recursive_partials(enc: AltoEncoding, mode: int, temp_rows: int, words,
                        values, part_start, factors,
                        r_block: int | None = None,
-                       threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K3: per-partition Temp buffers (L, temp_rows, R)."""
+                       threads: int = DEFAULT_THREADS,
+                       out=None) -> torch.Tensor:
+    """K3: per-partition Temp buffers (L, temp_rows, R), into ``out`` when
+    given (every entry is overwritten)."""
+    return recursive_partials_windowed(enc, mode, temp_rows, words, values,
+                                       part_start, factors, r_block,
+                                       threads, out=out, window=None)
+
+
+def recursive_partials_windowed(enc: AltoEncoding, mode: int,
+                                temp_rows: int, words, values, part_start,
+                                factors, r_block: int | None = None,
+                                threads: int = DEFAULT_THREADS, out=None,
+                                window: int | None = None) -> torch.Tensor:
+    """K3 with its Temp window height given (``None``: `common.
+    window_rows` of the card's shared memory). On the CPU the window
+    changes nothing."""
     factors = list(factors)
     R = factors[0].shape[1]
-    rb = r_block or R
+    rb = r_block or common.rank_tile(R)
     if R % rb:
         raise ValueError(f"rank {R} not a multiple of r_block {rb}")
+    lanes, cols = lane_map(rb)
     L = part_start.shape[0]
     Mp = words.shape[0]
     if Mp % L:
         raise ValueError(f"stream length {Mp} not a multiple of the "
                          f"{L} partitions")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} < 1")
     common.check_tensor(words, "words", torch.int32, (Mp, enc.n_words))
     common.check_tensor(values, "values", torch.float32, (Mp,))
     common.check_tensor(part_start, "part_start", torch.int32,
                         (L, enc.ndim))
     common.check_factors(enc, factors, R)
-    if not common.on_cuda(words, values, part_start, *factors):
-        return recursive_partials_plain(enc, mode, temp_rows, words, values,
+    if out is not None:
+        common.check_tensor(out, "out", torch.float32, (L, temp_rows, R))
+    tensors = [words, values, part_start, *factors] + (
+        [] if out is None else [out])
+    if not common.on_cuda(*tensors):
+        temp = recursive_partials_plain(enc, mode, temp_rows, words, values,
                                         part_start, factors)
-    temp = torch.zeros((L, temp_rows, R), dtype=torch.float32,
-                       device=words.device)
+        return temp if out is None else out.copy_(temp)
+    tile = common.tile_nnz(rb)
+    if window is None:
+        window = common.window_rows(temp_rows, rb,
+                                    common.smem_limit(words.device), False)
+    window = min(window, temp_rows)
+    temp = out if out is not None else torch.empty(
+        (L, temp_rows, R), dtype=torch.float32, device=words.device)
     keep, args = common.alto_args(enc, mode, factors, R)
     lib = _build.library("mttkrp")
     status = lib.alto_recursive_partials(
         *args, words.data_ptr(), values.data_ptr(), part_start.data_ptr(),
-        L, Mp // L, temp_rows, rb, common.slices_per_cta(threads, rb),
-        temp.data_ptr(), common.stream_ptr(words))
+        common.decode_table(enc, words.device).data_ptr(), L, Mp // L,
+        temp_rows, rb, lanes, cols, window, tile,
+        common.cta_threads(threads), temp.data_ptr(),
+        common.stream_ptr(words))
     del keep
     _build.check(status, "alto_recursive_partials")
     _build.count_launch("recursive_partials", Mp)

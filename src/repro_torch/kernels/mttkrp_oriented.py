@@ -26,10 +26,12 @@ a maximal stretch of equal rows inside one slice.
   slice's ``j``-th run, zeros elsewhere — the JAX partials layout.
 * `phi_carry_runs` (K5) and `phi_oriented_partials` (K6): the same two
   traversals summing the Φ term (`core.mttkrp.phi_contributions`) in
-  place of the MTTKRP term, over the whole rank (``r_block == R``). K5
-  (and K9) give each slice a sub-warp whose lanes hold the rank columns
-  and share the denominator through shuffles; ``threads`` is then the CTA
-  size (whole warps). K6 keeps a thread per column.
+  place of the MTTKRP term, over the whole rank (``r_block == R``). On
+  the card K5, K6 and K9 share one runs pass: each slice a sub-warp whose
+  lanes hold the rank columns and share the denominator through shuffles;
+  ``threads`` is then the CTA size (whole warps). K5's pass, as K1's,
+  stores zeros to the rows the stream skips, so its ``out`` needs no
+  zeroing first.
 * `carry_chunk` (K8) and `phi_carry_chunk` (K9): K1 / K5 over one chunk
   of a longer stream (``csrc/carry_chunk.cuh``). They take the running
   ``out`` and the open run so far, ``(carry_row (1,) int32, carry_val
@@ -246,6 +248,18 @@ def phi_oriented_partials_plain(enc: AltoEncoding, mode: int, eps: float,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _runs_into(plain, out):
+    """A runs pass's plain result ``(out, carry_row, carry_val)`` with its
+    kernel's write set into ``out`` when given: every row but the carried
+    pieces' rows, which the fix-up stores."""
+    if out is None:
+        return plain
+    written = torch.ones(out.shape[0], dtype=torch.bool)
+    written[plain[1][plain[1] >= 0].long()] = False
+    out[written] = plain[0][written]
+    return (out,) + plain[1:]
+
+
 def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
                block_m: int = DEFAULT_BLOCK_M, r_block: int | None = None,
                threads: int = DEFAULT_THREADS, out=None):
@@ -260,16 +274,8 @@ def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
         common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
     if not common.on_cuda(rows, words, values, *factors,
                           *([] if out is None else [out])):
-        plain = carry_runs_plain(enc, mode, rows, words, values, factors,
-                                 block_m)
-        if out is None:
-            return plain
-        # The kernel's write set: every row but the carried ones, which
-        # the fix-up stores.
-        written = torch.ones(out.shape[0], dtype=torch.bool)
-        written[plain[1][plain[1] >= 0].long()] = False
-        out[written] = plain[0][written]
-        return (out,) + plain[1:]
+        return _runs_into(carry_runs_plain(enc, mode, rows, words, values,
+                                           factors, block_m), out)
     nb = M // block_m
     if out is None:
         out = torch.empty((enc.dims[mode], R), dtype=torch.float32,
@@ -368,19 +374,27 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
                    values, B, factors=None, pi=None,
                    block_m: int = DEFAULT_BLOCK_M,
                    r_block: int | None = None,
-                   threads: int = DEFAULT_THREADS):
+                   threads: int = DEFAULT_THREADS, out=None):
     """K5, first pass: (out with inner runs, carry_row, carry_val). Pass
-    ``pi`` (the stream's Π rows, ALTO-PRE) or ``factors`` (ALTO-OTF)."""
+    ``pi`` (the stream's Π rows, ALTO-PRE) or ``factors`` (ALTO-OTF). As
+    K1's, the pass stores zeros to the rows the stream skips, so ``out``
+    (``torch.empty`` unless given) gets every row except the carried
+    pieces' rows, which `carry_fixup` stores."""
     M = _check_rows(enc, rows, words, values, block_m)
     factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
                                            r_block)
-    tensors = [rows, words, values, B] + (factors or [pi])
+    if out is not None:
+        common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
+    tensors = [rows, words, values, B] + (factors or [pi]) + (
+        [] if out is None else [out])
     if not common.on_cuda(*tensors):
-        return phi_carry_runs_plain(enc, mode, eps, rows, words, values, B,
-                                    factors, pi, block_m)
+        return _runs_into(phi_carry_runs_plain(enc, mode, eps, rows, words,
+                                               values, B, factors, pi,
+                                               block_m), out)
     nb = M // block_m
-    out = torch.zeros((enc.dims[mode], R), dtype=torch.float32,
-                      device=rows.device)
+    if out is None:
+        out = torch.empty((enc.dims[mode], R), dtype=torch.float32,
+                          device=rows.device)
     carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
     carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
                             device=rows.device)
@@ -390,8 +404,8 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
-        threads, out.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(),
-        common.stream_ptr(rows))
+        threads, enc.dims[mode], out.data_ptr(), carry_row.data_ptr(),
+        carry_val.data_ptr(), common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_carry_runs")
     _build.count_launch("phi_carry_runs", M)
@@ -401,11 +415,13 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
 def phi_oriented_carry(enc: AltoEncoding, mode: int, eps: float, rows,
                        words, values, B, factors=None, pi=None,
                        block_m: int = DEFAULT_BLOCK_M,
-                       threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K5: sorted stream -> final (I_n, R) Φ (runs, then K1's fix-up)."""
+                       threads: int = DEFAULT_THREADS,
+                       out=None) -> torch.Tensor:
+    """K5: sorted stream -> final (I_n, R) Φ (runs, then K1's fix-up),
+    into ``out`` when given (every row is overwritten)."""
     out, carry_row, carry_val = phi_carry_runs(
         enc, mode, eps, rows, words, values, B, factors, pi, block_m,
-        threads=threads)
+        threads=threads, out=out)
     return carry_fixup(carry_row, carry_val, out, threads=threads)
 
 
@@ -414,7 +430,9 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
                           block_m: int = DEFAULT_BLOCK_M,
                           r_block: int | None = None,
                           threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K6: per-slice Φ run sums (n_blocks, block_m, R)."""
+    """K6: per-slice Φ run sums (n_blocks, block_m, R). On the card K5's
+    runs pass (a sub-warp per slice) stores the slice's j-th run sum to
+    slot j and zeros to the unused slots; ``threads`` is the CTA size."""
     M = _check_rows(enc, rows, words, values, block_m)
     factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
                                            r_block)
@@ -429,9 +447,9 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
     lib = _build.library("phi_oriented")
     status = lib.alto_phi_oriented_partials(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
-        B.data_ptr(), None if pi is None else pi.data_ptr(), eps, block_m,
-        nb, common.slices_per_cta(threads, R), partials.data_ptr(),
-        common.stream_ptr(rows))
+        B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
+        common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
+        threads, partials.data_ptr(), common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_phi_oriented_partials")
     _build.count_launch("phi_oriented_partials", M)

@@ -412,13 +412,19 @@ def test_lane_maps_cover_every_rank_tile_with_four_maps():
 
 
 def test_lane_maps_match_the_kernel_dispatch():
-    """The C dispatch builds exactly the maps the chooser picks from."""
-    src = (CSRC / "mttkrp_oriented.cu").read_text()
-    body = src[src.index("inline int launch_mttkrp_carry_runs"):]
+    """The C dispatch builds exactly the maps the chooser picks from, and
+    K1 (with K8) and K3 launch through it."""
+    src = (CSRC / "alto_scan.cuh").read_text()
+    body = src[src.index("int k1_lane_dispatch"):]
+    body = body[:body.index("\n}\n")]
     built = re.findall(r"lanes == (\d+) && cols == (\d+)\) return "
-                       r"MttkrpCarryRunsLaunch<(\d+), (\d+)>", body)
+                       r"L<(\d+), (\d+)>", body)
     assert [(int(a), int(b)) for a, b, _, _ in built] == list(tori.LANE_MAPS)
     assert all(a == c and b == d for a, b, c, d in built)
+    for name, launch in (("mttkrp_oriented.cu", "MttkrpCarryRunsLaunch"),
+                         ("mttkrp.cu", "MttkrpPartialsLaunch")):
+        assert (f"k1_lane_dispatch<{launch}>(lanes, cols, p)"
+                in (CSRC / name).read_text())
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The redesigned Φ kernels' host side: K7's Temp window height, the byte
+"""The redesigned Φ kernels' host side: K7's Temp window height (the rule
+`common.window_rows` shares with K3, here with B rows), the byte
 decode tables of the OTF kernels, the cached pull order, and the absence
 of float atomics from the CUDA sources (the bitwise contracts depend on
 a fixed summation order).
@@ -39,36 +40,37 @@ H100_SMEM = 232_448          # one CTA's opt-in shared memory on an H100
 @pytest.mark.parametrize("temp_rows", [1, 2, 127, 5_000, 1_000_000])
 def test_window_rows_cover_temp_within_the_byte_limit(temp_rows, rank,
                                                       limit):
-    h = tk7.window_rows(temp_rows, rank, limit)
+    h = common.window_rows(temp_rows, rank, limit, True)
     assert 1 <= h <= temp_rows
     assert -(-temp_rows // h) * h >= temp_rows          # windows cover T
-    tile = tk7.tile_nnz(rank)
-    assert tk7.smem_bytes(h, rank, tile) <= limit
+    tile = common.tile_nnz(rank)
+    assert common.smem_bytes(h, rank, tile, True) <= limit
     if h < temp_rows:                                   # the most that fit
-        assert tk7.smem_bytes(h + 1, rank, tile) > limit
+        assert common.smem_bytes(h + 1, rank, tile, True) > limit
 
 
 def test_window_rows_take_all_of_a_small_temp():
     """Chicago's mode 0 (T = 127, R = 16) fits one window on an H100: 25
     KB."""
-    assert tk7.window_rows(127, 16, H100_SMEM) == 127
-    assert tk7.window_rows(1, 16, H100_SMEM) == 1
-    assert tk7.smem_bytes(127, 16, tk7.tile_nnz(16)) == 24_960
+    assert common.window_rows(127, 16, H100_SMEM, True) == 127
+    assert common.window_rows(1, 16, H100_SMEM, True) == 1
+    assert common.smem_bytes(127, 16, common.tile_nnz(16), True) == 24_960
 
 
 def test_window_rows_refuse_a_limit_without_one_row():
     rank = 16
-    tile = tk7.tile_nnz(rank)
-    assert tk7.window_rows(10, rank, tk7.smem_bytes(1, rank, tile)) == 1
+    tile = common.tile_nnz(rank)
+    limit = common.smem_bytes(1, rank, tile, True)
+    assert common.window_rows(10, rank, limit, True) == 1
     with pytest.raises(ValueError, match="shared memory"):
-        tk7.window_rows(10, rank, tk7.smem_bytes(1, rank, tile) - 1)
+        common.window_rows(10, rank, limit - 1, True)
 
 
 @pytest.mark.parametrize("rank", [1, 5, 16, 32, 40, 128, 1024])
 def test_tile_nnz_bounds(rank):
-    tile = tk7.tile_nnz(rank)
+    tile = common.tile_nnz(rank)
     assert 8 <= tile <= 128 and tile % 8 == 0
-    assert tile * rank * 4 <= max(tk7.TILE_BYTES, 8 * rank * 4)
+    assert tile * rank * 4 <= max(common.TILE_BYTES, 8 * rank * 4)
 
 
 @pytest.mark.parametrize("window", [1, 3, None])
