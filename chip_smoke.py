@@ -10,13 +10,16 @@ sm_90a), then:
 1. holds every kernel against its plain PyTorch version on small
    adversarial run layouts at ranks 5, 16 and 40, each with the whole rank
    and a smaller rank tile: tolerance ``rtol=1e-5, atol=1e-6·max|plain|``,
-   K1 (carry) equal to K2 + segment_merge (``torch.equal``), K1 and K3
-   (recursive) bit for bit to their plain versions run on CPU copies with
-   one CPU thread, every row of K1's output written (run into a
+   K1 (carry) equal to K2 + segment_merge (``torch.equal``), K1, K2 and
+   K3 (recursive) bit for bit to their plain versions run on CPU copies
+   with one CPU thread, every row of K1's output written (run into a
    NaN-filled buffer it equals the normal run; the runs pass leaves
-   exactly the carried rows to the fix-up), K3 into a NaN-filled Temp and
-   in Temp windows of 1 and 3 rows equal to K3 in one window, and equal
-   bits on a second run;
+   exactly the carried rows to the fix-up), K2 into NaN-filled slots
+   equal to the normal run, the split of segment_merge equal to
+   ``split_block_runs`` (carries, and out off the carried rows, which it
+   leaves NaN in a NaN-filled out; split + fix-up equal), K3 into a
+   NaN-filled Temp and in Temp windows of 1 and 3 rows equal to K3 in one
+   window, and equal bits on a second run;
 2. decomposes the Chicago-crime-comm shape (6,186 × 24 × 77 × 32, 4.86 M
    nonzeros from the repo's seeded ``blocked_tensor`` recipe) with
    ``build_device(n_partitions=1024)`` and 10 CP-ALS iterations at rank 16;
@@ -31,7 +34,8 @@ sm_90a), then:
    K9 chained over chunks equal to K5, K7 in Temp windows of 1 and 3 rows
    equal to K7 in one window, K5, K6 and K7 equal bit for bit to their
    plain versions run on CPU copies of the inputs with one CPU thread,
-   every row of K5's output written as K1's, equal bits on a second run),
+   every row of K5's output written as K1's, the split of K6's slots
+   equal to ``split_block_runs``, equal bits on a second run),
    and a small CP-APR on the card against the same one on the CPU
    (log-likelihoods within 1e-5 relative, factors within 1e-5);
 5. runs CP-APR at rank 16 on the Chicago tensor (ALTO-OTF, 5 outer
@@ -54,15 +58,17 @@ sm_90a), then:
 8. times K1's runs pass, its fix-up walk and the whole op apart on
    Chicago modes 1-3 (with the K5 route's fix-up) and DARPA mode 2;
 9. at the main path's shapes, checks each kernel against its plain version
-   (K3 and K7 also in windows of 16 rows, equal to one window, K3 and K5
-   also into NaN-filled outputs; K4 under each
+   (K3 and K7 also in windows of 16 rows, equal to one window, K2, K3 and
+   K5 also into NaN-filled outputs, the split equal to
+   ``split_block_runs`` on DARPA mode 2's slots; K4 under each
    decode route on the whole DARPA stream, one chunk's ragged length,
    lengths 1, 1023 and 1025, and the Chicago stream) and times kernel,
    plain version and bound, and the pull with its cached order.
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
-instantiation of the redesigned kernels (K1's runs pass, the fix-up walk,
-K4, K3, and the runs pass that K5, K6 and K9 share).
+instantiation of the redesigned kernels (the runs pass that K1, K2 and K8
+share, the fix-up walk, the split, K4, K3, and the runs pass that K5, K6
+and K9 share).
 
 Each CP-ALS and CP-APR run is driven with the launch counts set to 0 just
 before it and read just after; a run fails unless the kernels its plan
@@ -175,15 +181,48 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 # Kernel checks against the plain versions
 # ---------------------------------------------------------------------------
 
+def check_segment_split(m, partials, rows, out_dim, threads,
+                        label: str) -> float:
+    """The split kernel against ``split_block_runs`` on the same slots:
+    equal carries, ``out`` equal off the carried rows and, run into a
+    NaN-filled ``out``, NaN exactly at them (every other row written);
+    split + fix-up equal to ``split_block_runs`` + fix-up; repeatable.
+    Returns the largest difference of the merged outputs (0.0)."""
+    kori = m["kori"]
+    R = partials.shape[2]
+    out, crow, cval = kori.segment_split(
+        partials, rows, out_dim, threads,
+        out=torch.full((out_dim, R), float("nan"), device=rows.device))
+    p_out, p_crow, p_cval = kori.split_block_runs(partials, rows, out_dim)
+    _check_equal(f"{label} segment_split carry_row", crow, p_crow)
+    _check_equal(f"{label} segment_split carry_val", cval, p_cval)
+    carried = torch.zeros(out_dim, dtype=torch.bool, device=rows.device)
+    carried[crow[crow >= 0].long()] = True
+    if not (bool(out[carried].isnan().all())
+            and not bool(out[~carried].isnan().any())):
+        _fail(f"{label} segment_split: the rows written are not exactly "
+              f"the rows without a carried piece")
+    _check_equal(f"{label} segment_split out", out[~carried],
+                 p_out[~carried])
+    out2, crow2, cval2 = kori.segment_split(partials, rows, out_dim, threads)
+    _check_equal(f"{label} segment_split repeat carry_row", crow2, crow)
+    _check_equal(f"{label} segment_split repeat carry_val", cval2, cval)
+    merged = kori.carry_fixup(crow2, cval2, out2, threads=threads)
+    plain = kori.carry_fixup(p_crow, p_cval, p_out, threads=threads)
+    _check_equal(f"{label} segment_split + fix-up", merged, plain)
+    return float((merged - plain).abs().max()) if merged.numel() else 0.0
+
+
 def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
                            label: str, cpu_copies: bool = False) -> dict:
     """K1 runs, carry fix-up (under two rank tiles, equal) and K2 against
-    their plain versions on one oriented view; K1 == K2 + segment_merge; every row of
-    K1's output
-    written (a NaN-filled output equals the normal run, and the runs pass
-    leaves exactly the carried pieces' rows to the fix-up); repeatability;
-    with ``cpu_copies``, K1 equal bit for bit to its plain version run on
-    CPU copies of the inputs."""
+    their plain versions on one oriented view; K1 == K2 + segment_merge;
+    every row of K1's output written (a NaN-filled output equals the
+    normal run, and the runs pass leaves exactly the carried pieces' rows
+    to the fix-up); every slot of K2 written (NaN-filled slots equal the
+    normal run); the split of K2's slots (`check_segment_split`);
+    repeatability; with ``cpu_copies``, K1 and K2 equal bit for bit to
+    their plain versions run on CPU copies of the inputs."""
     ops, kori = m["ops"], m["kori"]
     enc, mode = view.meta.enc, view.mode
     rows, words, values, _ = ops.pad_sorted_stream(view.rows, view.words,
@@ -229,6 +268,11 @@ def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
     errs["oriented_partials"] = _check_close(
         f"{label} oriented_partials", part,
         kori.oriented_partials_plain(*args, block_m))
+    _check_equal(f"{label} oriented_partials into NaN-filled slots", part,
+                 kori.oriented_partials(*args, **kw, out=torch.full(
+                     part.shape, float("nan"), device=part.device)))
+    errs["segment_split"] = check_segment_split(
+        m, part, rows, enc.dims[mode], threads, label)
 
     k1 = ops.mttkrp_oriented_carry(view, factors, **kw)
     k2 = ops.mttkrp_oriented(view, factors, **kw)
@@ -242,8 +286,12 @@ def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
             o, r, v = kori.carry_runs_plain(enc, mode, *_cpu(args[2:5]),
                                             _cpu(factors), block_m)
             plain = kori.carry_fixup_plain(r, v, o)
+            plain_part = kori.oriented_partials_plain(
+                enc, mode, *_cpu(args[2:5]), _cpu(factors), block_m)
         _check_equal(f"{label} K1 vs its plain version on CPU copies",
                      k1.cpu(), plain)
+        _check_equal(f"{label} K2 vs its plain version on CPU copies",
+                     part.cpu(), plain_part)
     return errs
 
 
@@ -329,7 +377,9 @@ def phase_small(m) -> dict:
     at ranks 5, `RANK` and 40, each with the whole rank as the rank tile
     and with a smaller one; K1 and K3 equal bit for bit to their plain
     versions on CPU copies, K3 in windows of 1 and 3 rows equal to one
-    window and into a NaN-filled Temp equal to the normal run."""
+    window and into a NaN-filled Temp equal to the normal run; K2 bit for
+    bit to its plain version on CPU copies and into NaN-filled slots, and
+    the split of its slots equal to ``split_block_runs``."""
     dims = (29, 13, 7)
     worst = {}
     for rank, tiles in ((5, (5, 1)), (RANK, (RANK, 4)), (40, (40, 8))):
@@ -398,6 +448,7 @@ def _phi_operands(m, enc, words, factors, mode, policy) -> dict:
 def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
                                label: str, cpu_copies: bool = False) -> dict:
     """K5 runs and K6 against their plain versions on one oriented view;
+    the split of K6's slots (`check_segment_split`);
     K5 (runs + fix-up) == K6 + segment_merge; every row of K5's output
     written (into a NaN-filled output the runs pass leaves exactly the
     carried pieces' rows to the fix-up, and K5 equals the normal run);
@@ -443,6 +494,8 @@ def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
     errs["phi_oriented_partials"] = _check_close(
         f"{label} phi_oriented_partials", part,
         kori.phi_oriented_partials_plain(*args, **kw, block_m=block_m))
+    errs["segment_split"] = check_segment_split(
+        m, part, rows, enc.dims[mode], threads, f"{label} phi")
     kw = dict(operands, eps=eps, block_m=block_m, threads=threads)
     k5 = ops.cpapr_phi_oriented_carry(view, B, **kw)
     _check_equal(f"{label} K5 vs K6+segment_merge", k5,
@@ -792,7 +845,8 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
     b = m["build"]
     trav = m["heuristics"].Traversal
     kernels_of = {trav.ORIENTED_CARRY: {"carry_runs", "carry_fixup"},
-                  trav.OUTPUT_ORIENTED: {"oriented_partials", "carry_fixup"},
+                  trav.OUTPUT_ORIENTED: {"oriented_partials", "segment_split",
+                                         "carry_fixup"},
                   trav.RECURSIVE: {"recursive_partials"}}
     if p.streaming is not None:
         kernels_of[trav.ORIENTED_CARRY] = {"carry_chunk"}
@@ -901,7 +955,7 @@ def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
     trav = m["heuristics"].Traversal
     kernels_of = {trav.ORIENTED_CARRY: {"phi_carry_runs", "carry_fixup"},
                   trav.OUTPUT_ORIENTED: {"phi_oriented_partials",
-                                         "carry_fixup"},
+                                         "segment_split", "carry_fixup"},
                   trav.RECURSIVE: {"phi_partials", "carry_fixup"}}
     if p.streaming is not None:
         kernels_of[trav.ORIENTED_CARRY] = {"phi_carry_chunk"}
@@ -1195,7 +1249,9 @@ JAX_KERNELS = "src/repro/kernels/"
 KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "carry_runs": ("alto_scan.cuh", "mttkrp_oriented.py:358"),
     "carry_fixup": ("carry_fixup.cuh", "mttkrp_oriented.py:254"),
-    "oriented_partials": ("mttkrp_oriented.cu", "mttkrp_oriented.py:132"),
+    # not a Pallas kernel: the JAX segment_merge is a jnp scatter-add
+    "segment_split": ("segment_split.cuh", "ops.py:171"),
+    "oriented_partials": ("alto_scan.cuh", "mttkrp_oriented.py:132"),
     "recursive_partials": ("alto_scan.cuh", "mttkrp.py:75"),
     "delinearize": ("delinearize.cu", "delinearize.py:37"),
     "phi_carry_runs": ("phi_oriented.cu", "mttkrp_oriented.py:437"),
@@ -1274,7 +1330,34 @@ def time_oriented(m, view, factors, mp, launches) -> list[dict]:
         return kori.carry_fixup_plain(r, v, o)
 
     part_b = nb * bm * R * 4
+    part = kori.oriented_partials(*args, bm, rb, th)
+    rows_b = rows.reshape(nb, bm)
+    n_runs = nb + int((rows_b[:, 1:] != rows_b[:, :-1]).sum())
+    split_b = M * 4 + n_runs * R * 4 + out_b + carries
+    # JAX's segment_merge in one call: every slot added to its run's row
+    # (unused slots, zeros, to row 0) into zeros.
+    seg_rows = torch.zeros_like(rows_b).scatter_(
+        1, kori.run_rank_segments(rows_b), rows_b).reshape(-1).long()
+    flat = part.reshape(-1, R)
+
+    def merge_plain():
+        o, r, v = kori.split_block_runs(part, rows, I_n)
+        return kori.carry_fixup_plain(r, v, o)
+    split = _entry(
+        "segment_split", launches, errs["segment_split"],
+        _ms(m, kori.segment_split, part, rows, I_n, th),
+        _ms(m, kori.segment_split_plain, part, rows, I_n, iters=3),
+        split_b, 0, _ms(m, lambda: torch.zeros(
+            (I_n, R), device=rows.device).index_add_(0, seg_rows, flat)),
+        shape + f", {n_runs} runs", "ops.segment_merge",
+        _ms(m, ops.segment_merge, part, rows, I_n, th),
+        _ms(m, merge_plain, iters=3),
+        split_b + fix_rows * R * 4)
+    split["note"] = ("not a Pallas kernel: the JAX segment_merge "
+                     "(ops.py:171) is a jnp scatter-add")
+    del part, seg_rows, flat
     return [
+        split,
         _entry("carry_runs", launches, errs["carry_runs"],
                _ms(m, kori.carry_runs, *args, bm, rb, th),
                _ms(m, kori.carry_runs_plain, *args, bm, iters=3),
@@ -1295,8 +1378,7 @@ def time_oriented(m, view, factors, mp, launches) -> list[dict]:
                stream + fac + part_b, krp_ops, None, shape,
                "ops.mttkrp_oriented",
                _ms(m, ops.mttkrp_oriented, view, factors, bm, rb, th),
-               _ms(m, k2_plain, iters=3),
-               stream + fac + 2 * part_b + M * 4 + out_b)]
+               _ms(m, k2_plain, iters=3), stream + fac + part_b + split_b)]
 
 
 def time_recursive(m, at, factors, mp, launches) -> dict:
@@ -1568,8 +1650,8 @@ def carry_split(m, at, p, fs, modes, label: str, apr_res=None) -> dict:
 
 
 NEW_KERNELS = ("mttkrp_carry_runs_kernel", "carry_fixup_tiles_kernel",
-               "delinearize_tiles_kernel", "mttkrp_partials_smem_kernel",
-               "phi_carry_runs_kernel")
+               "segment_split_kernel", "delinearize_tiles_kernel",
+               "mttkrp_partials_smem_kernel", "phi_carry_runs_kernel")
 
 
 def stack_frames(build) -> dict:
@@ -1596,10 +1678,10 @@ def stack_frames(build) -> dict:
 
 
 def check_stack_frames(build) -> dict:
-    """Every instantiation of the kernels the last two slices redesigned
-    (K1's runs pass, the fix-up walk, K4, K3, and the runs pass K5, K6 and
-    K9 share) has a 0-byte stack frame (a register array indexed at run
-    time would put it on the stack)."""
+    """Every instantiation of the redesigned kernels (the runs pass K1, K2
+    and K8 share, the fix-up walk, the split, K4, K3, and the runs pass K5,
+    K6 and K9 share) has a 0-byte stack frame (a register array indexed
+    at run time would put it on the stack)."""
     frames = stack_frames(build)
     new = {k: v[0] for k, v in frames.items()
            if any(n in k for n in NEW_KERNELS)}

@@ -44,8 +44,10 @@ SIGNATURES = {
         "alto_carry_runs": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                                     _I, _P, _P, _P, _P],
         "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _I, _P, _P],
-        "alto_oriented_partials": _ALTO + [_P, _P, _P, _L, _L, _I, _I, _P,
-                                           _P],
+        "alto_oriented_partials": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I,
+                                           _I, _I, _P, _P],
+        "alto_segment_split": [_P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P,
+                               _P, _P],
         "alto_carry_chunk": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                                      _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
@@ -71,10 +73,10 @@ SIGNATURES = {
     },
 }
 
-KERNELS = ("carry_runs", "carry_fixup", "oriented_partials",
-           "recursive_partials", "delinearize", "phi_carry_runs",
-           "phi_oriented_partials", "phi_partials", "carry_chunk",
-           "phi_carry_chunk")
+KERNELS = ("carry_runs", "carry_fixup", "segment_split",
+           "oriented_partials", "recursive_partials", "delinearize",
+           "phi_carry_runs", "phi_oriented_partials", "phi_partials",
+           "carry_chunk", "phi_carry_chunk")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 ELEMENTS = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)

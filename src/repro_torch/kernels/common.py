@@ -161,10 +161,6 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def slices_per_cta(threads: int, r_block: int) -> int:
-    return max(1, threads // r_block)
-
-
 def cta_threads(threads: int) -> int:
     """``threads`` rounded up to whole warps, at least one, at most 1024."""
     return min(1024, max(32, -(-threads // 32) * 32))

@@ -1,5 +1,6 @@
-// ALTO word decode and the per-nonzero MTTKRP contribution, shared by the
-// hand-written MTTKRP kernels (mttkrp_oriented.cu, mttkrp.cu).
+// ALTO word decode, shared by the hand-written kernels: the BitRun chain
+// (alto_coord, the definition) and the byte tables the kernels decode
+// through (alto_coord_table).
 //
 // Replaces the Pallas helper `_decode` (src/repro/kernels/mttkrp.py:36),
 // which every TPU kernel inlines: a static shift/mask/or chain per BitRun
@@ -100,23 +101,4 @@ __device__ __forceinline__ int alto_coord_table(const AltoArgs& a,
          __ldg(t + 512 + ((x >> 16) & 255u)) | __ldg(t + 768 + (x >> 24));
   }
   return static_cast<int>(c);
-}
-
-// values[i] * prod_{m != mode} factors[m][coord_m(i), r]
-__device__ __forceinline__ float alto_contrib(const AltoArgs& a,
-                                             const uint32_t* words,
-                                             const float* values, int64_t i,
-                                             int r) {
-  const uint32_t* w = words + i * a.nwords;
-  float krp = 1.0f;
-  bool first = true;
-  for (int m = 0; m < a.ndim; ++m) {
-    if (m == a.mode) continue;
-    const float f =
-        __ldg(a.factors[m] + static_cast<int64_t>(alto_coord(a, w, m)) *
-                                 a.rank + r);
-    krp = first ? f : __fmul_rn(krp, f);
-    first = false;
-  }
-  return __fmul_rn(__ldg(values + i), krp);
 }

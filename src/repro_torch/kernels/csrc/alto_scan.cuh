@@ -1,9 +1,10 @@
 // The stream traversals of the MTTKRP kernels:
-//   mttkrp_carry_runs_kernel     K1 (MTTKRP) runs pass; K8 on one chunk
+//   mttkrp_carry_runs_kernel     K1 (MTTKRP) runs pass; K8 on one chunk;
+//                                K2 (MTTKRP) with a pointer to the slots
 //   mttkrp_partials_smem_kernel  K3 (MTTKRP), one CTA per ALTO partition
-//   oriented_partials_kernel     K2 (MTTKRP), a thread per rank column
 // (The Φ routes, K5, K6, K7 and K9, have their sub-warp traversals in
-// phi_scan.cuh; the carry route's fix-up is carry_fixup.cuh.)
+// phi_scan.cuh; the carry route's fix-up is carry_fixup.cuh and
+// segment_merge's split segment_split.cuh.)
 //
 // K1's runs pass replaces the sequential scan of mttkrp_oriented_carry_pallas
 // (src/repro/kernels/mttkrp_oriented.py:358; body :333, _carry_step :254).
@@ -19,6 +20,17 @@
 // flight; the thread-per-column walk it replaces decoded every nonzero
 // once per rank column with one nonzero in flight.
 //
+// K2 replaces mttkrp_oriented_partials_pallas (src/repro/kernels/
+// mttkrp_oriented.py:132), which sums each block's runs through a one-hot
+// (block_m x block_m) matmul. It is K1's runs pass in its slot layout
+// (the flag SLOTS) over the (n_blocks, block_m, R) slots: a finished run
+// goes to the slice's next slot instead of out or the carries, the unused
+// slots get zeros, and no gap zeros are stored — as K6 is K5's pass
+// (phi_carry_runs_kernel).
+// Every slot is written, so the wrapper allocates the slots unzeroed. It
+// moves the M·R·4 bytes of slots on top of K1's traffic, and ops.
+// segment_merge reads the used ones back (segment_split.cuh).
+//
 // K3 (mttkrp_partials_smem_kernel) replaces mttkrp_partials_pallas
 // (src/repro/kernels/mttkrp.py:75), which scatters a partition into its
 // Temp through a one-hot (chunk x temp_rows) matmul. It is K7's form
@@ -28,31 +40,16 @@
 // K1's lanes and loads, then each Temp row adds its tile terms in stream
 // order. Every Temp entry is stored once, at the end of its window.
 //
-// K2 keeps a thread per rank column of one block_m slice walking it in
-// stream order, generic in a Term functor `float operator()(a, words,
-// values, i, row, r)` (`MttkrpTerm` below): threadIdx.x is the column
-// inside the rank tile, threadIdx.y the slice inside the CTA, blockIdx.y
-// the rank tile. One nonzero in flight per thread keeps it latency bound.
-//
 // Summation order, shared by all: a run or a Temp entry sums its terms in
 // stream order, from 0.0, with __fadd_rn; a term is the other modes'
 // factor entries multiplied in increasing mode order, then by the value,
-// all __fmul_rn (MttkrpTerm, mttkrp_subwarp_terms). So K1 ≡ K2 +
-// segment_merge bit for bit, and K3 equals its plain version.
+// all __fmul_rn (mttkrp_subwarp_terms). K1 and K2 run the same loop, so
+// K1 ≡ K2 + segment_merge bit for bit, and K3 equals its plain version.
 #pragma once
 
 #include "alto_decode.cuh"
 
 namespace {
-
-struct MttkrpTerm {
-  __device__ __forceinline__ float operator()(const AltoArgs& a,
-                                              const uint32_t* words,
-                                              const float* values, int64_t i,
-                                              int /*row*/, int r) const {
-    return alto_contrib(a, words, values, i, r);
-  }
-};
 
 // K1's lanes: lane l of a sub-warp holds columns l·COLS + c of the rank
 // tile, contiguous, so its four columns move as one float4 where the rows
@@ -103,8 +100,9 @@ __device__ __forceinline__ void store_cols(float* p, int rb, int lane,
   }
 }
 
-// Rows [r0, r1) of out get zeros in this rank tile's columns: the rows
-// the stream skips, which K1 owns because its wrapper does not zero out.
+// Rows [r0, r1) of out (row stride R) get zeros in this rank tile's
+// columns: the rows the stream skips, which K1 owns because its wrapper
+// does not zero out, or K2's unused slots.
 template <int COLS>
 __device__ __forceinline__ void zero_rows(float* out, int64_t r0, int64_t r1,
                                           int R, int rb, int lane,
@@ -120,8 +118,9 @@ __device__ __forceinline__ void zero_rows(float* out, int64_t r0, int64_t r1,
 // live[u]): term[u][c] for column col0 + lane·COLS + c. The words are
 // decoded through the byte tables; each lane gathers its own factor
 // entries, so a factor row is read once, a float4 a lane.
-// Rounding is MttkrpTerm's: the other modes' entries multiplied in
-// increasing mode order, then scaled by the value, all __fmul_rn.
+// Rounding: the other modes' entries multiplied in increasing mode
+// order, then scaled by the value, all __fmul_rn (core.mttkrp.
+// contributions, the plain versions' terms).
 template <int COLS, int U>
 __device__ __forceinline__ void mttkrp_subwarp_terms(
     const AltoArgs& a, const uint32_t* __restrict__ words,
@@ -159,28 +158,36 @@ __device__ __forceinline__ void mttkrp_subwarp_terms(
     for (int c = 0; c < COLS; ++c) term[u][c] = __fmul_rn(v[u], term[u][c]);
 }
 
-// K1's runs pass (and K8's, over one chunk): a sub-warp of W lanes per
-// block_m slice, lane l on columns col0 + l·COLS + c of the rank tile
-// blockIdx.y, U nonzeros in flight. Every run that begins and ends inside
-// the slice goes straight to out (that row has no other nonzeros); the
-// slice's first and last runs go, with their rows, to the carries buffer
-// (n_blocks, 2, R), row -1 in slot 1 when one run covers the slice. Each
-// column sums its run in stream order from 0.0 with __fadd_rn.
-//
-// With zero_gaps (K1) the pass also stores zeros to the rows the stream
-// skips: rows strictly between two consecutive distinct rows (by the
-// slice holding the later one; slice b reads rows[s - 1]), rows below the
-// first row (slice 0) and above the last (the last slice). With the fix-up
-// storing the pieces' rows, every row of out is written exactly once and
-// the wrapper allocates out without zeroing it. K8 (zero_gaps false) adds
-// into a running out that its executor zeroes once.
-template <int W, int COLS, int U>
+// K1's runs pass (and K8's, over one chunk; K2's into slots): a
+// sub-warp of W lanes per block_m slice, lane l on columns col0 + l·COLS +
+// c of the rank tile blockIdx.y, U nonzeros in flight. Each column sums
+// its run in stream order from 0.0 with __fadd_rn. Two layouts of the run
+// sums:
+//  * carry (K1, K8): every run that begins and ends
+//    inside the slice goes straight to out (that row has no other
+//    nonzeros); the slice's first and last runs go, with their rows, to
+//    the carries buffer (n_blocks, 2, R), row -1 in slot 1 when one run
+//    covers the slice. With zero_gaps (K1) the pass also stores zeros to
+//    the rows the stream skips: rows strictly between two consecutive
+//    distinct rows (by the slice holding the later one; slice b reads
+//    rows[s - 1]), rows below the first row (slice 0) and above the last
+//    (the last slice). With the fix-up storing the pieces' rows, every row
+//    of out is written exactly once and the wrapper allocates out without
+//    zeroing it. K8 (zero_gaps false) adds into a running out that its
+//    executor zeroes once.
+//  * SLOTS (K2): slot j of the slice's block_m slots in partials
+//    (n_blocks, block_m, R) gets the slice's j-th run, the unused slots
+//    zeros: the JAX partials layout that ops.segment_merge reads.
+// The layout is a template flag, so K1's instantiations carry none of the
+// slot layout's registers.
+template <int W, int COLS, int U, bool SLOTS>
 __global__ void mttkrp_carry_runs_kernel(
     const __grid_constant__ AltoArgs a, const int* __restrict__ rows,
     const uint32_t* __restrict__ words, const float* __restrict__ values,
     int64_t block_m, int64_t n_blocks, int r_block, int n_rows,
     bool zero_gaps, bool vec4, float* __restrict__ out,
-    int* __restrict__ carry_row, float* __restrict__ carry_val) {
+    int* __restrict__ carry_row, float* __restrict__ carry_val,
+    float* __restrict__ partials) {
   const int lane = threadIdx.x % W;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / W) +
                     threadIdx.x / W;
@@ -191,6 +198,7 @@ __global__ void mttkrp_carry_runs_kernel(
   const bool writes_rows = lane == 0 && blockIdx.y == 0;
   const int64_t s = b * block_m;
   const int64_t e = s + block_m;
+  float* const slots = SLOTS ? partials + s * R + col0 : nullptr;
   int cur = __ldg(rows + s);
   if (zero_gaps)
     zero_rows<COLS>(out0, b == 0 ? 0 : __ldg(rows + s - 1) + 1, cur, R,
@@ -198,7 +206,8 @@ __global__ void mttkrp_carry_runs_kernel(
   float acc[COLS];
 #pragma unroll
   for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
-  bool first = true;
+  bool first = true;                   // carry: no run closed yet
+  int64_t j = 0;                       // SLOTS: runs closed so far
   for (int64_t i0 = s; i0 < e; i0 += U) {
     int64_t idx[U];
     bool live[U];
@@ -217,7 +226,10 @@ __global__ void mttkrp_carry_runs_kernel(
       if (!live[u]) break;
       if (row[u] != cur) {
         float* dst;
-        if (first) {
+        if constexpr (SLOTS) {
+          dst = slots + j * R;
+          ++j;
+        } else if (first) {
           if (writes_rows) carry_row[2 * b] = cur;
           dst = carry_val + (2 * b) * R + col0;
           first = false;
@@ -235,24 +247,29 @@ __global__ void mttkrp_carry_runs_kernel(
       for (int c = 0; c < COLS; ++c) acc[c] = __fadd_rn(acc[c], term[u][c]);
     }
   }
-  if (writes_rows) {
-    if (first) {
-      carry_row[2 * b] = cur;
-      carry_row[2 * b + 1] = -1;
-    } else {
-      carry_row[2 * b + 1] = cur;
+  if constexpr (SLOTS) {
+    store_cols<COLS>(slots + j * R, r_block, lane, vec4, acc);
+    zero_rows<COLS>(slots, j + 1, block_m, R, r_block, lane, vec4);
+  } else {
+    if (writes_rows) {
+      if (first) {
+        carry_row[2 * b] = cur;
+        carry_row[2 * b + 1] = -1;
+      } else {
+        carry_row[2 * b + 1] = cur;
+      }
     }
-  }
-  store_cols<COLS>(carry_val + (first ? 2 * b : 2 * b + 1) * R + col0,
-                   r_block, lane, vec4, acc);
-  if (first) {
+    store_cols<COLS>(carry_val + (first ? 2 * b : 2 * b + 1) * R + col0,
+                     r_block, lane, vec4, acc);
+    if (first) {
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
-    store_cols<COLS>(carry_val + (2 * b + 1) * R + col0, r_block, lane,
-                     vec4, acc);
+      for (int c = 0; c < COLS; ++c) acc[c] = 0.0f;
+      store_cols<COLS>(carry_val + (2 * b + 1) * R + col0, r_block, lane,
+                       vec4, acc);
+    }
+    if (zero_gaps && b == n_blocks - 1)
+      zero_rows<COLS>(out0, cur + 1, n_rows, R, r_block, lane, vec4);
   }
-  if (zero_gaps && b == n_blocks - 1)
-    zero_rows<COLS>(out0, cur + 1, n_rows, R, r_block, lane, vec4);
 }
 
 // Shared memory of one recursive-traversal CTA (K3, K7): the Temp window
@@ -406,71 +423,6 @@ int k1_lane_dispatch(int lanes, int cols, const Args& args) {
   if (lanes == 8 && cols == 4) return L<8, 4>::run(args);
   if (lanes == 32 && cols == 4) return L<32, 4>::run(args);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// K2: slot j of slice b = the sum of the slice's j-th run, zeros in
-// unused slots: the JAX partials layout.
-template <class Term>
-__global__ void oriented_partials_kernel(
-    const __grid_constant__ AltoArgs a, const Term term,
-    const int* __restrict__ rows, const uint32_t* __restrict__ words,
-    const float* __restrict__ values, int64_t block_m, int64_t n_blocks,
-    int r_block, float* __restrict__ partials) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.y +
-                    threadIdx.y;
-  if (b >= n_blocks) return;
-  const int R = a.rank;
-  const int r = blockIdx.y * r_block + threadIdx.x;
-  float* pb = partials + b * block_m * R + r;
-  const int64_t s = b * block_m;
-  const int64_t e = s + block_m;
-  int cur = __ldg(rows + s);
-  float acc = 0.0f;
-  int64_t j = 0;
-  for (int64_t i = s; i < e; ++i) {
-    const int row = __ldg(rows + i);
-    if (row != cur) {
-      pb[j * R] = acc;
-      ++j;
-      cur = row;
-      acc = 0.0f;
-    }
-    acc = __fadd_rn(acc, term(a, words, values, i, row, r));
-  }
-  pb[j * R] = acc;
-  for (++j; j < block_m; ++j) pb[j * R] = 0.0f;
-}
-
-inline dim3 grid_for(int64_t n, int slices_per_cta, int rank, int r_block) {
-  return dim3(static_cast<unsigned>((n + slices_per_cta - 1) /
-                                    slices_per_cta),
-              static_cast<unsigned>(rank / r_block));
-}
-
-inline bool bad_tiling(int rank, int r_block, int slices_per_cta) {
-  return r_block < 1 || rank % r_block != 0 || slices_per_cta < 1 ||
-         r_block * slices_per_cta > 1024;
-}
-
-template <class Term>
-int launch_oriented_partials(const AltoArgs& a, const Term& term,
-                             const void* rows, const void* words,
-                             const void* values, long long block_m,
-                             long long n_blocks, int r_block,
-                             int slices_per_cta, void* partials,
-                             void* stream) {
-  if (bad_tiling(a.rank, r_block, slices_per_cta) || block_m < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_blocks == 0) return 0;
-  oriented_partials_kernel<Term>
-      <<<grid_for(n_blocks, slices_per_cta, a.rank, r_block),
-         dim3(r_block, slices_per_cta), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          a, term, static_cast<const int*>(rows),
-          static_cast<const uint32_t*>(words),
-          static_cast<const float*>(values), block_m, n_blocks, r_block,
-          static_cast<float*>(partials));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

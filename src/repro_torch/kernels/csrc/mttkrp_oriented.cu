@@ -1,6 +1,6 @@
 // Output-oriented MTTKRP on Hopper: the carry kernel (K1: runs pass and
-// fix-up walk), the per-block partials kernel (K2), and the out-of-core
-// chunk kernel (K8).
+// fix-up walk), the per-block partials kernel (K2), the split of
+// segment_merge, and the out-of-core chunk kernel (K8).
 //
 // Replaces, in src/repro/kernels/mttkrp_oriented.py:
 //   K1  mttkrp_oriented_carry_pallas (:358; body _mttkrp_carry_kernel :333,
@@ -12,7 +12,8 @@
 //       _mttkrp_carry_chunk_kernel :511) — K1 over one chunk of a
 //       host-resident stream, the running out and the open run carried in
 //       and out (carry_chunk.cuh: K1's runs pass + the chunk fix-up);
-// and the boundary merge ops.segment_merge (src/repro/kernels/ops.py:171).
+// and the boundary merge ops.segment_merge (src/repro/kernels/ops.py:171,
+// a jnp scatter-add, not a Pallas kernel).
 //
 // Design. The input is the row-sorted stream of one mode (rows, words,
 // values), padded to a multiple of block_m. Blocks of the stream run in
@@ -30,25 +31,28 @@
 //     leaves the tile walked on 32 steps a window. Deterministic, no
 //     float atomics. So every row of out is written
 //     exactly once, and K1's wrapper allocates out without a memset.
-//   * K2 writes slot j of block b = the sum of the block's j-th run (zeros
-//     in unused slots), the JAX partials layout, a thread per rank column;
-//     the port's segment_merge stores the inner runs and sends the
-//     first/last runs through the same fix-up. K1 and K2 + segment_merge
-//     add the same terms in the same order and agree bit for bit.
+//   * K2 is the same runs pass in its slot layout (SLOTS): slot j of
+//     block b gets the block's j-th run, the unused slots zeros (the JAX
+//     partials layout). The port's segment_merge splits the slots on the
+//     card (segment_split.cuh: inner runs and gap zeros to out, the first
+//     and last runs to the carries) and sends the carries through the same
+//     fix-up. K1 and K2 + segment_merge add the same terms in the same
+//     order and agree bit for bit.
 // The fix-up also finishes the Φ carry route (K5) and, with one slot per
 // piece, the deterministic pull reduction (ops.pull_reduction).
 //
 // What bounds it on an H100: bytes. Each nonzero reads its row (4 B), its
 // words (4·W B), its value (4 B) and one factor row of each other mode
 // (gathers, mostly from L2 when the factors fit in 50 MB); out is written
-// once. K2 also writes the (M, R) partials that the merge reads back — the
-// round trip the carry design removes.
+// once. K2 also writes the (M, R) partials, of which the split reads the
+// used slots back — the round trip the carry design removes.
 #include "alto_scan.cuh"
 #include "carry_chunk.cuh"
+#include "segment_split.cuh"
 
 namespace {
 
-struct CarryRunsArgs {     // the operands of K1's runs pass (and K8's)
+struct CarryRunsArgs {     // the operands of K1's runs pass (K8's, K2's)
   AltoArgs a;              // a.dtab: the byte decode tables
   const int* rows;
   const uint32_t* words;
@@ -61,15 +65,17 @@ struct CarryRunsArgs {     // the operands of K1's runs pass (and K8's)
   float* out;
   int* carry_row;
   float* carry_val;
+  float* partials;         // K2's slots, else null
   cudaStream_t stream;
 };
 
-// Rows of the factors, out and the carries start on 16 bytes in the rank
+// Rows of the factors, out, the carries and the slots start on 16 bytes in the rank
 // tile: a lane's four columns may move as one float4.
 inline bool aligned4(const CarryRunsArgs& p) {
   bool ok = p.a.rank % 4 == 0 && p.r_block % 4 == 0 &&
             reinterpret_cast<uintptr_t>(p.out) % 16 == 0 &&
-            reinterpret_cast<uintptr_t>(p.carry_val) % 16 == 0;
+            reinterpret_cast<uintptr_t>(p.carry_val) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(p.partials) % 16 == 0;
   for (int m = 0; m < p.a.ndim; ++m)
     ok = ok && reinterpret_cast<uintptr_t>(p.a.factors[m]) % 16 == 0;
   return ok;
@@ -82,11 +88,18 @@ struct MttkrpCarryRunsLaunch {
     const dim3 grid(
         static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta),
         static_cast<unsigned>(p.a.rank / p.r_block));
-    mttkrp_carry_runs_kernel<W, COLS, K1_UNROLL>
-        <<<grid, p.threads, 0, p.stream>>>(
-            p.a, p.rows, p.words, p.values, p.block_m, p.n_blocks,
-            p.r_block, p.n_rows, p.zero_gaps, aligned4(p), p.out, p.carry_row,
-            p.carry_val);
+    if (p.partials != nullptr)
+      mttkrp_carry_runs_kernel<W, COLS, K1_UNROLL, true>
+          <<<grid, p.threads, 0, p.stream>>>(
+              p.a, p.rows, p.words, p.values, p.block_m, p.n_blocks,
+              p.r_block, p.n_rows, p.zero_gaps, aligned4(p), p.out,
+              p.carry_row, p.carry_val, p.partials);
+    else
+      mttkrp_carry_runs_kernel<W, COLS, K1_UNROLL, false>
+          <<<grid, p.threads, 0, p.stream>>>(
+              p.a, p.rows, p.words, p.values, p.block_m, p.n_blocks,
+              p.r_block, p.n_rows, p.zero_gaps, aligned4(p), p.out,
+              p.carry_row, p.carry_val, p.partials);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -200,21 +213,57 @@ int alto_carry_chunk(const int64_t* factor_ptrs, const int* runs, int n_runs,
                                   out, cout_row, cout_val, p.stream);
 }
 
-// K2. partials is (n_blocks, block_m, rank); every slot is written.
+// K2: K1's runs pass into the slots partials (n_blocks, block_m, rank):
+// slot j of slice b the slice's j-th run, zeros in the unused slots (every
+// slot is written). dtab, (lanes, cols), threads: as alto_carry_runs.
 int alto_oriented_partials(const int64_t* factor_ptrs, const int* runs,
                            int n_runs, int ndim, int nwords, int mode,
                            int rank, const void* rows, const void* words,
-                           const void* values, long long block_m,
-                           long long n_blocks, int r_block,
-                           int slices_per_cta, void* partials,
+                           const void* values, const void* dtab,
+                           long long block_m, long long n_blocks, int r_block,
+                           int lanes, int cols, int threads, void* partials,
                            void* stream) {
-  AltoArgs a;
-  if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+  CarryRunsArgs p{};
+  if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
+                      rank) || partials == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_oriented_partials(a, MttkrpTerm{}, rows, words, values,
-                                  block_m, n_blocks, r_block, slices_per_cta,
-                                  partials, stream);
+  p.a.dtab = static_cast<const uint32_t*>(dtab);
+  p.rows = static_cast<const int*>(rows);
+  p.words = static_cast<const uint32_t*>(words);
+  p.values = static_cast<const float*>(values);
+  p.block_m = block_m;
+  p.n_blocks = n_blocks;
+  p.r_block = r_block;
+  p.zero_gaps = false;
+  p.threads = threads;
+  p.partials = static_cast<float*>(partials);
+  p.stream = static_cast<cudaStream_t>(stream);
+  return launch_mttkrp_carry_runs(lanes, cols, p);
+}
+
+// segment_merge's split: the slots partials (n_blocks, block_m, rank) of
+// the padded stream `rows` -> inner runs and the zeros of skipped rows
+// into out (n_rows, rank), the slices' first and last runs into the
+// carries (segment_split.cuh); a warp per slice, sub-warps of the lane map
+// (lanes, cols), CTAs of `threads` (whole warps).
+int alto_segment_split(const void* partials, const void* rows,
+                       long long block_m, long long n_blocks, int rank,
+                       int lanes, int cols, int threads, int n_rows,
+                       void* out, void* carry_row, void* carry_val,
+                       void* stream) {
+  SplitArgs p{};
+  p.partials = static_cast<const float*>(partials);
+  p.rows = static_cast<const int*>(rows);
+  p.block_m = block_m;
+  p.n_blocks = n_blocks;
+  p.R = rank;
+  p.n_rows = n_rows;
+  p.threads = threads;
+  p.out = static_cast<float*>(out);
+  p.carry_row = static_cast<int*>(carry_row);
+  p.carry_val = static_cast<float*>(carry_val);
+  p.stream = static_cast<cudaStream_t>(stream);
+  return launch_segment_split(lanes, cols, p);
 }
 
 }  // extern "C"

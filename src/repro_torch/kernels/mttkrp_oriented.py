@@ -23,7 +23,15 @@ a maximal stretch of equal rows inside one slice.
   ``csrc/carry_fixup.cuh``). With the runs pass, every row of K1's
   ``out`` is written exactly once.
 * `oriented_partials` (K2): slot ``j`` of slice ``b`` holds the sum of the
-  slice's ``j``-th run, zeros elsewhere — the JAX partials layout.
+  slice's ``j``-th run, zeros elsewhere — the JAX partials layout. On the
+  card it is K1's runs pass storing each finished run to the slice's next
+  slot (K1's lane map and loads), every slot written.
+* `segment_split`: the first half of `ops.segment_merge` — slots -> the
+  inner runs in ``out`` and the first and last runs in K1's carries, for
+  `carry_fixup`. On the card a warp per slice stores, as K1's runs pass
+  does, every row but the carried ones (inner runs and the zeros of the
+  rows the stream skips), so ``out`` needs no zeroing first; its plain
+  version is `split_block_runs`.
 * `phi_carry_runs` (K5) and `phi_oriented_partials` (K6): the same two
   traversals summing the Φ term (`core.mttkrp.phi_contributions`) in
   place of the MTTKRP term, over the whole rank (``r_block == R``). On
@@ -143,6 +151,13 @@ def split_block_runs(partials: torch.Tensor, rows: torch.Tensor,
         [partials[:, 0], torch.where(many[:, None], partials[b, last], 0.0)],
         dim=1)
     return out, carry_row.contiguous(), carry_val.contiguous()
+
+
+def segment_split_plain(partials: torch.Tensor, rows: torch.Tensor,
+                        out_dim: int):
+    """Plain version of the split kernel: `split_block_runs` into zeros."""
+    _build.count_plain("segment_split", rows)
+    return split_block_runs(partials, rows, out_dim)
 
 
 def carry_runs_plain(enc: AltoEncoding, mode: int, rows, words, values,
@@ -347,27 +362,69 @@ def mttkrp_oriented_carry(enc: AltoEncoding, mode: int, rows, words, values,
 def oriented_partials(enc: AltoEncoding, mode: int, rows, words, values,
                       factors, block_m: int = DEFAULT_BLOCK_M,
                       r_block: int | None = None,
-                      threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K2: per-slice run sums (n_blocks, block_m, R)."""
+                      threads: int = DEFAULT_THREADS,
+                      out=None) -> torch.Tensor:
+    """K2: per-slice run sums (n_blocks, block_m, R), into ``out`` when
+    given (every slot is overwritten). On the card K1's runs pass in rank
+    tiles of ``r_block`` (default `common.rank_tile`) stores the slice's
+    j-th run sum to slot j and zeros to the unused slots; ``threads`` is
+    the CTA size."""
     factors = list(factors)
-    rb = r_block or factors[0].shape[1]
+    rb = r_block or common.rank_tile(factors[0].shape[1])
     M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
-    if not common.on_cuda(rows, words, values, *factors):
-        return oriented_partials_plain(enc, mode, rows, words, values,
-                                       factors, block_m)
+    lanes, cols = lane_map(rb)
     nb = M // block_m
-    partials = torch.empty((nb, block_m, R), dtype=torch.float32,
-                           device=rows.device)
+    if out is not None:
+        common.check_tensor(out, "out", torch.float32, (nb, block_m, R))
+    if not common.on_cuda(rows, words, values, *factors,
+                          *([] if out is None else [out])):
+        plain = oriented_partials_plain(enc, mode, rows, words, values,
+                                        factors, block_m)
+        return plain if out is None else out.copy_(plain)
+    if out is None:
+        out = torch.empty((nb, block_m, R), dtype=torch.float32,
+                          device=rows.device)
     keep, args = common.alto_args(enc, mode, factors, R)
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_oriented_partials(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
-        block_m, nb, rb, common.slices_per_cta(threads, rb),
-        partials.data_ptr(), common.stream_ptr(rows))
+        common.decode_table(enc, rows.device).data_ptr(), block_m, nb, rb,
+        lanes, cols, common.cta_threads(threads), out.data_ptr(),
+        common.stream_ptr(rows))
     del keep
     _build.check(status, "alto_oriented_partials")
     _build.count_launch("oriented_partials", M)
-    return partials
+    return out
+
+
+def segment_split(partials, rows, out_dim: int,
+                  threads: int = DEFAULT_THREADS, out=None):
+    """Per-slice run sums -> ``(out with the inner runs, carry_row,
+    carry_val)``, the hand-off to `carry_fixup` (K1's carries layout). On
+    the card ``out`` (``torch.empty`` unless given) gets every row except
+    the carried pieces' rows, which `carry_fixup` stores; ``threads`` is
+    the CTA size (a warp per slice)."""
+    nb, bm, R = partials.shape
+    common.check_tensor(partials, "partials", torch.float32, (nb, bm, R))
+    common.check_tensor(rows, "rows", torch.int32, (nb * bm,))
+    if out is not None:
+        common.check_tensor(out, "out", torch.float32, (out_dim, R))
+    if not common.on_cuda(partials, rows, *([] if out is None else [out])):
+        return _runs_into(segment_split_plain(partials, rows, out_dim), out)
+    if out is None:
+        out = torch.empty((out_dim, R), dtype=torch.float32,
+                          device=rows.device)
+    carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
+    carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
+                            device=rows.device)
+    lanes, cols = lane_map(common.rank_tile(R))
+    status = _build.library("mttkrp_oriented").alto_segment_split(
+        partials.data_ptr(), rows.data_ptr(), bm, nb, R, lanes, cols,
+        common.cta_threads(threads), out_dim, out.data_ptr(),
+        carry_row.data_ptr(), carry_val.data_ptr(), common.stream_ptr(rows))
+    _build.check(status, "alto_segment_split")
+    _build.count_launch("segment_split", nb * bm)
+    return out, carry_row, carry_val
 
 
 def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,

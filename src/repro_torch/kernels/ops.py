@@ -72,13 +72,15 @@ def segment_merge(partials: torch.Tensor, rows: torch.Tensor,
                   threads: int = _oriented.DEFAULT_THREADS) -> torch.Tensor:
     """Scatter per-slice run sums to global rows, merging boundary runs.
 
-    Inner runs are stored to their rows (distinct rows, so the store is
-    deterministic); each slice's first and last runs go through K1's
-    fix-up, which adds a row's pieces in block order. No PyTorch scatter
-    guarantees that order on the card, hence the kernel.
+    `mttkrp_oriented.segment_split` stores the inner runs to their rows
+    (distinct rows, so the store is deterministic) and the zeros of the
+    rows the stream skips; each slice's first and last runs go through
+    K1's fix-up, which adds a row's pieces in block order and stores the
+    row. No PyTorch scatter guarantees that order on the card, hence the
+    kernels; between them they write every row of the output once.
     """
-    out, carry_row, carry_val = _oriented.split_block_runs(partials, rows,
-                                                           out_dim)
+    out, carry_row, carry_val = _oriented.segment_split(partials, rows,
+                                                        out_dim, threads)
     return _oriented.carry_fixup(carry_row, carry_val, out, threads=threads)
 
 

@@ -223,6 +223,7 @@ def test_plain_versions_do_not_count_on_cpu(pair):
     tops.mttkrp(at, tf, 0)
     tops.mttkrp_oriented_carry(talto.oriented_view_device(at, 1), tf,
                                block_m=8)
+    tops.mttkrp_oriented(talto.oriented_view_device(at, 2), tf, block_m=8)
     c = _build.counts()
     assert set(c["launches"].values()) == {0}
     assert set(c["plain_on_cuda"].values()) == {0}

@@ -49,6 +49,7 @@ from repro_torch.kernels import mttkrp_oriented as tori
 from repro_torch.kernels import ops as tops
 from repro_torch.sparse import synthetic as tsyn
 from repro_torch.sparse.tensor import SparseTensor
+from torch_mirrors import runs_pass_mirror
 
 CSRC = (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "kernels" / "csrc")
@@ -291,62 +292,6 @@ def test_kernels_size_shared_memory_by_the_shared_rule():
 # 4. The Φ runs pass: K6's slots and K5's write set
 # ---------------------------------------------------------------------------
 
-def runs_pass_mirror(terms, rows, block_m, n_rows, partials: bool):
-    """What ``phi_carry_runs_kernel`` stores, slice by slice: each run sums
-    its terms in stream order from 0.0. ``partials`` (K6): slot j of the
-    slice gets its j-th run, zeros the unused slots. Else (K5): inner runs
-    to ``out`` (NaN-filled before), zeros to the rows the stream skips,
-    the first and last runs to the carries; with the count of stores of
-    each output row."""
-    M, R = terms.shape
-    nb = M // block_m
-    slots = torch.full((nb, block_m, R), float("nan"))
-    out = torch.full((n_rows, R), float("nan"))
-    stores = torch.zeros(n_rows, dtype=torch.int64)
-    crow = torch.full((nb, 2), -7, dtype=torch.int32)
-    cval = torch.full((nb, 2, R), float("nan"))
-
-    def zero(r0, r1):
-        out[r0:r1] = 0.0
-        stores[r0:r1] += 1
-    for b in range(nb):
-        s = b * block_m
-        cur = int(rows[s])
-        if not partials:
-            zero(0 if b == 0 else int(rows[s - 1]) + 1, cur)
-        acc = torch.zeros(R)
-        j = 0
-        for i in range(s, s + block_m):
-            if int(rows[i]) != cur:
-                if partials:
-                    slots[b, j] = acc
-                elif j == 0:
-                    crow[b, 0], cval[b, 0] = cur, acc
-                else:
-                    out[cur] = acc
-                    stores[cur] += 1
-                acc = torch.zeros(R)
-                j += 1
-                if not partials:
-                    zero(cur + 1, int(rows[i]))
-                cur = int(rows[i])
-            acc = acc + terms[i]
-        if partials:
-            slots[b, j] = acc
-            slots[b, j + 1:] = 0.0
-            continue
-        if j == 0:
-            crow[b] = torch.tensor([cur, -1])
-            cval[b, 0], cval[b, 1] = acc, 0.0
-        else:
-            crow[b, 1], cval[b, 1] = cur, acc
-        if b == nb - 1:
-            zero(cur + 1, n_rows)
-    if partials:
-        return slots
-    return out, crow, cval, stores
-
-
 @st.composite
 def phi_layouts(draw):
     block_m = draw(st.sampled_from([1, 4, 8, 16]))
@@ -390,7 +335,9 @@ def test_phi_runs_pass_mirror_in_both_layouts(layout):
     args = (enc, 0, EPS, rows, words, values, B)
     terms = tmttkrp.phi_contributions(enc, 0, words, values, rows, B,
                                       eps=EPS, **kw)
-    slots = runs_pass_mirror(terms, rows, block_m, len(counts), True)
+    slots, slot_stores = runs_pass_mirror(terms, rows, block_m, len(counts),
+                                          True)
+    assert bool((slot_stores == 1).all())
     assert torch.equal(slots, tori.phi_oriented_partials_plain(
         *args, **kw, block_m=block_m))
     out, crow, cval, stores = runs_pass_mirror(terms, rows, block_m,
