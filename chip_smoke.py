@@ -63,7 +63,22 @@ sm_90a), then:
    ``split_block_runs`` on DARPA mode 2's slots; K4 under each
    decode route on the whole DARPA stream, one chunk's ragged length,
    lengths 1, 1023 and 1025, and the Chicago stream) and times kernel,
-   plain version and bound, and the pull with its cached order.
+   plain version and bound, and the pull with its cached order;
+10. measures plans, with a plan store in a temporary directory: the
+   MTTKRP tuner at its defaults (what ``make_plan(tune="auto", at=)``
+   runs on a store miss: every mode's list capped at 24 candidates, every
+   traversal family in it) on Chicago's and DARPA's modes (the winner
+   never slower than the static gene; ``tune="force"`` and
+   ``tune="auto"`` then store hits with no timing run) and CP-ALS on each
+   winner (fits
+   within 1e-4 of the static plan's run); the Φ tuner and CP-APR on its
+   winners (log-likelihoods within 1e-5 relative); the budgeted search on
+   DARPA in core and under phase 7's budget, whose streamed CP-ALS fits
+   equal an in-core run of the same tiles bit for bit; then every kernel
+   on the small layouts at ``block_m`` 8 and 1024, ``r_block`` 1, 2 and 4,
+   CTAs of 64 and 256 threads and every tiling the tuners picked, against
+   its plain version, the ops of one ``block_m`` equal bit for bit whatever
+   the ``r_block`` and ``threads``.
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
 instantiation of the redesigned kernels (the runs pass that K1, K2 and K8
@@ -128,8 +143,8 @@ def _imports():
         sys.exit(2)
     sys.path.insert(0, str(ROOT / "src"))
     torch = torch_mod
-    from repro_torch.core import (alto, cpals, cpapr, heuristics, mttkrp, plan,
-                                  stream, views)
+    from repro_torch.core import (alto, autotune, cpals, cpapr, heuristics,
+                                  mttkrp, plan, search, stream, views)
     from repro_torch.kernels import _build, common, ops
     from repro_torch.kernels import cpapr_phi as k7
     from repro_torch.kernels import delinearize as k4
@@ -137,8 +152,9 @@ def _imports():
     from repro_torch.kernels import mttkrp_oriented as kori
     from repro_torch.kernels import ref
     from repro_torch.sparse import synthetic
-    return dict(alto=alto, cpals=cpals, cpapr=cpapr, heuristics=heuristics,
-                mttkrp=mttkrp, plan=plan, build=_build, common=common,
+    return dict(alto=alto, autotune=autotune, cpals=cpals, cpapr=cpapr,
+                heuristics=heuristics, mttkrp=mttkrp, plan=plan,
+                search=search, build=_build, common=common,
                 ops=ops, k3=k3,
                 k4=k4, k7=k7, kori=kori, ref=ref, synthetic=synthetic,
                 stream=stream, views=views)
@@ -372,6 +388,17 @@ def _cpu(x):
     return x.cpu()
 
 
+def _small_layouts(block_m: int) -> dict:
+    """Row multiplicities of the small adversarial run layouts
+    (tests/test_oriented_carry.py), over 29 rows."""
+    rng = np.random.default_rng(block_m)
+    return {"identical": np.eye(29, dtype=np.int64)[3] * (4 * block_m + 3),
+            "distinct": np.ones(29, dtype=np.int64),
+            "boundary_run": rng.integers(0, 3, size=29)
+            + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
+            "mixed": rng.integers(1, 2 * block_m, size=29)}
+
+
 def phase_small(m) -> dict:
     """Adversarial run layouts (tests/test_oriented_carry.py) on the card,
     at ranks 5, `RANK` and 40, each with the whole rank as the rank tile
@@ -385,16 +412,7 @@ def phase_small(m) -> dict:
     for rank, tiles in ((5, (5, 1)), (RANK, (RANK, 4)), (40, (40, 8))):
         per_rank = worst.setdefault(f"R{rank}", {})
         for block_m in (8, 64):
-            rng = np.random.default_rng(block_m)
-            layouts = {
-                "identical": np.eye(29, dtype=np.int64)[3]
-                * (4 * block_m + 3),
-                "distinct": np.ones(29, dtype=np.int64),
-                "boundary_run": rng.integers(0, 3, size=29)
-                + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
-                "mixed": rng.integers(1, 2 * block_m, size=29),
-            }
-            for name, counts in layouts.items():
+            for name, counts in _small_layouts(block_m).items():
                 x = _stream_tensor(counts, dims, seed=block_m)
                 at = m["alto"].build_device(x, n_partitions=4)
                 fs = _factors(dims, seed=block_m, rank=rank)
@@ -596,16 +614,7 @@ def phase_small_phi(m) -> dict:
     for rank in (5, RANK, 40):
         per_rank = worst.setdefault(f"R{rank}", {})
         for block_m in (8, 64):
-            rng = np.random.default_rng(block_m)
-            layouts = {
-                "identical": np.eye(29, dtype=np.int64)[3]
-                * (4 * block_m + 3),
-                "distinct": np.ones(29, dtype=np.int64),
-                "boundary_run": rng.integers(0, 3, size=29)
-                + np.eye(29, dtype=np.int64)[11] * (3 * block_m + 2),
-                "mixed": rng.integers(1, 2 * block_m, size=29),
-            }
-            for name, counts in layouts.items():
+            for name, counts in _small_layouts(block_m).items():
                 x = _stream_tensor(counts, dims, seed=block_m)
                 x.values[:] = np.abs(x.values) + 1.0   # counts are > 0
                 at = m["alto"].build_device(x, n_partitions=4)
@@ -717,10 +726,12 @@ def _chunk_layouts(block_m: int, rng) -> dict:
 
 
 def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
-                        label: str) -> dict:
-    """K8 (policy None) or K9 against its plain version chunk by chunk,
-    chaining the kernel's carry: out and carry value close, carry row
-    equal; a second launch equal bit for bit."""
+                        label: str, r_block: int = 4,
+                        threads: int = 64) -> dict:
+    """K8 (policy None; rank tile ``r_block``) or K9 against its plain
+    version chunk by chunk, CTAs of ``threads``, chaining the kernel's
+    carry: out and carry value close, carry row equal; a second launch
+    equal bit for bit."""
     ops, kori = m["ops"], m["kori"]
     enc, mode = hs.meta.enc, hs.mode
     n = hs.padded_len(block_m)
@@ -736,8 +747,8 @@ def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
         if policy is None:
             args = (enc, mode, rows, words, values, fs)
             got = kori.carry_chunk(*args, out.clone(), crow, cval,
-                                   block_m=block_m, r_block=4, threads=64,
-                                   final=final)
+                                   block_m=block_m, r_block=r_block,
+                                   threads=threads, final=final)
             want = kori.carry_chunk_plain(*args, out.clone(), crow, cval,
                                           block_m, final)
         else:
@@ -745,19 +756,19 @@ def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
                   if policy == "pre" else {"factors": fs})
             args = (enc, mode, 1e-10, rows, words, values, B)
             got = kori.phi_carry_chunk(*args, out.clone(), crow, cval, **kw,
-                                       block_m=block_m, threads=64,
+                                       block_m=block_m, threads=threads,
                                        final=final)
             want = kori.phi_carry_chunk_plain(*args, out.clone(), crow, cval,
                                               **kw, block_m=block_m,
                                               final=final)
         if policy is None:
             again = kori.carry_chunk(*args, out.clone(), crow, cval,
-                                     block_m=block_m, r_block=4, threads=64,
-                                     final=final)
+                                     block_m=block_m, r_block=r_block,
+                                     threads=threads, final=final)
         else:
             again = kori.phi_carry_chunk(*args, out.clone(), crow, cval,
-                                         **kw, block_m=block_m, threads=64,
-                                         final=final)
+                                         **kw, block_m=block_m,
+                                         threads=threads, final=final)
         _sync()
         for a, b, what in zip(got, again, ("out", "carry_row", "carry_val")):
             _check_equal(f"{label} chunk {i} repeat {what}", a, b)
@@ -885,7 +896,8 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
 
 def iteration_split(m, at, p, res, fit: bool = True) -> dict:
     """Seconds of one more sweep on the card (MTTKRPs + dense algebra)
-    and (``fit``) of its host float64 fit, from the run's final state."""
+    and (``fit``) of its float64 fit on the card, up to the fit's copy to
+    the host, from the run's final state."""
     cp = m["cpals"]
     views = m["plan"].build_views(at, p)
     normX2 = float((at.values.double() ** 2).sum())
@@ -897,7 +909,7 @@ def iteration_split(m, at, p, res, fit: bool = True) -> dict:
     if not fit:
         return {"sweep_s": sweep_s}
     t0 = time.perf_counter()
-    cp._fit_host(M, fs, lam, normX2)
+    cp._fit(M, fs, lam, normX2)        # returns a float: synchronized
     return {"sweep_s": sweep_s, "fit_s": time.perf_counter() - t0}
 
 
@@ -1238,6 +1250,314 @@ def phase_chicago_streamed(m, chicago) -> dict:
           f"{sp.n_chunks}; cp_apr equal to the in-core all-carry run")
     return {"chunk_m": sp.chunk_m, "n_chunks": sp.n_chunks,
             "stream_build_s": stream_s, "run": apr, "incore_run": incore}
+
+
+# ---------------------------------------------------------------------------
+# Measured plans: the tuner, the search, and the tilings they pick
+# ---------------------------------------------------------------------------
+
+def _gene(mp) -> dict:
+    return {"traversal": mp.traversal.value, "r_block": mp.r_block,
+            "block_m": mp.block_m, "threads": mp.threads}
+
+
+def _timing(c) -> dict:
+    return {"traversal": c.traversal, "r_block": c.r_block,
+            "block_m": c.block_m, "threads": c.threads,
+            "ms": c.median_s * 1e3, "iqr_ms": c.iqr_s * 1e3}
+
+
+def tune_exhaustive(m, at, label: str, store, objective: str) -> dict:
+    """`autotune.tune_plan` at its defaults — the call `make_plan(...,
+    tune="auto", at=at)` makes on a store miss: every mode's deduped list
+    capped at `DEFAULT_MAX_CANDIDATES`, every traversal family in it. Per
+    mode the static gene, the fastest candidate and the winner (the
+    static gene unless the fastest beats it beyond the noise) with their
+    medians and IQRs and the mode's seconds; then ``tune="force"`` and
+    ``tune="auto"`` are store hits with zero timing runs that return the
+    same plan."""
+    at_mod, ops = m["autotune"], m["ops"]
+    t0 = time.perf_counter()
+    plan, rep = at_mod.tune_plan(at, RANK, objective=objective,
+                                 store_path=store)
+    seconds = time.perf_counter() - t0
+    modes = []
+    for mr, mp in zip(rep.modes, plan.modes):
+        best, static = mr.best, mr.static
+        if best.median_s > static.median_s or (
+                mp.traversal.value, mp.r_block, mp.block_m, mp.threads) != (
+                best.traversal, best.r_block, best.block_m, best.threads):
+            _fail(f"{label} mode {mr.mode}: winner {best} (plan {mp}) "
+                  f"slower than the static gene {static} or not the plan's")
+        fams = {c.traversal for c in mr.candidates}
+        if len(mr.candidates) > 1 and "oriented_carry" not in fams:
+            _fail(f"{label} mode {mr.mode}: no carry candidate in {fams}")
+        modes.append({"mode": mr.mode, "candidates": len(mr.candidates),
+                      "families": sorted(fams), "seconds": mr.seconds,
+                      "static": _timing(static),
+                      "fastest": _timing(mr.fastest),
+                      "winner": _timing(best),
+                      "timings_ms": [
+                          [c.traversal, c.r_block, c.block_m, c.threads,
+                           c.median_s * 1e3, c.iqr_s * 1e3]
+                          for c in mr.candidates]})
+    runs = ops.timing_runs()
+    hits = [m["plan"].make_plan(at.meta, RANK, device=at.device,
+                                tune="force", tune_objective=objective,
+                                store_path=store),
+            m["plan"].make_plan(at.meta, RANK, tune="auto", at=at,
+                                tune_objective=objective, store_path=store)]
+    if ops.timing_runs() != runs or any(h != plan for h in hits):
+        _fail(f"{label}: tune='force'/'auto' after tuning was not a store "
+              f"hit ({ops.timing_runs() - runs} timing runs)")
+    for e in modes:
+        print(f"chip_smoke: {label} mode {e['mode']} ({e['candidates']} "
+              f"candidates of {e['families']}, {e['seconds']:.2f} s): "
+              f"static {e['static']} -> winner {e['winner']} (fastest "
+              f"{e['fastest']})")
+    print(f"chip_smoke: {label}: tuned in {seconds:.1f} s; tune='force' "
+          f"and tune='auto' are store hits with 0 timing runs")
+    return {"plan": plan, "seconds": seconds, "modes": modes}
+
+
+def _relative(a, b) -> float:
+    return max(abs(u - v) / abs(v) for u, v in zip(a, b))
+
+
+def tuned_cp_als(m, at, tuned, static_run, n_iters: int, label: str) -> dict:
+    """CP-ALS on a tuned plan (the counted checks of `run_cp_als`), fits
+    within 1e-4 of the static plan's run from the same start."""
+    run = run_cp_als(m, at, tuned, n_iters, label)
+    err = max(abs(a - b) for a, b in zip(run["fits"], static_run["fits"]))
+    if err > 1e-4:
+        _fail(f"{label}: fits {run['fits']} vs the static plan's "
+              f"{static_run['fits']}")
+    print(f"chip_smoke: {label}: sweep {run['sweep_s'] * 1e3:.3f} ms vs "
+          f"{static_run['sweep_s'] * 1e3:.3f} ms on the static plan; fits "
+          f"within {err:.2e} of the static run")
+    return {**{k: v for k, v in run.items() if k != "res"},
+            "static_sweep_s": static_run["sweep_s"], "fit_diff": err}
+
+
+def tuned_cp_apr(m, at, tuned, static_run, k_max: int, label: str) -> dict:
+    """CP-APR on a Φ-tuned plan, log-likelihoods within 1e-5 relative of
+    the static plan's run."""
+    run = run_cp_apr(m, at, tuned, k_max, label)
+    err = _relative(run["log_likelihoods"], static_run["log_likelihoods"])
+    if err > 1e-5:
+        _fail(f"{label}: log-likelihoods {run['log_likelihoods']} vs the "
+              f"static plan's {static_run['log_likelihoods']}")
+    print(f"chip_smoke: {label}: Φ ms per mode {run['phi_ms_per_mode']} vs "
+          f"{static_run['phi_ms_per_mode']} on the static plan; "
+          f"log-likelihoods within {err:.2e} relative")
+    return {**_apr_detail(run), "static_s_per_outer":
+            static_run["s_per_outer"], "ll_rel_diff": err}
+
+
+def search_darpa(m, darpa, d_str, store) -> dict:
+    """The budgeted search on DARPA in core (12 runs, seed 0; the model
+    warmed by the tuner's samples in the store), then under phase 7's
+    device budget over chunk_m, block_m and the rank tile; the searched
+    streaming plan's CP-ALS fits equal an in-core run of the same tiles
+    bit for bit."""
+    sr, ops = m["search"], m["ops"]
+    at = darpa["at"]
+    before = ops.timing_runs()
+    t0 = time.perf_counter()
+    plan, rep = sr.search_plan(at, RANK, budget_runs=12, seed=0,
+                               store_path=store)
+    seconds = time.perf_counter() - t0
+    if (rep.runs_used > 12 or ops.timing_runs() - before != rep.runs_used
+            or not rep.model_used):
+        _fail(f"darpa search: {rep.runs_used} runs, counter "
+              f"{ops.timing_runs() - before}, model used {rep.model_used}")
+    print(f"chip_smoke: darpa search: {rep.runs_used} runs in {seconds:.1f} "
+          f"s, model of {rep.model_samples} samples; winners "
+          f"{[dataclasses.asdict(w) for w in rep.winners]}")
+    budget = d_str["device_bytes"]
+    before = ops.timing_runs()
+    t0 = time.perf_counter()
+    ps, srep = sr.search_plan(at, RANK, device_bytes=budget, budget_runs=28,
+                              seed=0, store_path=store)
+    s_seconds = time.perf_counter() - t0
+    if ps.streaming is None or ps.streaming.n_chunks < 2:
+        _fail(f"darpa streaming search gave {ps.streaming}")
+    static_ps = d_str["plan"]
+    hs, _ = _streamed_views(m, at, ps)
+    streamed = run_cp_als(m, at, ps, 2, "darpa cp_als (searched, streamed)")
+    twin = run_cp_als(m, at, dataclasses.replace(ps, streaming=None), 2,
+                      "darpa cp_als (searched tiles, in core)")
+    if streamed["fits"] != twin["fits"]:
+        _fail(f"darpa searched streamed fits {streamed['fits']} vs its "
+              f"in-core twin {twin['fits']}")
+    fs = streamed["res"].factors
+    ms = mode_times(m, at, ps, hs, fs)
+    static_ms = mode_times(m, at, static_ps, hs, fs)   # the same streams
+    print(f"chip_smoke: darpa streaming search: {srep.runs_used} runs in "
+          f"{s_seconds:.1f} s; chunk_m {ps.streaming.chunk_m} "
+          f"({ps.streaming.n_chunks} chunks; ladder times "
+          f"{srep.chunk_times}), block_m {[mp.block_m for mp in ps.modes]}, "
+          f"r_block {[mp.r_block for mp in ps.modes]}; chunked MTTKRP ms "
+          f"per mode {ms} vs {static_ms} on the static streaming plan "
+          f"(chunk_m {static_ps.streaming.chunk_m}); streamed fits "
+          f"{streamed['fits']} equal the in-core twin's")
+    return {"plan": plan, "streaming_plan": ps, "seconds": seconds,
+            "runs_used": rep.runs_used,
+            "measured_s": rep.seconds_used,
+            "model_samples": rep.model_samples,
+            "winners": [dataclasses.asdict(w) for w in rep.winners],
+            "streaming": {"seconds": s_seconds,
+                          "runs_used": srep.runs_used,
+                          "measured_s": srep.seconds_used,
+                          "chunk_m": ps.streaming.chunk_m,
+                          "n_chunks": ps.streaming.n_chunks,
+                          "chunk_times": srep.chunk_times,
+                          "modes": [_gene(mp) for mp in ps.modes],
+                          "chunked_ms_per_mode": ms,
+                          "static_chunk_m": static_ps.streaming.chunk_m,
+                          "static_chunked_ms_per_mode": static_ms,
+                          "fits": streamed["fits"],
+                          "launches": streamed["launches"]}}
+
+
+def phase_tilings(m, tilings) -> dict:
+    """Every kernel of the main path at tilings ``(block_m, r_block,
+    threads)`` it does not run at there, on the small adversarial layouts
+    at rank `RANK`: K1, K2 + the split, K3, K5, K6, K7, K8 and K9 (both
+    Π policies) against their plain versions (the checks of the small
+    phases, CPU copies included), and the ops of one ``block_m`` equal
+    bit for bit whatever their ``r_block`` and ``threads``."""
+    dims = (29, 13, 7)
+    ops, stream = m["ops"], m["stream"]
+    worst = {}
+    for block_m in sorted({t[0] for t in tilings}):
+        here = sorted({t for t in tilings if t[0] == block_m})
+        for name, counts in _small_layouts(block_m).items():
+            x = _stream_tensor(counts, dims, seed=block_m)
+            x.values[:] = np.abs(x.values) + 1.0       # counts are > 0
+            at = m["alto"].build_device(x, n_partitions=4, device=DEVICE)
+            fs = _factors(dims, seed=block_m)
+            B = fs[0] * 3.0
+            view = m["alto"].oriented_view_device(at, 0)
+            hs = stream.host_stream(at, 0)
+            pi_view = _pi_rows(m, at.meta.enc, view.words, fs, 0)
+            cm = 2 * block_m
+            first = {}
+            for _, rb, th in here:
+                label = (f"tiling {name} block_m={block_m} r_block={rb} "
+                         f"threads={th}")
+                errs = check_oriented_kernels(m, view, fs, block_m, rb, th,
+                                              label, cpu_copies=True)
+                errs["recursive_partials"] = check_recursive_kernel(
+                    m, at, fs, 0, rb, th, label, cpu_copies=True)
+                errs.update(check_chunk_kernels(m, hs, B, fs, block_m, cm,
+                                                None, label, r_block=rb,
+                                                threads=th))
+                for policy in ("otf", "pre"):
+                    errs.update(check_phi_oriented_kernels(
+                        m, view, B, _phi_operands(m, at.meta.enc, view.words,
+                                                  fs, 0, policy),
+                        block_m, th, f"{label} {policy}", cpu_copies=True))
+                    errs.update(check_phi_recursive_kernel(
+                        m, at, B, _phi_operands(m, at.meta.enc, at.words, fs,
+                                                0, policy),
+                        0, th, f"{label} {policy}", cpu_copies=True))
+                    errs.update(check_chunk_kernels(
+                        m, hs, B, fs, block_m, cm, policy,
+                        f"{label} {policy}", threads=th))
+                outs = {
+                    "K1": ops.mttkrp_oriented_carry(view, fs, block_m, rb,
+                                                    th),
+                    "K2": ops.mttkrp_oriented(view, fs, block_m, rb, th),
+                    "K3": ops.mttkrp(at, fs, 0, rb, th),
+                    "K5": ops.cpapr_phi_oriented_carry(
+                        view, B, pi=pi_view, block_m=block_m, threads=th),
+                    "K6": ops.cpapr_phi_oriented(
+                        view, B, pi=pi_view, block_m=block_m, threads=th),
+                    "K7": ops.cpapr_phi(at, B, 0, factors=fs, threads=th),
+                    "K8": ops.mttkrp_oriented_chunked(
+                        hs, fs, chunk_m=cm, block_m=block_m, r_block=rb,
+                        threads=th),
+                    "K9": ops.cpapr_phi_oriented_chunked(
+                        hs, B, fs, pre=True, chunk_m=cm, block_m=block_m,
+                        threads=th)}
+                for k, v in outs.items():
+                    if k in first:
+                        _check_equal(f"{label} {k} vs r_block={first[k][0]}"
+                                     f" threads={first[k][1]}", v,
+                                     first[k][2])
+                    else:
+                        first[k] = (rb, th, v)
+                _check_equal(f"{label} K1 vs K2", outs["K1"], outs["K2"])
+                _check_equal(f"{label} K5 vs K6", outs["K5"], outs["K6"])
+                _check_equal(f"{label} K8 vs K1", outs["K8"], outs["K1"])
+                _check_equal(f"{label} K9 vs K5", outs["K9"], outs["K5"])
+                for k, v in errs.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+    print(f"chip_smoke: {len(tilings)} tilings on the small layouts ok, "
+          f"worst errors {worst}")
+    return worst
+
+
+def phase_tuning(m, chicago, darpa, chicago_apr, darpa_apr, d_str) -> dict:
+    """The measured plans, with a plan store in a temporary directory:
+    MTTKRP tuning of Chicago and DARPA and CP-ALS on the
+    winners, Φ tuning and CP-APR on its winners, the budgeted search in
+    core and streamed, then every kernel at the tilings this picked and
+    at the extremes of the space (`phase_tilings`)."""
+    import tempfile
+    limit = m["common"].smem_limit(torch.device(DEVICE))
+    if limit < m["plan"].SMEM_BYTES:
+        _fail(f"the card's shared memory per CTA {limit} is below "
+              f"plan.SMEM_BYTES {m['plan'].SMEM_BYTES}")
+    t0 = time.perf_counter()
+    out = {"smem_limit": limit}
+    with tempfile.TemporaryDirectory(prefix="repro_torch_plans_") as d:
+        store = pathlib.Path(d) / "plans.json"
+        c_als = tune_exhaustive(m, chicago["at"], "chicago mttkrp tuning",
+                                store, "mttkrp")
+        d_als = tune_exhaustive(m, darpa["at"], "darpa mttkrp tuning",
+                                store, "mttkrp")
+        out["chicago_mttkrp"] = {**c_als, "cp_als": tuned_cp_als(
+            m, chicago["at"], c_als["plan"], chicago["run"], 10,
+            "chicago cp_als (tuned)")}
+        out["darpa_mttkrp"] = {**d_als, "cp_als": tuned_cp_als(
+            m, darpa["at"], d_als["plan"], darpa["run"], 3,
+            "darpa cp_als (tuned)")}
+        c_phi = tune_exhaustive(m, chicago["at"], "chicago phi tuning",
+                                store, "phi")
+        d_phi = tune_exhaustive(m, darpa["at"], "darpa phi tuning", store,
+                                "phi")
+        out["chicago_phi"] = {**c_phi, "cp_apr": tuned_cp_apr(
+            m, chicago["at"], c_phi["plan"], chicago_apr["run"], 5,
+            "chicago cp_apr (tuned)")}
+        out["darpa_phi"] = {**d_phi, "cp_apr": tuned_cp_apr(
+            m, darpa["at"], d_phi["plan"], darpa_apr["run"], 2,
+            "darpa cp_apr (tuned)")}
+        out["darpa_search"] = search_darpa(m, darpa, d_str, store)
+        out["store_records"] = len(m["autotune"].load_store(store))
+    tune_s = time.perf_counter() - t0
+    plans = [out[k]["plan"] for k in ("chicago_mttkrp", "darpa_mttkrp",
+                                      "chicago_phi", "darpa_phi",
+                                      "darpa_search")]
+    plans.append(out["darpa_search"]["streaming_plan"])
+    tilings = {(8, RANK, 128), (1024, RANK, 128), (64, RANK, 128),
+               (64, 1, 128), (64, 2, 128), (64, 4, 128), (64, RANK, 64),
+               (64, RANK, 256)}
+    tilings |= {(mp.block_m, mp.r_block, mp.threads)
+                for p in plans for mp in p.modes}
+    t0 = time.perf_counter()
+    out["tilings"] = sorted(tilings)
+    out["tilings_worst_err"] = phase_tilings(m, sorted(tilings))
+    out["tilings_s"] = time.perf_counter() - t0
+    out["tuning_s"] = tune_s
+    for k in ("chicago_mttkrp", "darpa_mttkrp", "chicago_phi", "darpa_phi",
+              "darpa_search"):
+        out[k].pop("plan")
+    out["darpa_search"].pop("streaming_plan")
+    print(f"chip_smoke: tuning phase {tune_s:.1f} s, tilings "
+          f"{out['tilings_s']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1798,6 +2118,7 @@ def main() -> int:
     for e in kernels:
         if e["launches"] == 0:
             _fail(f"kernel {e['name']} never launched on the main path")
+    tuning = phase_tuning(m, chicago, darpa, chicago_apr, darpa_apr, d_str)
     elapsed = time.perf_counter() - t_start
 
     detail = {
@@ -1844,7 +2165,7 @@ def main() -> int:
                                                    "stream_build_s")}
         | {"cp_apr": _apr_detail(c_str["run"]),
            "cp_apr_incore": _apr_detail(c_str["incore_run"])},
-        "overlap_efficiency": overlap,
+        "overlap_efficiency": overlap, "tuning": tuning,
         "kernels": kernels, "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"

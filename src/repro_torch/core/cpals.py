@@ -14,12 +14,13 @@ its first sweep, since TF32 keeps about three decimal digits.
 Fit tracking: the sweep returns the MTTKRP of its *last* mode update, the
 one matrix for which ``<X, X̂> = Σ_r λ_r <A_n[:,r], M[:,r]>`` holds
 exactly. The residual identity ``||X-X̂||² = ||X||² + ||X̂||² − 2<X,X̂>``
-is then evaluated on the host in float64, where its cancellation is
-harmless.
+is then evaluated in float64 on the tensor's device, where its
+cancellation is harmless; only the fit itself is copied back to the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -85,34 +86,37 @@ def _sweep(plan, at: AltoTensor, views, factors, lam):
     return factors, lam, M
 
 
-def _fit_host(M_last, factors, lam, normX2: float) -> float:
-    """Kolda–Bader fit from sweep-consistent state, in host float64."""
+def _fit(M_last, factors, lam, normX2: float) -> float:
+    """Kolda–Bader fit from sweep-consistent state, in float64 on the
+    factors' device; the fit is the one value copied back."""
     if normX2 == 0.0:
         return 1.0
-    n = len(factors) - 1
-    fs = [A.detach().cpu().numpy().astype(np.float64) for A in factors]
-    lam64 = lam.detach().cpu().numpy().astype(np.float64)
-    M = M_last.detach().cpu().numpy().astype(np.float64)
-    inner = float(((fs[n] * M).sum(axis=0) * lam64).sum())
-    V = np.ones((lam64.size, lam64.size))
-    for A in fs:
-        V *= A.T @ A
-    norm_model2 = float((np.outer(lam64, lam64) * V).sum())
-    resid2 = max(normX2 + norm_model2 - 2.0 * inner, 0.0)
-    return float(1.0 - np.sqrt(resid2) / np.sqrt(normX2))
+    lam64 = lam.double()
+    inner = ((factors[-1].double() * M_last.double()).sum(dim=0)
+             * lam64).sum()
+    V = None
+    for A in factors:
+        A64 = A.double()
+        gram = A64.T @ A64
+        V = gram if V is None else V * gram
+    norm_model2 = (torch.outer(lam64, lam64) * V).sum()
+    resid2 = (normX2 + norm_model2 - 2.0 * inner).clamp_min(0.0)
+    return float(1.0 - resid2.sqrt() / math.sqrt(normX2))
 
 
 def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
            seed: int = 0, views: dict[int, OrientedView] | None = None,
            factors: list[torch.Tensor] | None = None,
-           plan: plan_mod.ExecutionPlan | None = None) -> CpalsResult:
+           plan: plan_mod.ExecutionPlan | None = None,
+           tune: str = "off") -> CpalsResult:
     """CP-ALS driver on the tensor's device. ``factors`` seeds the
     iteration (default `init_factors` with ``seed``); ``plan`` defaults to
-    `plan.plan_for` (kernels on CUDA, reference traversals on the CPU)."""
+    `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
+    with ``tune`` (`plan.make_plan`) measuring MTTKRP on this tensor."""
     resolve_device(at.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     if plan is None:
-        plan = plan_mod.plan_for(at, rank)
+        plan = plan_mod.plan_for(at, rank, tune=tune)
     elif plan.rank != rank:
         raise ValueError(f"plan was built for rank {plan.rank}, "
                          f"cp_als called with rank {rank}")
@@ -132,14 +136,13 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
     if views is None:
         views = plan_mod.build_views(at, plan)
     lam = torch.ones((rank,), dtype=dtype, device=at.device)
-    normX2 = float((at.values.detach().cpu().numpy().astype(np.float64)
-                    ** 2).sum())
+    normX2 = float((at.values.detach().double() ** 2).sum())
     fits: list[float] = []
     prev_fit = -np.inf
     it = 0
     for it in range(1, n_iters + 1):
         factors, lam, M_last = _sweep(plan, at, views, factors, lam)
-        fit = _fit_host(M_last, factors, lam, normX2)
+        fit = _fit(M_last, factors, lam, normX2)
         fits.append(fit)
         if abs(fit - prev_fit) < tol:
             break

@@ -177,15 +177,17 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
            track_ll: bool = False,
            plan: plan_mod.ExecutionPlan | None = None,
            factors: list[torch.Tensor] | None = None,
-           lam: torch.Tensor | None = None) -> CpaprResult:
+           lam: torch.Tensor | None = None,
+           tune: str = "off") -> CpaprResult:
     """CP-APR MU driver (Alg. 2) on the tensor's device. ``pi_policy``:
     None (the plan's) | ``"pre"`` | ``"otf"``.
 
     ``factors`` and ``lam`` give the starting state (clamped positive,
     columns rescaled to sum 1; λ defaults to Σx / rank); without
     ``factors`` it is `init_factors` with ``seed``. ``plan`` defaults to
-    `plan.plan_for` (kernels on CUDA, reference traversals on the CPU);
-    oriented views come from the view cache (`core.views`).
+    `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
+    with ``tune`` (`plan.make_plan`) measuring Φ on this tensor; oriented
+    views come from the view cache (`core.views`).
     """
     resolve_device(at.device)
     p = params or CpaprParams()
@@ -204,7 +206,7 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
             n_inner_total=0, pi_policy=pi_policy or "otf",
             traversals=["oriented"] * N, plan=plan)
     if plan is None:
-        plan = plan_mod.plan_for(at, rank)
+        plan = plan_mod.plan_for(at, rank, tune=tune, tune_objective="phi")
     elif plan.rank != rank:
         raise ValueError(f"plan was built for rank {plan.rank}, "
                          f"cp_apr called with rank {rank}")

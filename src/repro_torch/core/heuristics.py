@@ -77,6 +77,18 @@ def choose_traversal(meta: AltoMeta, mode: int) -> Traversal:
     return Traversal.OUTPUT_ORIENTED
 
 
+def candidate_traversals(meta: AltoMeta, mode: int) -> tuple[Traversal, ...]:
+    """All traversals, the static family choice first, then the other two
+    in the JAX package's order. The measured tuner (`core.autotune`)
+    re-ranks them; the static rule orders the candidates, so a capped
+    search keeps the analytic choice."""
+    first = choose_traversal(meta, mode)
+    rest = tuple(t for t in (Traversal.OUTPUT_ORIENTED,
+                             Traversal.ORIENTED_CARRY, Traversal.RECURSIVE)
+                 if t is not first)
+    return (first,) + rest
+
+
 # ---------------------------------------------------------------------------
 # Oriented-variant choice: one-hot merge vs scratch-carry, by HBM traffic
 # ---------------------------------------------------------------------------

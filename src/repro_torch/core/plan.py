@@ -45,8 +45,16 @@ carry where the JAX package's VMEM gate forces the one-hot variant.
     thread-per-column slices on the card's `SMS` multiprocessors — each
     slice is one serial walk, so the card needs many of them in flight.
     The sub-warp kernels run the same slices (every bitwise contract
-    depends on equal ``block_m``); a ``block_m`` of their own is left to
-    the autotuning slice.
+    depends on equal ``block_m``).
+
+Measured plans. ``make_plan(..., tune="auto"|"force"|"search")`` swaps
+the static answer for a measured one (`core.autotune`, `core.search`):
+`candidate_mode_plans` is the tiling space the kernels take at run time
+— traversal × ``r_block`` × ``block_m`` for the oriented kernels,
+traversal × ``r_block`` × CTA size for the recursive ones, whose Temp
+must fit one shared-memory window of `SMEM_BYTES` — with the static
+choice first. Winners persist in a plan store of their own, so a later
+process gets the measured plan back with zero timing runs.
 """
 from __future__ import annotations
 
@@ -68,6 +76,14 @@ MIN_BLOCK_M = 8
 MAX_BLOCK_M = 1024
 TARGET_WAVES = 4
 BACKENDS = ("cuda", "reference")
+TUNE_MODES = ("off", "auto", "force", "search")
+# Shared memory one CTA may opt in to on the H100 (`common.smem_limit` on
+# the card). A constant, so that plans stay a function of static meta and
+# can be made on a CPU; it sizes the recursive kernels' candidate windows.
+SMEM_BYTES = 227 * 1024
+# CTA sizes the recursive kernels (K3, K7) are tuned over, the static
+# size first.
+RECURSIVE_THREADS = (128, 64, 256)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +129,10 @@ class ExecutionPlan:
 # ---------------------------------------------------------------------------
 # Hopper model
 # ---------------------------------------------------------------------------
+
+def divisors_desc(n: int) -> list[int]:
+    return [d for d in range(n, 0, -1) if n % d == 0]
+
 
 def choose_rank_block(rank: int) -> int:
     """Largest divisor of ``rank`` up to `MAX_R_BLOCK`
@@ -237,6 +257,86 @@ def static_mode_plan(meta: AltoMeta, mode: int, rank: int, *,
                     temp_rows=meta.temp_rows[mode], threads=cta_threads(rb))
 
 
+def recursive_fits(meta: AltoMeta, mode: int, rank: int, r_block: int,
+                   objective: str = "mttkrp") -> bool:
+    """True iff the recursive kernel holds the mode's whole Temp in one
+    shared-memory window of `SMEM_BYTES`: K3 (``"mttkrp"``) ``r_block``
+    columns, K7 (``"phi"``) the whole rank and the window's B rows
+    (`common.window_rows`)."""
+    phi = objective == "phi"
+    T = meta.temp_rows[mode]
+    try:
+        return common.window_rows(T, rank if phi else r_block, SMEM_BYTES,
+                                  phi) == T
+    except ValueError:
+        return False
+
+
+def candidate_mode_plans(meta: AltoMeta, mode: int, rank: int, *,
+                         objective: str = "mttkrp",
+                         max_candidates: int | None = None
+                         ) -> tuple[ModePlan, ...]:
+    """The tiling space of one mode, the static choice FIRST (kept even
+    where it is not feasible), then by traversal in
+    `heuristics.candidate_traversals` order, ``r_block`` descending (the
+    divisors of the rank up to `MAX_R_BLOCK`), then ``block_m``
+    descending over the powers of two in [`MIN_BLOCK_M`, `MAX_BLOCK_M`]
+    for the oriented kernels (CTA size `cta_threads`), or the CTA sizes
+    `RECURSIVE_THREADS` for the recursive ones (``block_m`` is dead there
+    and keeps the static value), which must pass `recursive_fits` for
+    ``objective``. Both oriented variants are always candidates: no
+    kernel here keeps its output resident. ``max_candidates`` caps the
+    list, the static choice included, through `cap_candidates`."""
+    static = static_mode_plan(meta, mode, rank)
+    out = [static]
+    seen = {(static.traversal, static.r_block, static.block_m,
+             static.threads)}
+
+    def add(traversal, rb, bm, threads):
+        key = (traversal, rb, bm, threads)
+        if key not in seen:
+            seen.add(key)
+            out.append(ModePlan(mode=mode, traversal=traversal, r_block=rb,
+                                block_m=bm, temp_rows=meta.temp_rows[mode],
+                                threads=threads))
+
+    tiles = [rb for rb in divisors_desc(rank) if rb <= MAX_R_BLOCK]
+    for traversal in heuristics.candidate_traversals(meta, mode):
+        for rb in tiles:
+            if traversal is heuristics.Traversal.RECURSIVE:
+                if recursive_fits(meta, mode, rank, rb, objective):
+                    for th in RECURSIVE_THREADS:
+                        add(traversal, rb, static.block_m, th)
+                continue
+            bm = MAX_BLOCK_M
+            while bm >= MIN_BLOCK_M:
+                add(traversal, rb, bm, cta_threads(rb))
+                bm //= 2
+    return cap_candidates(out, max_candidates)
+
+
+def cap_candidates(cands, max_candidates: int | None
+                   ) -> tuple[ModePlan, ...]:
+    """At most ``max_candidates`` of a candidate list (None: all): the
+    first (the static choice), then the traversal families in turn, each
+    in its own order, so a capped list holds every family's leading
+    tiles."""
+    cands = tuple(cands)
+    if max_candidates is None or len(cands) <= max_candidates:
+        return cands
+    families: dict = {}
+    for c in cands[1:]:
+        families.setdefault(c.traversal, []).append(c)
+    queues = list(families.values())
+    out, depth = [cands[0]], 0
+    while len(out) < max_candidates:
+        for q in queues:
+            if depth < len(q) and len(out) < max_candidates:
+                out.append(q[depth])
+        depth += 1
+    return tuple(out)
+
+
 def default_backend(device=None) -> str:
     """The hand-written kernels for CUDA (the default device), the plain
     reference traversals for the CPU."""
@@ -245,20 +345,60 @@ def default_backend(device=None) -> str:
 
 
 def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
-              device=None, device_bytes: int | None = None) -> ExecutionPlan:
+              device=None, device_bytes: int | None = None,
+              tune: str = "off", tune_objective: str = "mttkrp",
+              at: AltoTensor | None = None,
+              search_budget: int | None = None,
+              search_seconds: float | None = None,
+              search_seed: int = 0, store_path=None) -> ExecutionPlan:
     """Resolve heuristics + static meta into a concrete execution plan.
     ``backend`` defaults from ``device`` (`default_backend`).
 
     ``device_bytes`` (default `default_device_bytes`) is the device byte
     budget: when the in-core working set (float32) overflows it the plan
-    streams (`StreamPlan`), every mode on the carry traversal."""
-    backend = backend or default_backend(device)
+    streams (`StreamPlan`), every mode on the carry traversal.
+
+    ``tune`` picks the static model or a measured plan (`core.autotune`,
+    persisted in the plan store):
+
+    * ``"off"`` (default): the static plan;
+    * ``"auto"``: the stored measured plan for this (meta, rank, backend,
+      device kind, torch and CUDA versions, objective) if the store has
+      one; else the tuner's winner when the tensor ``at`` is given (and
+      stored); else the static plan;
+    * ``"force"``: as ``"auto"``, but a store miss without ``at`` raises;
+    * ``"search"``: as ``"auto"``, but a store miss with ``at`` runs the
+      budgeted search (`core.search`): ``search_budget`` timing runs,
+      ``search_seconds`` of measurement, ``search_seed`` its RNG.
+
+    A streaming plan tunes through the search under every mode but
+    ``"off"`` (``chunk_m`` is one of its genes). ``tune_objective``
+    names what is timed: ``"mttkrp"`` (CP-ALS) or ``"phi"`` (CP-APR); it
+    is part of the store key. The device whose kind keys the store is
+    ``at``'s, else ``device``. A store hit costs zero timing runs."""
+    backend = backend or default_backend(
+        at.device if at is not None and device is None else device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
+    if tune not in TUNE_MODES:
+        raise ValueError(f"unknown tune mode {tune!r}")
     if device_bytes is None:
         device_bytes = default_device_bytes()
     streaming_needed = (device_bytes is not None
                         and needs_streaming(meta, rank, device_bytes))
+    if tune != "off":
+        from repro_torch.core import autotune
+        tuned = autotune.tuned_plan(
+            meta, rank, backend=backend,
+            device=at.device if at is not None else device, at=at,
+            require=tune == "force", objective=tune_objective,
+            search=tune == "search",
+            device_bytes=device_bytes if streaming_needed else None,
+            search_budget_runs=search_budget,
+            search_budget_s=search_seconds, search_seed=search_seed,
+            store_path=store_path)
+        if tuned is not None:
+            return tuned
     modes = tuple(static_mode_plan(meta, n, rank,
                                    force_carry=streaming_needed)
                   for n in range(meta.enc.ndim))
@@ -276,8 +416,10 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
 
 
 def plan_for(at: AltoTensor, rank: int, **kwargs) -> ExecutionPlan:
-    """`make_plan` for a built tensor, the backend following its device."""
+    """`make_plan` for a built tensor, the backend following its device;
+    the tensor rides along (``at=``) so ``tune=`` can measure on it."""
     kwargs.setdefault("device", at.device)
+    kwargs.setdefault("at", at)
     return make_plan(at.meta, rank, **kwargs)
 
 

@@ -101,3 +101,53 @@ def test_init_factors_seeded_and_degenerate_inputs():
     assert res.fits == [1.0] and res.n_iters == 0
     with pytest.raises(ValueError, match="rank"):
         tcpals.cp_als(at, 3, plan=tplan.make_plan(at.meta, 2))
+
+
+def _fit_plain(M_last, factors, lam, normX2: float) -> float:
+    """The host float64 fit the port used to compute (numpy), as the
+    plain version of `cpals._fit`."""
+    if normX2 == 0.0:
+        return 1.0
+    fs = [A.numpy().astype(np.float64) for A in factors]
+    lam64 = lam.numpy().astype(np.float64)
+    M = M_last.numpy().astype(np.float64)
+    inner = float(((fs[-1] * M).sum(axis=0) * lam64).sum())
+    V = np.ones((lam64.size, lam64.size))
+    for A in fs:
+        V *= A.T @ A
+    norm_model2 = float((np.outer(lam64, lam64) * V).sum())
+    resid2 = max(normX2 + norm_model2 - 2.0 * inner, 0.0)
+    return float(1.0 - np.sqrt(resid2) / np.sqrt(normX2))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_device_fit_matches_the_host_formula(seed):
+    """`cpals._fit` computes the host float64 formula on the factors'
+    device: equal within 1e-12 relative, a float copied back, and 1.0 for
+    an all-zero tensor."""
+    rng = np.random.default_rng(seed)
+    dims, R = (40, 30, 20), 6
+    fs = [torch.from_numpy(rng.random((I, R)).astype(np.float32))
+          for I in dims]
+    lam = torch.from_numpy(rng.random(R).astype(np.float32) + 0.5)
+    M = torch.from_numpy(rng.standard_normal((dims[-1], R))
+                         .astype(np.float32))
+    for normX2 in (float(rng.random() * 1e3 + 1.0), 1e-3, 0.0):
+        got = tcpals._fit(M, fs, lam, normX2)
+        want = _fit_plain(M, fs, lam, normX2)
+        assert isinstance(got, float)
+        assert abs(got - want) <= 1e-12 * max(abs(want), 1.0)
+    assert tcpals._fit(M, fs, lam, 0.0) == 1.0
+
+
+def test_fit_of_a_run_matches_the_host_formula(problem):
+    jat, at, fs = problem
+    tp = tplan.make_plan(at.meta, RANK, backend="cuda")
+    res = tcpals.cp_als(at, RANK, n_iters=3, tol=0.0, plan=tp,
+                        factors=interop.factors(fs, device="cpu"))
+    factors, lam, M = tcpals._sweep(tp, at, tplan.build_views(at, tp),
+                                    res.factors, res.lam)
+    normX2 = float((at.values.double() ** 2).sum())
+    got = tcpals._fit(M, factors, lam, normX2)
+    assert abs(got - _fit_plain(M, factors, lam, normX2)) <= 1e-12
+    assert 0.0 < got < 1.0
