@@ -78,7 +78,28 @@ sm_90a), then:
    on the small layouts at ``block_m`` 8 and 1024, ``r_block`` 1, 2 and 4,
    CTAs of 64 and 256 threads and every tiling the tuners picked, against
    its plain version, the ops of one ``block_m`` equal bit for bit whatever
-   the ``r_block`` and ``threads``.
+   the ``r_block`` and ``threads``;
+11. runs shape-class buckets of network-traffic tenants (``BUCKET_CLASSES``:
+   class A, 64 tenants in the class (4096, 4096, 65536) with 262,144
+   nonzeros, carry on every mode under ALTO-OTF; class B, 16 tenants in
+   (32768, 32768, 4194304) with 65,536, one-hot on mode 2 under
+   ALTO-PRE; dims and nnz seeded, rank 16): batched CP-ALS (5 sweeps) and
+   CP-APR (3 outer iterations), each kernel launched once per mode a
+   sweep (inner step) whatever the bucket's size, every tenant equal bit
+   for bit to its solo run on its padded tensor with the class plan and
+   the embedded start, four tenants within ``rtol=2e-4, atol=2e-5``
+   (factors), 1e-6 (last fit) and ``rtol=2e-4`` (λ) of their unpadded
+   solo runs, each tenant-axis launch within tolerance of its plain
+   version and bit for bit its T solo launches; capacity 16 and 64 launch
+   alike; the class's plan-store key is every tenant's, and a second make
+   of the class plan under ``tune="auto"`` takes no timing run;
+12. appends to the Chicago tensor (1 % under "sum" and "last", and a
+   delta that grows mode 0 past 8192) against the host rebuild
+   ``alto.merge_reference``, and to the DARPA tensor (1 %, then mode 2
+   past 2**25) against ``build_device(merge_coo(...))``, bit for bit;
+   3 warm-start CP-ALS iterations on the grown DARPA tensor from step 3's
+   result against a cold start; the views ``invalidate_changed`` drops
+   after a no-op and after a content append.
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
 instantiation of the redesigned kernels (the runs pass that K1, K2 and K8
@@ -96,7 +117,9 @@ within 1e-3.
 
 Output: the card's name and power limit, a ``{"kernels": [...]}`` line
 (each kernel's main-path ``launches`` and ``elements``, the stream
-lengths summed over those launches), and last ``{"ok": true, "device":
+lengths summed over those launches, and under ``tenant_axis`` its
+bucketed launches: ms against the T solo launches' ms, the plain
+version's and the bound), and last ``{"ok": true, "device":
 {...}}``. Any failed phase raises and
 exits non-zero; without CUDA, or outside a checkout of the repository,
 the script exits non-zero and prints no result. Details go to
@@ -143,8 +166,9 @@ def _imports():
         sys.exit(2)
     sys.path.insert(0, str(ROOT / "src"))
     torch = torch_mod
-    from repro_torch.core import (alto, autotune, cpals, cpapr, heuristics,
-                                  mttkrp, plan, search, stream, views)
+    from repro_torch.core import (alto, autotune, batched, cpals, cpapr,
+                                  heuristics, ingest, mttkrp, plan, search,
+                                  shapeclass, stream, views)
     from repro_torch.kernels import _build, common, ops
     from repro_torch.kernels import cpapr_phi as k7
     from repro_torch.kernels import delinearize as k4
@@ -153,6 +177,7 @@ def _imports():
     from repro_torch.kernels import ref
     from repro_torch.sparse import synthetic
     return dict(alto=alto, autotune=autotune, cpals=cpals, cpapr=cpapr,
+                batched=batched, ingest=ingest, shapeclass=shapeclass,
                 heuristics=heuristics, mttkrp=mttkrp, plan=plan,
                 search=search, build=_build, common=common,
                 ops=ops, k3=k3,
@@ -687,7 +712,7 @@ def phase_small_cp_apr(m) -> dict:
             p = m["plan"].make_plan(at.meta, RANK, backend="cuda")
             res[dev] = m["cpapr"].cp_apr(at, RANK, _apr_params(m, 3),
                                          pi_policy=policy, track_ll=True,
-                                         factors=fs, plan=p)
+                                         warm_start=fs, plan=p)
             _check_apr_result(f"small CP-APR ({policy}, {dev})", res[dev],
                               3)
         a, b = res["cuda"], res["cpu"]
@@ -851,9 +876,8 @@ def phase_small_chunks(m) -> dict:
 # Main path runs
 # ---------------------------------------------------------------------------
 
-def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
-    """One counted CP-ALS run through the user entry points."""
-    b = m["build"]
+def als_kernels(m, p) -> set:
+    """The kernels a CP-ALS sweep under plan ``p`` launches."""
     trav = m["heuristics"].Traversal
     kernels_of = {trav.ORIENTED_CARRY: {"carry_runs", "carry_fixup"},
                   trav.OUTPUT_ORIENTED: {"oriented_partials", "segment_split",
@@ -861,7 +885,13 @@ def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
                   trav.RECURSIVE: {"recursive_partials"}}
     if p.streaming is not None:
         kernels_of[trav.ORIENTED_CARRY] = {"carry_chunk"}
-    expect = set().union(*(kernels_of[mp.traversal] for mp in p.modes))
+    return set().union(*(kernels_of[mp.traversal] for mp in p.modes))
+
+
+def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
+    """One counted CP-ALS run through the user entry points."""
+    b = m["build"]
+    expect = als_kernels(m, p)
     fs = _factors(at.dims, seed=0)
     _sync()
     b.reset_counts()
@@ -1561,6 +1591,677 @@ def phase_tuning(m, chicago, darpa, chicago_apr, darpa_apr, d_str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Shape-class buckets (batched CP-ALS / CP-APR on the tenant axis)
+# ---------------------------------------------------------------------------
+
+# Network-traffic tenants (source × destination × time window, one tensor
+# per customer subnet and day) at DARPA-like proportions: dims and nnz
+# drawn uniformly from each range with the class's seed.
+BUCKET_CLASSES = {
+    "A": dict(tenants=64, dims=((2049, 4096), (2049, 4096), (32769, 65536)),
+              nnz=(131073, 262144), seed=101),
+    "B": dict(tenants=16, dims=((16385, 32768), (16385, 32768),
+                                (2097153, 4194304)),
+              nnz=(32769, 65536), seed=202),
+}
+SOLO_RTOL, SOLO_ATOL, SOLO_FIT, SOLO_LAM = 2e-4, 2e-5, 1e-6, 2e-4
+DARPA_MODE2_GROWTH = 34_000_000    # past 2**25: the encoding gains a bit
+
+
+def _bucket_tensors(m, spec) -> list:
+    rng = np.random.default_rng(spec["seed"])
+    xs = []
+    for i in range(spec["tenants"]):
+        dims = tuple(int(rng.integers(lo, hi + 1)) for lo, hi in spec["dims"])
+        nnz = int(rng.integers(spec["nnz"][0], spec["nnz"][1] + 1))
+        xs.append(m["synthetic"].uniform_tensor(
+            dims, nnz, seed=spec["seed"] * 1000 + i, count_data=True))
+    return xs
+
+
+def _members(m, xs, sc, p):
+    shc, alto = m["shapeclass"], m["alto"]
+    ats, views = [], []
+    for x in xs:
+        at = shc.canonicalize_tensor(alto.build_device(
+            shc.pad_to_class(x, sc), n_partitions=sc.n_partitions,
+            compute_reuse=False), sc)
+        ats.append(at)
+        views.append(m["plan"].build_views(at, p))
+    return ats, views
+
+
+def _bucket_kernels(m, p, apr: bool) -> dict:
+    """Launches a bucket's sweep (CP-ALS) or mode pass of one inner step
+    (CP-APR) makes per kernel: one per mode routed to it."""
+    trav = m["heuristics"].Traversal
+    per = {}
+    for mp in p.modes:
+        if mp.traversal is trav.ORIENTED_CARRY:
+            ks = ["phi_carry_runs" if apr else "carry_runs", "carry_fixup"]
+        else:
+            ks = ["phi_oriented_partials" if apr else "oriented_partials",
+                  "segment_split", "carry_fixup"]
+        for k in ks:
+            per[k] = per.get(k, 0) + 1
+    return per
+
+
+def _counted(m, label, fn, expect: set):
+    b = m["build"]
+    _sync()
+    b.reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    _sync()
+    seconds = time.perf_counter() - t0
+    counts = b.counts()
+    for k in expect:
+        if counts["launches"][k] == 0:
+            _fail(f"{label}: kernel {k} was never launched")
+    if any(counts["plain_on_cuda"].values()):
+        _fail(f"{label}: plain versions ran on CUDA tensors: "
+              f"{counts['plain_on_cuda']}")
+    return res, seconds, counts
+
+
+def _same_bits(label, got, solo, fields) -> None:
+    for f in fields:
+        if getattr(got, f) != getattr(solo, f):
+            _fail(f"{label}: {f} {getattr(got, f)} vs solo "
+                  f"{getattr(solo, f)}")
+    for n, (a, b) in enumerate(zip(got.factors, solo.factors)):
+        if not torch.equal(a, b[:a.shape[0]]):
+            _fail(f"{label}: factor {n} differs from the solo run")
+        if bool(b[a.shape[0]:].any()):
+            _fail(f"{label}: padded rows of factor {n} are not zero")
+    if not torch.equal(got.lam, solo.lam):
+        _fail(f"{label}: λ differs from the solo run")
+
+
+def _near(label, got, ref) -> float:
+    worst = 0.0
+    for n, (a, b) in enumerate(zip(got.factors, ref.factors)):
+        if not torch.allclose(a, b, rtol=SOLO_RTOL, atol=SOLO_ATOL):
+            _fail(f"{label}: factor {n} beyond rtol={SOLO_RTOL}, "
+                  f"atol={SOLO_ATOL} of the unpadded run: "
+                  f"{float((a - b).abs().max())}")
+        worst = max(worst, float((a - b).abs().max()))
+    if not torch.allclose(got.lam, ref.lam, rtol=SOLO_LAM, atol=0.0):
+        _fail(f"{label}: λ beyond rtol={SOLO_LAM} of the unpadded run")
+    return worst
+
+
+def _nan(shape):
+    return torch.full(shape, float("nan"), device="cuda")
+
+
+def _check_hand_off(m, label, got, K, plain_t, solo_t) -> tuple:
+    """A bucket's hand-off to the fix-up (a runs pass or the split), ``got
+    = (out, carry_row, carry_val)`` run into a NaN-filled ``out``, tenant
+    by tenant against ``plain_t(t)``, the plain version's, and
+    ``solo_t(t)``, the solo launch's into a NaN-filled ``out``: carry rows
+    equal; NaN exactly at the carried pieces' rows (every other row
+    written); ``out`` off those rows and the carry values within tolerance
+    of the plain version and equal to the solo launch. Then the whole op:
+    the stacked fix-up on ``got`` within tolerance of the plain fix-up on
+    the plain hand-off, and equal to the solo fix-up on the solo one.
+    Returns the largest differences from the plain version, of the
+    hand-off (``out`` and carry values) and of the whole op."""
+    kori = m["kori"]
+    out, crow, cval = got
+    fixed = kori.carry_fixup(crow, cval, out.clone())
+    err = whole = 0.0
+    for t in range(K):
+        tag = f"{label} tenant {t}"
+        p_out, p_crow, p_cval = plain_t(t)
+        s_out, s_crow, s_cval = solo_t(t)
+        _check_equal(f"{tag} carry_row", crow[t], p_crow)
+        _check_equal(f"{tag} carry_row vs solo", crow[t], s_crow)
+        _check_equal(f"{tag} carry_val vs solo", cval[t], s_cval)
+        _check_equal(f"{tag} out vs solo", out[t].nan_to_num(7.0),
+                     s_out.nan_to_num(7.0))
+        carried = torch.zeros(out.shape[1], dtype=torch.bool,
+                              device=out.device)
+        carried[crow[t][crow[t] >= 0].long()] = True
+        if not (bool(out[t][carried].isnan().all())
+                and not bool(out[t][~carried].isnan().any())):
+            _fail(f"{tag}: the rows written are not exactly the rows "
+                  f"without a carried piece")
+        err = max(err, _check_close(f"{tag} out", out[t][~carried],
+                                    p_out[~carried]),
+                  _check_close(f"{tag} carry_val", cval[t], p_cval))
+        whole = max(whole, _check_close(
+            f"{tag} with the fix-up", fixed[t],
+            kori.carry_fixup_plain(p_crow, p_cval, p_out)))
+        _check_equal(f"{tag} with the fix-up vs solo", fixed[t],
+                     kori.carry_fixup(s_crow, s_cval, s_out))
+    return err, whole
+
+
+def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
+    """Each tenant-axis launch of the bucket's path, on its final state,
+    against its plain version (tenant by tenant, on the card) within
+    tolerance and against T solo launches bit for bit: the slots of K2 and
+    K6 whole; the runs passes of K1 and K5 and the split of K2's and K6's
+    slots by `_check_hand_off`, with the fix-up after them (the whole op).
+    Times of the stacked launch, the T solo launches, the plain version,
+    the bound. A fix-up entry's ``max_abs_err`` is the whole op's, runs
+    pass and fix-up against their plain versions."""
+    kori, ops, batched = m["kori"], m["ops"], m["batched"]
+    trav = m["heuristics"].Traversal
+    K = len(ats)
+    sc_dims = p.meta.dims
+    fac = m["batched"].stack_tenants(
+        [m["batched"].embed_factors(r.factors, sc_dims)
+         for r in res_als.results])
+    apr_fac = m["batched"].stack_tenants(
+        [m["batched"].embed_factors(r.factors, sc_dims)
+         for r in res_apr.results])
+    lam = torch.stack([r.lam for r in res_apr.results])
+    enc, R = p.meta.enc, p.rank
+    out = []
+    for mp in p.modes:
+        n = mp.mode
+        vb = batched.stack_tenants([views[i][n] for i in range(K)])
+        bm, th = mp.block_m, mp.threads
+        rows, words, values, _ = ops.pad_sorted_stream(vb.rows, vb.words,
+                                                       vb.values, bm)
+        M = rows.shape[1]
+        I_n = sc_dims[n]
+        f = fac
+        B = (apr_fac[n] * lam[:, None, :]).contiguous()
+        if p.pi_policy.value == "pre":
+            phi_op = dict(pi=ops.pad_sorted_stream(
+                None, vb.words, None, bm,
+                pi=batched.pi_rows(enc, vb.words, apr_fac, n))[3])
+        else:
+            phi_op = dict(factors=apr_fac)
+        W = enc.n_words
+        stream = K * M * (4 + 4 * W + 4)
+        # Rows the stream touches, tenant by tenant: the factor rows a
+        # gather must read once and the B rows of the Φ kernels.
+        coords = ops.delinearize(enc, vb.words.reshape(-1, W)).reshape(
+            K, -1, enc.ndim)
+        touched = [sum(int(torch.unique(coords[t, :, k]).numel())
+                       for t in range(K)) for k in range(enc.ndim)]
+        del coords
+        fbytes = sum(touched[k] for k in range(enc.ndim) if k != n) * R * 4
+        b_rows = touched[n] * R * 4
+        out_b = K * I_n * R * 4
+        carry = mp.traversal is trav.ORIENTED_CARRY
+        cases = []
+        if carry:
+            cases.append(("carry_runs",
+                          lambda *a, **k: kori.carry_runs(
+                              enc, n, *a, bm, mp.r_block, th, **k),
+                          lambda *a: kori.carry_runs_plain(enc, n, *a, bm),
+                          (rows, words, values, f), stream + fbytes + out_b))
+            cases.append(("phi_carry_runs",
+                          lambda r, w, v, b, o, **k: kori.phi_carry_runs(
+                              enc, n, 1e-10, r, w, v, b, block_m=bm,
+                              threads=th, **{next(iter(phi_op)): o}, **k),
+                          lambda r, w, v, b, o: kori.phi_carry_runs_plain(
+                              enc, n, 1e-10, r, w, v, b, block_m=bm,
+                              **{next(iter(phi_op)): o}),
+                          (rows, words, values, B, next(iter(
+                              phi_op.values()))),
+                          stream + b_rows + out_b + (
+                              K * M * R * 4 if "pi" in phi_op else fbytes)))
+        else:
+            cases.append(("oriented_partials",
+                          lambda *a: kori.oriented_partials(
+                              enc, n, *a, bm, mp.r_block, th),
+                          lambda *a: kori.oriented_partials_plain(
+                              enc, n, *a, bm),
+                          (rows, words, values, f),
+                          stream + fbytes + K * M * R * 4))
+            cases.append(("phi_oriented_partials",
+                          lambda r, w, v, b, o: kori.phi_oriented_partials(
+                              enc, n, 1e-10, r, w, v, b, block_m=bm,
+                              threads=th, **{next(iter(phi_op)): o}),
+                          lambda r, w, v, b, o:
+                          kori.phi_oriented_partials_plain(
+                              enc, n, 1e-10, r, w, v, b, block_m=bm,
+                              **{next(iter(phi_op)): o}),
+                          (rows, words, values, B, next(iter(
+                              phi_op.values()))),
+                          stream + b_rows + K * M * R * 4 + (
+                              K * M * R * 4 if "pi" in phi_op else fbytes)))
+        at = m["common"].at_tenant
+        for name, kern, plain, args, nbytes in cases:
+            tag = f"{label} {name} mode {n}"
+            entry = {"kernel": name, "class": label, "mode": n,
+                     "tenants": K, "elements": K * M}
+            if carry:            # the runs pass's hand-off, then the whole op
+                got = kern(*args, out=_nan((K, I_n, R)))
+                err, whole = _check_hand_off(
+                    m, tag, got, K,
+                    lambda t: plain(*(at(a, t) for a in args)),
+                    lambda t: kern(*(at(a, t) for a in args),
+                                   out=_nan((I_n, R))))
+            else:                # the slots, then the split and the whole op
+                got = kern(*args)
+                _sync()
+                err = _check_close(f"{tag} stacked", got,
+                                   kori.tenant_loop(plain, (K,), *args))
+                _check_equal(f"{tag} vs {K} solo launches", got,
+                             kori.tenant_loop(kern, (K,), *args))
+                split_err, whole = _check_hand_off(
+                    m, f"{label} segment_split of {name} mode {n}",
+                    kori.segment_split(got, rows, I_n, th,
+                                       out=_nan((K, I_n, R))), K,
+                    lambda t: kori.segment_split_plain(got[t], rows[t], I_n),
+                    lambda t: kori.segment_split(got[t], rows[t], I_n, th,
+                                                 out=_nan((I_n, R))))
+            entry.update(
+                max_abs_err=err, with_fixup_max_abs_err=whole,
+                ms=_ms(m, kern, *args, iters=5),
+                solo_ms=_ms(m, lambda: kori.tenant_loop(kern, (K,), *args),
+                            iters=3),
+                plain_ms=_ms(m, lambda: kori.tenant_loop(plain, (K,), *args),
+                             iters=1))
+            entry["bound_ms"], entry["bound_by"] = _bound(nbytes, 0.0)
+            out.append(entry)
+            if name == "carry_runs":
+                o, crow, cval = got
+                out.append({
+                    "kernel": "carry_fixup", "class": label, "mode": n,
+                    "tenants": K, "elements": crow.numel(),
+                    "max_abs_err": whole,
+                    "ms": _ms(m, lambda: kori.carry_fixup(crow, cval, o),
+                              iters=5),
+                    "solo_ms": _ms(m, lambda: [kori.carry_fixup(
+                        crow[t], cval[t], o[t]) for t in range(K)], iters=3),
+                    "plain_ms": _ms(m, lambda: [kori.carry_fixup_plain(
+                        crow[t], cval[t], o[t]) for t in range(K)], iters=1),
+                    "bound_ms": _bound(crow.numel() * (4 + 4 * R), 0)[0],
+                    "bound_by": "bytes"})
+                del o, crow, cval
+            elif name == "oriented_partials":
+                out.append({
+                    "kernel": "segment_split", "class": label, "mode": n,
+                    "tenants": K, "elements": K * M,
+                    "max_abs_err": split_err, "with_fixup_max_abs_err": whole,
+                    "ms": _ms(m, kori.segment_split, got, rows, I_n, th,
+                              iters=5),
+                    "solo_ms": _ms(m, lambda: kori.tenant_loop(
+                        lambda a, r: kori.segment_split(a, r, I_n, th),
+                        (K,), got, rows), iters=3),
+                    "plain_ms": _ms(m, lambda: kori.tenant_loop(
+                        lambda a, r: kori.segment_split_plain(a, r, I_n),
+                        (K,), got, rows), iters=1),
+                    "bound_ms": _bound(K * M * 4 + K * I_n * R * 4
+                                       + K * M * R * 4, 0)[0],
+                    "bound_by": "bytes"})
+            del got
+        del vb, rows, words, values, B, phi_op
+    for e in out:
+        print(f"chip_smoke: {label} tenant axis {e['kernel']} mode "
+              f"{e['mode']}: {e['ms']:.3f} ms for {e['tenants']} tenants "
+              f"against {e['solo_ms']:.3f} ms in {e['tenants']} solo "
+              f"launches (plain {e['plain_ms']:.2f}, bound "
+              f"{e['bound_ms']:.4f}), max_abs_err {e['max_abs_err']}")
+    return out
+
+
+def run_bucket(m, name, spec, seeds_offset=0) -> dict:
+    """One shape class: its tenants, the class plan, batched CP-ALS (5
+    sweeps) and CP-APR (3 outer iterations) counted, every tenant against
+    its solo run on the padded tensor bit for bit, four against their
+    unpadded solo runs, and the tenant-axis launches."""
+    shc, cpals, cpapr, batched = (m["shapeclass"], m["cpals"], m["cpapr"],
+                                  m["batched"])
+    t0 = time.perf_counter()
+    xs = _bucket_tensors(m, spec)
+    gen_s = time.perf_counter() - t0
+    scs = {shc.classify(x, RANK) for x in xs}
+    if len(scs) != 1:
+        _fail(f"class {name}: tenants fall into {len(scs)} classes")
+    (sc,) = scs
+    p = m["plan"].make_class_plan(sc)
+    t0 = time.perf_counter()
+    ats, views = _members(m, xs, sc, p)
+    _sync()
+    build_s = time.perf_counter() - t0
+    K, dims = len(xs), [x.dims for x in xs]
+    seeds = [seeds_offset + i for i in range(K)]
+    als_kernels = _bucket_kernels(m, p, apr=False)
+    apr_kernels = _bucket_kernels(m, p, apr=True)
+    apr_expect = set(apr_kernels) | ({"delinearize"}
+                                     if p.pi_policy.value == "pre" else set())
+    n_sweeps, k_max = 5, 3
+    params = cpapr.CpaprParams(k_max=k_max, l_max=10)
+    res_als, als_s, als_c = _counted(
+        m, f"class {name} batched cp_als", lambda: batched.batched_cp_als(
+            ats, views, dims, RANK, plan=p, n_iters=n_sweeps, tol=0.0,
+            seeds=seeds, capacity=K), set(als_kernels))
+    for k, per in als_kernels.items():
+        if als_c["launches"][k] != per * res_als.n_sweeps:
+            _fail(f"class {name}: {k} launched {als_c['launches'][k]} "
+                  f"times in {res_als.n_sweeps} sweeps, expected {per} a "
+                  f"sweep")
+    res_apr, apr_s, apr_c = _counted(
+        m, f"class {name} batched cp_apr", lambda: batched.batched_cp_apr(
+            ats, views, dims, RANK, plan=p, params=params, seeds=seeds,
+            capacity=K), apr_expect)
+    # Every tenant against its solo run on the padded tensor, bit for bit.
+    solo_als_s = solo_apr_s = 0.0
+    for i in range(K):
+        init = cpals.init_factors(dims[i], RANK, seed=seeds[i])
+        _sync()
+        t0 = time.perf_counter()
+        solo = cpals.cp_als(ats[i], RANK, n_iters=n_sweeps, tol=0.0,
+                            plan=p, views=views[i],
+                            factors=batched.embed_factors(init, sc.dims))
+        _sync()
+        solo_als_s += time.perf_counter() - t0
+        _same_bits(f"class {name} tenant {i} cp_als", res_als.results[i],
+                   solo, ("fits",))
+        lam0, f0 = cpapr.init_factors(dims[i], RANK, seed=seeds[i],
+                                      total=float(ats[i].values.sum()))
+        _sync()
+        t0 = time.perf_counter()
+        solo = cpapr.cp_apr(ats[i], RANK, params, plan=p, views=views[i],
+                            factors=batched.embed_factors(f0, sc.dims),
+                            lam=lam0)
+        _sync()
+        solo_apr_s += time.perf_counter() - t0
+        _same_bits(f"class {name} tenant {i} cp_apr", res_apr.results[i],
+                   solo, ("kkt_violations", "n_outer", "n_inner_total"))
+    # Four tenants against their own unpadded solo runs, under the class
+    # plan's routing and tiles.
+    unpadded = []
+    for i in range(4):
+        raw = m["alto"].build_device(xs[i], n_partitions=sc.n_partitions)
+        rp = dataclasses.replace(p, meta=raw.meta)
+        r = cpals.cp_als(raw, RANK, n_iters=n_sweeps, tol=0.0, plan=rp,
+                         factors=cpals.init_factors(dims[i], RANK,
+                                                    seed=seeds[i]))
+        g = res_als.results[i]
+        if abs(g.fits[-1] - r.fits[-1]) > SOLO_FIT:
+            _fail(f"class {name} tenant {i}: last fit {g.fits[-1]} vs "
+                  f"unpadded {r.fits[-1]}")
+        e_als = _near(f"class {name} tenant {i} cp_als", g, r)
+        lam0, f0 = cpapr.init_factors(dims[i], RANK, seed=seeds[i],
+                                      total=float(raw.values.sum()))
+        ra = cpapr.cp_apr(raw, RANK, params, plan=rp, factors=f0, lam=lam0)
+        e_apr = _near(f"class {name} tenant {i} cp_apr",
+                      res_apr.results[i], ra)
+        unpadded.append({"tenant": i, "plan": r.plan.traversals(),
+                         "fit_diff": g.fits[-1] - r.fits[-1],
+                         "als_max_abs": e_als, "apr_max_abs": e_apr})
+        del raw
+    kernels = check_tenant_kernels(m, p, ats, views, res_als, res_apr, name)
+    info = {
+        "class": {"dims": sc.dims, "nnz": sc.nnz, "tenants": K,
+                  "n_partitions": sc.n_partitions},
+        "traversals": p.traversals(), "pi_policy": p.pi_policy.value,
+        "tiles": [(mp.r_block, mp.block_m, mp.threads) for mp in p.modes],
+        "gen_s": gen_s, "build_s": build_s,
+        "tenant_nnz": [x.nnz for x in xs],
+        "cp_als": {"seconds": als_s, "sweep_ms": als_s / n_sweeps * 1e3,
+                   "solo_sweep_ms_sum": solo_als_s / n_sweeps * 1e3,
+                   "tenants_per_s": K / als_s,
+                   "solo_tenants_per_s": K / solo_als_s,
+                   "fits": [r.fits for r in res_als.results],
+                   "launches": als_c["launches"]},
+        "cp_apr": {"seconds": apr_s, "n_outer": res_apr.n_outer,
+                   "outer_ms": apr_s / res_apr.n_outer * 1e3,
+                   "solo_outer_ms_sum": solo_apr_s / k_max * 1e3,
+                   "tenants_per_s": K / apr_s,
+                   "solo_tenants_per_s": K / solo_apr_s,
+                   "kkt_violations": [r.kkt_violations
+                                      for r in res_apr.results],
+                   "n_inner_total": [r.n_inner_total
+                                     for r in res_apr.results],
+                   "launches": apr_c["launches"]},
+        "unpadded": unpadded, "tenant_axis": kernels,
+        "runs": [{"launches": als_c["launches"],
+                  "elements": als_c["elements"]},
+                 {"launches": apr_c["launches"],
+                  "elements": apr_c["elements"]}]}
+    print(f"chip_smoke: class {name} {sc.dims} nnz {sc.nnz}, {K} tenants, "
+          f"{p.traversals()} {p.pi_policy.value}: batched CP-ALS sweep "
+          f"{info['cp_als']['sweep_ms']:.2f} ms against "
+          f"{info['cp_als']['solo_sweep_ms_sum']:.2f} ms of {K} solo "
+          f"sweeps ({info['cp_als']['tenants_per_s']:.1f} against "
+          f"{info['cp_als']['solo_tenants_per_s']:.1f} tenants/s); "
+          f"CP-APR outer iteration {info['cp_apr']['outer_ms']:.1f} ms "
+          f"against {info['cp_apr']['solo_outer_ms_sum']:.1f} ms solo; "
+          f"every tenant equal to its solo run bit for bit; unpadded "
+          f"{unpadded}; launches {als_c['launches']} / "
+          f"{apr_c['launches']}")
+    return {**info, "sc": sc, "plan": p, "ats": ats, "views": views,
+            "xs": xs}
+
+
+def phase_batched(m) -> dict:
+    """Classes A and B (`BUCKET_CLASSES`), then the capacity check (16 and
+    64 tenants of class A launch the same kernels a sweep) and the class
+    plan's store key and warm store."""
+    import tempfile
+    t_start = time.perf_counter()
+    out = {}
+    a = run_bucket(m, "A", BUCKET_CLASSES["A"])
+    # Capacity 16 and 64: the same launches a sweep.
+    launches = {}
+    for cap in (16, 64):
+        _, _, c = _counted(
+            m, f"class A capacity {cap}", lambda: m["batched"].batched_cp_als(
+                a["ats"][:cap], a["views"][:cap],
+                [x.dims for x in a["xs"][:cap]], RANK, plan=a["plan"],
+                n_iters=1, tol=0.0, capacity=cap), {"carry_runs"})
+        launches[cap] = c["launches"]
+    if launches[16] != launches[64]:
+        _fail(f"capacity 16 and 64 launch differently: {launches}")
+    # The store key is the class's; a second make of the class plan under
+    # tune="auto" is a store hit.
+    ac, shc = m["autotune"], m["shapeclass"]
+    keys = {ac.class_plan_key(shc.classify(x, RANK), "cuda")
+            for x in a["xs"]}
+    if len(keys) != 1:
+        _fail(f"class A tenants give {len(keys)} store keys")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_plans_") as d:
+        store = pathlib.Path(d) / "plans.json"
+        t0 = time.perf_counter()
+        r0 = m["ops"].timing_runs()
+        tuned = m["plan"].make_class_plan(a["sc"], tune="auto",
+                                          at=a["ats"][0], store_path=store)
+        first = m["ops"].timing_runs() - r0
+        tune_s = time.perf_counter() - t0
+        r0 = m["ops"].timing_runs()
+        again = m["plan"].make_class_plan(a["sc"], tune="auto",
+                                          at=a["ats"][1], store_path=store)
+        second = m["ops"].timing_runs() - r0
+    if first == 0 or second != 0 or again != tuned:
+        _fail(f"class plan store: {first} timing runs, then {second}")
+    out["A"] = {k: v for k, v in a.items()
+                if k not in ("sc", "plan", "ats", "views", "xs")}
+    out["A"].update(capacity_launches=launches, store_key=keys.pop(),
+                    tune_timing_runs=first, tune_s=tune_s,
+                    second_make_timing_runs=second,
+                    tuned=[(mp.traversal.value, mp.block_m)
+                           for mp in tuned.modes])
+    del a
+    b = run_bucket(m, "B", BUCKET_CLASSES["B"], seeds_offset=1000)
+    out["B"] = {k: v for k, v in b.items()
+                if k not in ("sc", "plan", "ats", "views", "xs")}
+    del b
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"chip_smoke: batched phase {out['seconds']:.1f} s; class A "
+          f"capacity 16 and 64 launch {launches[16]}; class A store key "
+          f"{out['A']['store_key']}: {first} timing runs to tune "
+          f"({tune_s:.1f} s), {second} on the second make")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Incremental ingest and warm starts
+# ---------------------------------------------------------------------------
+
+def _same_tensor(label, got, ref) -> None:
+    if got.meta != ref.meta:
+        _fail(f"{label}: meta {got.meta} vs {ref.meta}")
+    for f in ("words", "values", "part_start", "part_end"):
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            _fail(f"{label}: {f} differ")
+
+
+def _delta(dims, n, seed, resident=None, dup=0, hi=None):
+    rng = np.random.default_rng(seed)
+    hi = hi or dims
+    coords = np.stack([rng.integers(0, h, n) for h in hi],
+                      axis=1).astype(np.int32)
+    if dup:
+        coords[:dup] = resident[rng.integers(0, resident.shape[0], dup)]
+    return coords, rng.integers(1, 10, n).astype(np.float32)
+
+
+CHICAGO_WARM_MARGIN = 1e-3   # first warm fit against the resident's last
+
+
+def warm_chicago(m, chicago, grown) -> dict:
+    """Warm- and cold-start CP-ALS (3 iterations) on the Chicago tensor
+    grown by an append, the warm one from `phase_chicago`'s model: the
+    first warm fit must reach that model's last fit less
+    `CHICAGO_WARM_MARGIN` (the delta is 1,000 of 5.3 M nonzeros), and
+    exceed the first cold fit."""
+    p = m["plan"].plan_for(grown, RANK)
+    expect = als_kernels(m, p)
+    last = chicago["run"]["fits"][-1]
+    warm, warm_s, warm_c = _counted(
+        m, "chicago warm cp_als", lambda: m["cpals"].cp_als(
+            grown, RANK, n_iters=3, tol=0.0, plan=p,
+            warm_start=chicago["run"]["res"]), expect)
+    cold, cold_s, cold_c = _counted(
+        m, "chicago cold cp_als", lambda: m["cpals"].cp_als(
+            grown, RANK, n_iters=3, tol=0.0, plan=p, seed=0), expect)
+    if not (warm.fits[0] >= last - CHICAGO_WARM_MARGIN
+            and warm.fits[0] > cold.fits[0]):
+        _fail(f"chicago warm start: first fit {warm.fits[0]} against the "
+              f"resident model's {last} (margin {CHICAGO_WARM_MARGIN}) "
+              f"and the cold start's {cold.fits[0]}")
+    print(f"chip_smoke: chicago grown to {grown.dims}: warm CP-ALS fits "
+          f"{warm.fits} from the resident model's {last}, cold {cold.fits}")
+    return {"resident_fit": last, "warm_fits": warm.fits,
+            "cold_fits": cold.fits, "warm_s": warm_s, "cold_s": cold_s,
+            "runs": [{"launches": c["launches"], "elements": c["elements"]}
+                     for c in (warm_c, cold_c)]}
+
+
+def phase_ingest(m, chicago, darpa) -> dict:
+    """Appends to the Chicago tensor against the host rebuild, the
+    warm-start CP-ALS on the grown Chicago tensor (`warm_chicago`), appends
+    to the DARPA tensor against the device rebuild, the warm-start CP-ALS
+    on the grown DARPA tensor, and the views an append drops."""
+    ingest, alto = m["ingest"], m["alto"]
+    out = {}
+    t_start = time.perf_counter()
+    at = chicago["at"]
+    resident = chicago["x"].coords
+    d = max(1, at.nnz // 100)
+    cases = {"sum": _delta(at.dims, d, 1),
+             "last": _delta(at.dims, d, 2, resident, dup=d // 4),
+             "growth": _delta(at.dims, 1000, 3,
+                              hi=(9000,) + at.dims[1:])}
+    for label, (coords, values) in cases.items():
+        policy = "last" if label == "last" else "sum"
+        _sync()
+        t0 = time.perf_counter()
+        got = ingest.append_delta(at, coords, values, policy=policy,
+                                  invalidate_stale=False)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = alto.merge_reference(at, coords, values, policy=policy)
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        _same_tensor(f"chicago append ({label})", got, ref)
+        out[f"chicago_{label}"] = {"delta": len(values), "append_ms": ms,
+                                   "host_rebuild_ms": ref_ms,
+                                   "dims": got.dims,
+                                   "re_encoded": got.meta.enc != at.meta.enc}
+        del ref
+    out["chicago_warm"] = warm_chicago(m, chicago, got)    # grown: the last
+    del got
+    # DARPA: append 1 % of its nonzeros, then push mode 2 past 2**25.
+    at = darpa["at"]
+    steps = {"append": _delta(at.dims, at.nnz // 100, 4),
+             "growth": _delta(at.dims, 1000, 5,
+                              hi=at.dims[:2] + (DARPA_MODE2_GROWTH,))}
+    cur = at
+    for label, (coords, values) in steps.items():
+        _sync()
+        t0 = time.perf_counter()
+        got = ingest.append_delta(cur, coords, values,
+                                  invalidate_stale=False)
+        _sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        merged = alto.merge_coo(alto.to_sparse(cur), coords, values)
+        _sync()
+        t0 = time.perf_counter()
+        ref = alto.build_device(merged, n_partitions=cur.n_partitions)
+        _sync()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+        _same_tensor(f"darpa append ({label})", got, ref)
+        out[f"darpa_{label}"] = {"delta": len(values), "append_ms": ms,
+                                 "device_rebuild_ms": ref_ms,
+                                 "dims": got.dims,
+                                 "re_encoded": got.meta.enc != cur.meta.enc}
+        del merged, ref
+        if cur is not at:
+            del cur
+        cur = got
+    grown = cur
+    # Warm start from phase_darpa's result against a cold start.
+    p = m["plan"].plan_for(grown, RANK)
+    expect = als_kernels(m, p)
+    warm, warm_s, warm_c = _counted(
+        m, "darpa warm cp_als", lambda: m["cpals"].cp_als(
+            grown, RANK, n_iters=3, tol=0.0, plan=p,
+            warm_start=darpa["run"]["res"]), expect)
+    cold, cold_s, cold_c = _counted(
+        m, "darpa cold cp_als", lambda: m["cpals"].cp_als(
+            grown, RANK, n_iters=3, tol=0.0, plan=p, seed=0), expect)
+    for label, r in (("warm", warm), ("cold", cold)):
+        if not all(math.isfinite(f) for f in r.fits):
+            _fail(f"darpa {label} cp_als fits {r.fits}")
+    # The views an append drops: none after a no-op, every mode after a
+    # content change.
+    views = m["views"]
+    views.build_views(at, darpa["plan"])
+    noop = ingest.append_delta(at, np.zeros((0, 3), np.int32),
+                               np.zeros(0, np.float32),
+                               invalidate_stale=False)
+    dropped_noop = views.invalidate_changed(at, noop)
+    content = ingest.append_delta(at, *steps["append"],
+                                  invalidate_stale=False)
+    dropped = views.invalidate_changed(at, content)
+    if dropped_noop != 0 or dropped < len(darpa["plan"].modes):
+        _fail(f"invalidate_changed dropped {dropped_noop} after a no-op "
+              f"append, {dropped} after a content one")
+    del noop, content
+    out.update(warm_fits=warm.fits, cold_fits=cold.fits,
+               warm_s=warm_s, cold_s=cold_s,
+               dropped_after_noop=dropped_noop, dropped_after_append=dropped,
+               grown_dims=grown.dims, seconds=time.perf_counter() - t_start,
+               runs=[*out["chicago_warm"]["runs"],
+                     *({"launches": c["launches"], "elements": c["elements"]}
+                       for c in (warm_c, cold_c))])
+    print(f"chip_smoke: ingest: " + "; ".join(
+        f"{k} {v['append_ms']:.1f} ms append against "
+        f"{v.get('host_rebuild_ms', v.get('device_rebuild_ms')):.1f} ms "
+        f"rebuild (delta {v['delta']}, re-encoded {v['re_encoded']})"
+        for k, v in out.items() if isinstance(v, dict) and "append_ms" in v)
+        + f"; darpa grown to {grown.dims}: warm CP-ALS fits {warm.fits} "
+        f"against cold {cold.fits}; views dropped: {dropped_noop} after a "
+        f"no-op append, {dropped} after a content append; "
+        f"{out['seconds']:.1f} s")
+    del grown
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Real-size kernel checks and timings
 # ---------------------------------------------------------------------------
 
@@ -2056,6 +2757,8 @@ def main() -> int:
     darpa_apr = phase_darpa_apr(m, darpa)
     d_str = phase_darpa_streamed(m, darpa, darpa_apr)
     c_str = phase_chicago_streamed(m, chicago)
+    buckets = phase_batched(m)
+    ingested = phase_ingest(m, chicago, darpa)
     split = {"chicago": carry_split(
                  m, chicago["at"], chicago["plan"],
                  chicago["run"]["res"].factors, (1, 2, 3), "chicago",
@@ -2066,7 +2769,8 @@ def main() -> int:
     runs = [chicago["run"], darpa["run"], darpa["onehot_run"],
             chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
-            c_str["run"]]
+            c_str["run"], *buckets["A"]["runs"], *buckets["B"]["runs"],
+            *ingested["runs"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
     launches["elements"] = {k: sum(r["elements"][k] for r in runs)
@@ -2092,6 +2796,11 @@ def main() -> int:
                            d_str["plan"].modes[2], d_str["run"]["res"],
                            d_str["apr_run"]["res"], launches)
     kernels.sort(key=lambda e: m["build"].KERNELS.index(e["name"]))
+    for e in kernels:       # the bucketed path's launches on the tenant axis
+        axis = [t for c in ("A", "B") for t in buckets[c]["tenant_axis"]
+                if t["kernel"] == e["name"]]
+        if axis:
+            e["tenant_axis"] = axis
     c_views = m["plan"].build_views(chicago["at"], cp)
     per_mode = {"chicago": mode_times(m, chicago["at"], cp, c_views, c_fs),
                 "darpa": mode_times(m, darpa["at"], dp,
@@ -2166,6 +2875,7 @@ def main() -> int:
         | {"cp_apr": _apr_detail(c_str["run"]),
            "cp_apr_incore": _apr_detail(c_str["incore_run"])},
         "overlap_efficiency": overlap, "tuning": tuning,
+        "batched": buckets, "ingest": ingested,
         "kernels": kernels, "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"

@@ -11,7 +11,9 @@ from repro_torch.core.heuristics import Traversal
 # core modules; they load on first use, so a kernel module imported first
 # meets no half-built package.
 _LAZY = {"ExecutionPlan": "plan", "ModePlan": "plan", "make_plan": "plan",
-         "cpals": "cpals", "cpapr": "cpapr"}
+         "make_class_plan": "plan", "cpals": "cpals", "cpapr": "cpapr",
+         "batched": "batched", "ingest": "ingest",
+         "shapeclass": "shapeclass"}
 
 __all__ = [
     "AltoEncoding", "make_encoding", "AltoMeta", "AltoTensor",

@@ -251,3 +251,77 @@ def to_sparse(at: AltoTensor) -> SparseTensor:
     coords = at.coords()[:at.nnz].cpu().numpy()
     values = at.values[:at.nnz].cpu().numpy()
     return SparseTensor(at.dims, coords, values)
+
+
+# ---------------------------------------------------------------------------
+# Incremental-ingest host reference (`core.ingest`'s parity oracle)
+# ---------------------------------------------------------------------------
+
+MERGE_POLICIES = ("sum", "last")
+
+
+def grown_dims(dims, coords, override=None) -> tuple[int, ...]:
+    """Smallest extents covering ``dims`` and every delta coordinate;
+    ``override`` fixes them (it must cover both). Growth can change
+    `make_encoding`'s bit assignment, so the merges re-linearize the
+    resident stream when the encoding moves."""
+    coords = np.asarray(coords)
+    need = [int(d) for d in dims]
+    if coords.size:
+        mx = coords.reshape(-1, len(need)).max(axis=0)
+        need = [max(d, int(m) + 1) for d, m in zip(need, mx)]
+    if override is None:
+        return tuple(need)
+    out = tuple(int(d) for d in override)
+    if len(out) != len(need) or any(o < n for o, n in zip(out, need)):
+        raise ValueError(f"dims override {out} does not cover required "
+                         f"extents {tuple(need)}")
+    return out
+
+
+def merge_coo(x: SparseTensor, coords, values, policy: str = "sum",
+              dims=None) -> SparseTensor:
+    """The merged COO an append denotes: the resident entries, then the
+    delta in input order, with the duplicate policy applied over whole
+    coordinates (equal linearized keys).
+
+    * ``"sum"``: every entry is kept; duplicates sit adjacent after the
+      key sort and add up in every reduction, as `build` treats
+      duplicate input.
+    * ``"last"``: the last-written entry of each duplicate group keeps its
+      value, every earlier one is masked to 0 (a mask, no arithmetic; a
+      value 0 acts as a delete).
+
+    The entry count is always ``x.nnz + len(values)``."""
+    if policy not in MERGE_POLICIES:
+        raise ValueError(f"policy {policy!r}: expected one of "
+                         f"{MERGE_POLICIES}")
+    coords = np.asarray(coords, dtype=np.int32).reshape(-1, x.ndim)
+    values = np.asarray(values).astype(x.values.dtype, copy=False)
+    new_dims = grown_dims(x.dims, coords, dims)
+    all_c = np.concatenate([x.coords, coords], axis=0)
+    all_v = np.concatenate([x.values, values], axis=0)
+    if policy == "last" and all_v.shape[0] > 1:
+        words = enc_mod.linearize_np(make_encoding(new_dims), all_c)
+        order = enc_mod.sort_key_np(words)
+        srt = words[order]
+        is_last = np.concatenate(
+            [np.any(srt[1:] != srt[:-1], axis=-1), [True]])
+        keep = np.zeros(all_v.shape[0], dtype=bool)
+        keep[order] = is_last
+        all_v = np.where(keep, all_v, np.zeros_like(all_v))
+    return SparseTensor(new_dims, all_c, all_v)
+
+
+def merge_reference(at: AltoTensor, coords, values, policy: str = "sum",
+                    dims=None, n_partitions: int | None = None,
+                    compute_reuse: bool = True) -> AltoTensor:
+    """The from-scratch host rebuild an append must equal bit for bit:
+    `build` over `merge_coo` under the grown dims, placed on ``at``'s
+    device."""
+    x = to_sparse(at)
+    merged = merge_coo(x, coords, values, policy=policy,
+                       dims=grown_dims(x.dims, coords, dims))
+    L = at.meta.n_partitions if n_partitions is None else n_partitions
+    return build(merged, n_partitions=L, compute_reuse=compute_reuse,
+                 device=at.device)

@@ -119,6 +119,16 @@ def plan_key(meta: AltoMeta, rank: int, backend: str, *, device=None,
     return hashlib.sha256(blob.encode()).hexdigest()[:32]
 
 
+def class_plan_key(sc, backend: str, **kwargs) -> str:
+    """The store key of a shape class (`core.shapeclass.ShapeClass`):
+    `plan_key` over its canonical meta, a function of the class alone, so
+    every tenant it admits finds the one entry: a second tenant of a tuned
+    class costs zero timing runs."""
+    from repro_torch.core import shapeclass
+    return plan_key(shapeclass.canonical_meta(sc), sc.rank, backend,
+                    **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # The on-disk store
 # ---------------------------------------------------------------------------

@@ -1,0 +1,447 @@
+"""Batched CP-ALS / CP-APR: a bucket of same-class tenants per launch.
+
+Tenants that `shapeclass.classify` buckets together share an encoding, a
+padded stream length and the canonical `AltoMeta`, so their streams,
+oriented views and factors stack along a leading tenant axis
+(`stack_tenants`). The JAX package runs its single-tensor sweeps under
+``vmap``; the port writes the batch dimension out: the oriented kernels
+take the tenant axis (`kernels.mttkrp_oriented`), so one launch per kernel
+and mode serves the whole bucket, whatever its size, and each tenant gets
+the bits of its solo launch.
+
+The dense algebra is not batched: a batched GEMM or pseudo-inverse is not
+promised the bits of the unbatched call, so the Gram matrices, the pinv
+solve, the normalization, the CP-APR λ and the float64 fit run per slot
+with the solo drivers' own calls. What leaves the card is one copy per
+sweep (CP-ALS: every active slot's fit) or per inner step (CP-APR: every
+slot's KKT violation).
+
+Per-tenant convergence: a converged tenant keeps its slot (its mates need
+the stacked shapes) and freezes: each update is computed for every slot
+and applied through ``torch.where(active, new, old)``, so a frozen slot's
+factors, λ and (CP-APR) Φ memory keep their bits while the others sweep.
+Within a CP-APR mode update the inner loop runs while any active slot is
+not done; a done slot's B is frozen the same way, and its Φ, recomputed
+from the same B, keeps its bits.
+
+Exactness of bucketing: each tenant enters with its solo start embedded
+in the class dims (`embed_factors`: the extra rows are zeros). Padded
+elements carry value 0 and padded factor rows receive no contributions,
+so the bucket's trajectory is the solo trajectory on the padded tensor,
+zeros appended; the answer is sliced back to the tenant's dims.
+
+Short buckets are filled to ``capacity`` with inactive replicas of slot
+0, so every bucket of a class has one shape and launches the same
+kernels. `sweep_traces` counts the batched set-ups (one per algorithm and
+class plan, and per mode update for CP-APR), the port's counterpart of
+the JAX package's jit traces: a class costs a few, never one per tenant.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import cpals, cpapr, heuristics
+from repro_torch.core import plan as plan_mod
+from repro_torch.core.alto import AltoTensor, OrientedView
+from repro_torch.kernels import ops
+
+_SWEEP_KEYS: set = set()
+_SWEEP_TRACES = {"als": 0, "apr": 0}
+_SWEEP_LOCK = threading.Lock()
+
+
+def sweep_traces() -> dict[str, int]:
+    """Batched set-ups per algorithm: distinct (algorithm, class plan)
+    keys, and for CP-APR (plan, mode, first outer iteration, Π policy,
+    parameters), the batched drivers have run."""
+    with _SWEEP_LOCK:
+        return dict(_SWEEP_TRACES)
+
+
+def sweep_cache_clear() -> None:
+    with _SWEEP_LOCK:
+        _SWEEP_KEYS.clear()
+        _SWEEP_TRACES["als"] = 0
+        _SWEEP_TRACES["apr"] = 0
+
+
+def _note_sweep(key: tuple) -> None:
+    with _SWEEP_LOCK:
+        if key not in _SWEEP_KEYS:
+            _SWEEP_KEYS.add(key)
+            _SWEEP_TRACES[key[0]] += 1
+
+
+def stack_tenants(items: Sequence):
+    """Stack same-class members along a new leading tenant axis: tensors,
+    lists and tuples of them, dicts of them (one tenant's views),
+    `OrientedView` and `AltoTensor` (which must share their meta, as the
+    canonicalized members of a class do)."""
+    items = list(items)
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, (list, tuple)):
+        return [stack_tenants([it[k] for it in items])
+                for k in range(len(first))]
+    if isinstance(first, dict):
+        return {k: stack_tenants([it[k] for it in items]) for k in first}
+    if isinstance(first, (OrientedView, AltoTensor)):
+        if any(it.meta != first.meta for it in items):
+            raise ValueError("tenants differ in meta: canonicalize "
+                             "(shapeclass.canonicalize_tensor) first")
+        fields = [f.name for f in dataclasses.fields(first)
+                  if isinstance(getattr(first, f.name), torch.Tensor)]
+        return dataclasses.replace(first, **{
+            f: torch.stack([getattr(it, f) for it in items])
+            for f in fields})
+    raise TypeError(f"cannot stack {type(first).__name__}")
+
+
+def embed_factors(factors: Sequence[torch.Tensor],
+                  class_dims: Sequence[int]) -> list[torch.Tensor]:
+    """Factors at a tenant's dims embedded in the class dims, the extra
+    rows zeros (they stay exactly zero through every update)."""
+    out = []
+    for A, D in zip(factors, class_dims):
+        pad = int(D) - A.shape[0]
+        if pad < 0:
+            raise ValueError(f"factor rows {A.shape[0]} exceed class "
+                             f"dim {D}")
+        out.append(torch.cat([A, A.new_zeros((pad, A.shape[1]))])
+                   if pad else A)
+    return out
+
+
+def _slice_factors(factors, dims):
+    return [A[:int(I)] for A, I in zip(factors, dims)]
+
+
+def _tenant_view(view: OrientedView, t: int) -> OrientedView:
+    return dataclasses.replace(view, rows=view.rows[t], words=view.words[t],
+                               values=view.values[t], perm=view.perm[t])
+
+
+def _check_bucket(ats, views, real_dims, plan, capacity) -> int:
+    """Validate a bucket; returns its capacity."""
+    K = len(ats)
+    if len(views) != K or len(real_dims) != K:
+        raise ValueError("ats/views/real_dims length mismatch")
+    for at in ats:
+        if at.meta != plan.meta:
+            raise ValueError("tenant meta differs from plan meta — "
+                             "canonicalize (shapeclass.canonicalize_tensor) "
+                             "before batching")
+    if plan.streaming is not None or not all(
+            heuristics.is_oriented(m.traversal) for m in plan.modes):
+        raise ValueError("a bucket needs an in-core plan routing every mode "
+                         "output-oriented (plan.make_class_plan)")
+    cap = K if capacity is None else int(capacity)
+    if cap < K:
+        raise ValueError(f"capacity {cap} < bucket size {K}")
+    return cap
+
+
+def _fill(items: list, cap: int) -> list:
+    """``items`` filled to ``cap`` with replicas of slot 0."""
+    return items + [items[0]] * (cap - len(items))
+
+
+def _mttkrp(plan, views_b, factors_b, mode: int) -> torch.Tensor:
+    """The bucket's ``(T, I_n, R)`` MTTKRP: one launch per kernel on the
+    kernel backend, the reference traversal tenant by tenant else."""
+    if plan.backend == "cuda":
+        return plan_mod.execute_mttkrp(plan, None, views_b, factors_b, mode)
+    view = views_b[mode]
+    return torch.stack([
+        plan_mod.execute_mttkrp(plan, None, {mode: _tenant_view(view, t)},
+                                [A[t] for A in factors_b], mode)
+        for t in range(view.rows.shape[0])])
+
+
+def _phi(plan, view_b, B, mode: int, eps: float, factors=None, pi=None):
+    """The bucket's ``(T, I_n, R)`` Φ, as `_mttkrp`."""
+    if plan.backend == "cuda":
+        return plan_mod.execute_phi(plan, None, view_b, B, mode,
+                                    factors=factors, pi=pi, eps=eps)
+    return torch.stack([
+        plan_mod.execute_phi(
+            plan, None, _tenant_view(view_b, t), B[t], mode,
+            factors=None if factors is None else [A[t] for A in factors],
+            pi=None if pi is None else pi[t], eps=eps)
+        for t in range(B.shape[0])])
+
+
+def pi_rows(enc, words_b: torch.Tensor, factors_b, mode: int):
+    """A bucket's Π rows ``(T, M, R)`` (ALTO-PRE): the stacked words
+    decoded in one K4 launch, each tenant's factor rows gathered at its
+    own offset and multiplied in increasing mode order, as
+    `core.mttkrp.krp_rows` forms a solo Π."""
+    T, M, W = words_b.shape
+    coords = ops.delinearize(enc, words_b.reshape(T * M, W)).reshape(
+        T, M, enc.ndim)
+    base = torch.arange(T, device=words_b.device)[:, None]
+    out = None
+    for m, A in enumerate(factors_b):
+        if m == mode:
+            continue
+        I, R = A.shape[1:]
+        rows = A.reshape(T * I, R)[base * I + coords[..., m].long()]
+        out = rows if out is None else out * rows
+    return out.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Batched CP-ALS
+# ---------------------------------------------------------------------------
+
+def _als_sweep(plan, views_b, factors_b, lam_b):
+    """One CP-ALS sweep of every slot: `cpals._sweep` with the MTTKRP of
+    the whole bucket and the dense algebra slot by slot."""
+    T = lam_b.shape[0]
+    N = len(factors_b)
+    factors_b = list(factors_b)
+    grams = [[A.T @ A for A in F.unbind(0)] for F in factors_b]
+    lams, M = [], None
+    for n in range(N):
+        M = _mttkrp(plan, views_b, factors_b, n)
+        new, lams = [], []
+        for t in range(T):
+            V = None
+            for m in range(N):
+                if m == n:
+                    continue
+                V = grams[m][t] if V is None else V * grams[m][t]
+            A = M[t] @ torch.linalg.pinv(V)
+            lam = torch.linalg.vector_norm(A, dim=0)
+            lam = torch.where(lam > 0, lam, torch.ones_like(lam))
+            A = A / lam[None, :]
+            new.append(A)
+            lams.append(lam)
+            grams[n][t] = A.T @ A
+        factors_b[n] = torch.stack(new)
+    return factors_b, torch.stack(lams), M
+
+
+@dataclasses.dataclass
+class BatchedCpalsResult:
+    results: list[cpals.CpalsResult]   # per tenant, factors at its dims
+    n_sweeps: int                      # batched sweeps run
+
+
+def batched_cp_als(ats: Sequence[AltoTensor],
+                   views: Sequence[dict[int, OrientedView]],
+                   real_dims: Sequence[tuple[int, ...]],
+                   rank: int, *,
+                   plan: plan_mod.ExecutionPlan,
+                   n_iters: int = 50, tol: float = 1e-5,
+                   seeds: Sequence[int] | None = None,
+                   init_factors: Sequence[list[torch.Tensor]] | None = None,
+                   capacity: int | None = None) -> BatchedCpalsResult:
+    """CP-ALS over K same-class tenants, one bucket.
+
+    ``ats`` and ``views`` are the canonicalized class members (all with
+    ``plan.meta``); ``real_dims[i]`` are tenant i's own extents, for its
+    solo start (`cpals.init_factors` with ``seeds[i]``, or
+    ``init_factors[i]``) and to slice its answer out. ``capacity`` (≥ K)
+    fixes the stacked tenant axis: short buckets are filled with inactive
+    replicas of slot 0. Each tenant stops on the solo driver's rule (fit
+    change below ``tol``) and freezes while its mates sweep.
+    """
+    K = len(ats)
+    if K == 0:
+        return BatchedCpalsResult(results=[], n_sweeps=0)
+    cap = _check_bucket(ats, views, real_dims, plan, capacity)
+    if plan.rank != rank:
+        raise ValueError(f"plan was built for rank {plan.rank}, "
+                         f"batched_cp_als called with rank {rank}")
+    _note_sweep(("als", plan))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, dtype = ats[0].device, ats[0].values.dtype
+    if seeds is None:
+        seeds = [0] * K
+    if init_factors is None:
+        init_factors = [cpals.init_factors(real_dims[i], rank,
+                                           seed=int(seeds[i]), dtype=dtype,
+                                           device=dev) for i in range(K)]
+    factors_k = [embed_factors([f.to(device=dev, dtype=dtype)
+                                for f in fs], plan.meta.dims)
+                 for fs in init_factors]
+    views_b = stack_tenants(_fill(list(views), cap))
+    factors_b = stack_tenants(_fill(factors_k, cap))
+    lam_b = torch.ones((cap, rank), dtype=dtype, device=dev)
+    normX2 = [float((at.values.detach().double() ** 2).sum()) for at in ats]
+    active = np.zeros(cap, bool)
+    active[:K] = True
+    fits: list[list[float]] = [[] for _ in range(K)]
+    prev = np.full(K, -np.inf)
+    n_sweeps = 0
+    for _ in range(n_iters):
+        new_f, new_lam, M_last = _als_sweep(plan, views_b, factors_b, lam_b)
+        a = torch.from_numpy(active).to(dev)
+        factors_b = [torch.where(a[:, None, None], nf, f)
+                     for nf, f in zip(new_f, factors_b)]
+        lam_b = torch.where(a[:, None], new_lam, lam_b)
+        n_sweeps += 1
+        live = [i for i in range(K) if active[i]]
+        now = torch.stack([cpals._fit_tensor(
+            M_last[i], [A[i] for A in factors_b], lam_b[i], normX2[i])
+            for i in live]).cpu().tolist()          # one copy a sweep
+        for i, fit in zip(live, now):
+            fits[i].append(fit)
+            if abs(fit - prev[i]) < tol:
+                active[i] = False
+            prev[i] = fit
+        if not active[:K].any():
+            break
+    results = [cpals.CpalsResult(
+        lam=lam_b[i], factors=_slice_factors([A[i] for A in factors_b],
+                                             real_dims[i]),
+        fits=fits[i], n_iters=len(fits[i]), plan=plan) for i in range(K)]
+    return BatchedCpalsResult(results=results, n_sweeps=n_sweeps)
+
+
+# ---------------------------------------------------------------------------
+# Batched CP-APR
+# ---------------------------------------------------------------------------
+
+def _apr_mode_update(plan, view_b, mode: int, lam_b, factors_b, phi_prev,
+                     active, first_outer: bool, pre_pi: bool,
+                     p: cpapr.CpaprParams):
+    """One Alg. 2 mode update of every slot (`cpapr._mode_update`), the Φ
+    of the whole bucket per inner step. Returns (A, λ, Φ of the final B,
+    converged, inner steps, KKT of the first step), the last three as
+    numpy arrays over the slots."""
+    A = factors_b[mode]
+    T = A.shape[0]
+    if first_outer:
+        S = torch.zeros_like(A)
+    else:
+        S = torch.where((A < p.kappa_tol) & (phi_prev > 1.0),
+                        A.new_tensor(p.kappa), A.new_tensor(0.0))
+    B = (A + S) * lam_b[:, None, :]
+    if pre_pi:
+        operands = dict(pi=pi_rows(plan.meta.enc, view_b.words, factors_b,
+                                   mode))
+    else:
+        operands = dict(factors=factors_b)
+    tau = float(np.float32(p.tau))
+    done = np.zeros(T, bool)
+    n_inner = np.zeros(T, np.int64)
+    kkt_first = np.zeros(T)
+    Phi = None
+    for step in range(p.l_max):
+        if step and not (active & ~done).any():
+            break                  # every active slot froze
+        Phi = _phi(plan, view_b, B, mode, p.eps_div, **operands)
+        kkt = torch.minimum(B, 1.0 - Phi).abs().amax(dim=(1, 2))
+        kkt = kkt.cpu().numpy().astype(np.float64)  # one copy a step
+        if step == 0:
+            kkt_first = kkt
+        done |= kkt < tau
+        upd = torch.from_numpy(~done).to(B.device)[:, None, None]
+        B = torch.where(upd, B * Phi, B)
+        n_inner += ~done
+    lam_new, A_new = [], []
+    for t in range(T):
+        lam_t = B[t].sum(dim=0)
+        lam_t = torch.where(lam_t > 0, lam_t, torch.ones_like(lam_t))
+        lam_new.append(lam_t)
+        A_new.append(B[t] / lam_t[None, :])
+    return (torch.stack(A_new), torch.stack(lam_new), Phi, n_inner == 0,
+            n_inner, kkt_first)
+
+
+@dataclasses.dataclass
+class BatchedCpaprResult:
+    results: list[cpapr.CpaprResult]   # per tenant, factors at its dims
+    n_outer: int                       # batched outer iterations run
+
+
+def batched_cp_apr(ats: Sequence[AltoTensor],
+                   views: Sequence[dict[int, OrientedView]],
+                   real_dims: Sequence[tuple[int, ...]],
+                   rank: int, *,
+                   plan: plan_mod.ExecutionPlan,
+                   params: cpapr.CpaprParams | None = None,
+                   seeds: Sequence[int] | None = None,
+                   init_factors: Sequence[tuple] | None = None,
+                   capacity: int | None = None) -> BatchedCpaprResult:
+    """CP-APR over K same-class tenants, one bucket; the stacking and
+    freezing contract of `batched_cp_als`. Tenant i starts from
+    `cpapr.init_factors` at its dims with ``seeds[i]`` and λ = Σx / R, or
+    from ``init_factors[i] = (λ, factors)``, embedded; it freezes (factors,
+    λ and Φ memory) once every mode reports KKT convergence, the solo
+    driver's rule. The Π policy is the plan's."""
+    K = len(ats)
+    if K == 0:
+        return BatchedCpaprResult(results=[], n_outer=0)
+    cap = _check_bucket(ats, views, real_dims, plan, capacity)
+    if plan.rank != rank:
+        raise ValueError(f"plan was built for rank {plan.rank}, "
+                         f"batched_cp_apr called with rank {rank}")
+    p = params or cpapr.CpaprParams()
+    N = len(plan.meta.dims)
+    dev, dtype = ats[0].device, ats[0].values.dtype
+    pre_pi = plan.pi_policy is heuristics.PiPolicy.PRE
+    if seeds is None:
+        seeds = [0] * K
+    if init_factors is None:
+        init_factors = [cpapr.init_factors(
+            real_dims[i], rank, seed=int(seeds[i]),
+            total=float(ats[i].values.sum()), dtype=dtype, device=dev)
+            for i in range(K)]
+    lam_k = [torch.as_tensor(lam).to(device=dev, dtype=dtype)
+             for lam, _ in init_factors]
+    factors_k = [embed_factors([f.to(device=dev, dtype=dtype) for f in fs],
+                               plan.meta.dims) for _, fs in init_factors]
+    views_b = stack_tenants(_fill(list(views), cap))
+    factors_b = stack_tenants(_fill(factors_k, cap))
+    lam_b = stack_tenants(_fill(lam_k, cap))
+    phi_b = [torch.zeros_like(A) for A in factors_b]
+
+    active = np.zeros(cap, bool)
+    active[:K] = True
+    kkt_hist: list[list[float]] = [[] for _ in range(K)]
+    n_inner_tot = np.zeros(cap, np.int64)
+    n_outer_seen = np.zeros(K, np.int64)
+    n_outer = 0
+    for outer in range(1, p.k_max + 1):
+        n_outer = outer
+        conv_all = np.ones(cap, bool)
+        kkt_max = np.zeros(cap)
+        for n in range(N):
+            _note_sweep(("apr", plan, n, outer == 1, pre_pi, p))
+            A, lam_new, Phi, conv, n_inner, kkt = _apr_mode_update(
+                plan, views_b[n], n, lam_b, factors_b, phi_b[n], active,
+                outer == 1, pre_pi, p)
+            a = torch.from_numpy(active).to(dev)
+            factors_b = list(factors_b)
+            factors_b[n] = torch.where(a[:, None, None], A, factors_b[n])
+            lam_b = torch.where(a[:, None], lam_new, lam_b)
+            phi_b[n] = torch.where(a[:, None, None], Phi, phi_b[n])
+            conv_all &= conv
+            n_inner_tot += np.where(active, n_inner, 0)
+            # Python's max, as the solo driver folds (NaN-blind).
+            kkt_max = np.array([max(a, b) for a, b in zip(kkt_max, kkt)])
+        for i in range(K):
+            if active[i]:
+                kkt_hist[i].append(float(kkt_max[i]))
+                n_outer_seen[i] = outer
+        active &= ~conv_all
+        if not active[:K].any():
+            break
+    traversals = [m.traversal.value for m in plan.modes]
+    results = [cpapr.CpaprResult(
+        lam=lam_b[i], factors=_slice_factors([A[i] for A in factors_b],
+                                             real_dims[i]),
+        kkt_violations=kkt_hist[i], log_likelihoods=[],
+        n_outer=int(n_outer_seen[i]), n_inner_total=int(n_inner_tot[i]),
+        pi_policy=plan.pi_policy.value, traversals=traversals, plan=plan)
+        for i in range(K)]
+    return BatchedCpaprResult(results=results, n_outer=n_outer)

@@ -89,8 +89,14 @@ def _sweep(plan, at: AltoTensor, views, factors, lam):
 def _fit(M_last, factors, lam, normX2: float) -> float:
     """Kolda–Bader fit from sweep-consistent state, in float64 on the
     factors' device; the fit is the one value copied back."""
+    return float(_fit_tensor(M_last, factors, lam, normX2))
+
+
+def _fit_tensor(M_last, factors, lam, normX2: float) -> torch.Tensor:
+    """`_fit` as a 0-d float64 tensor on the factors' device, not yet
+    copied back (the batched driver copies a bucket's fits at once)."""
     if normX2 == 0.0:
-        return 1.0
+        return torch.ones((), dtype=torch.float64, device=lam.device)
     lam64 = lam.double()
     inner = ((factors[-1].double() * M_last.double()).sum(dim=0)
              * lam64).sum()
@@ -101,19 +107,34 @@ def _fit(M_last, factors, lam, normX2: float) -> float:
         V = gram if V is None else V * gram
     norm_model2 = (torch.outer(lam64, lam64) * V).sum()
     resid2 = (normX2 + norm_model2 - 2.0 * inner).clamp_min(0.0)
-    return float(1.0 - resid2.sqrt() / math.sqrt(normX2))
+    return 1.0 - resid2.sqrt() / math.sqrt(normX2)
 
 
 def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
            seed: int = 0, views: dict[int, OrientedView] | None = None,
            factors: list[torch.Tensor] | None = None,
            plan: plan_mod.ExecutionPlan | None = None,
-           tune: str = "off") -> CpalsResult:
+           tune: str = "off", warm_start=None) -> CpalsResult:
     """CP-ALS driver on the tensor's device. ``factors`` seeds the
     iteration (default `init_factors` with ``seed``); ``plan`` defaults to
     `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
-    with ``tune`` (`plan.make_plan`) measuring MTTKRP on this tensor."""
+    with ``tune`` (`plan.make_plan`) measuring MTTKRP on this tensor.
+
+    ``warm_start`` starts from a previous solve instead — a `CpalsResult`,
+    ``(lam, factors)`` or a factor list — with the rows of extents grown
+    since (`ingest.append_delta`) drawn from `init_factors` with ``seed``
+    (`ingest.grow_factors`) and λ folded into the first factor, so the
+    first sweep starts at the previous model."""
     resolve_device(at.device)
+    if factors is not None and warm_start is not None:
+        raise ValueError("pass factors= or warm_start=, not both")
+    if warm_start is not None:
+        from repro_torch.core import ingest
+        lam_w, factors = ingest.grow_factors(
+            warm_start, at.dims, rank, seed=seed, dtype=at.values.dtype,
+            device=at.device)
+        if lam_w is not None:
+            factors[0] = factors[0] * lam_w[None, :]
     torch.backends.cuda.matmul.allow_tf32 = False
     if plan is None:
         plan = plan_mod.plan_for(at, rank, tune=tune)

@@ -85,8 +85,7 @@ def init_factors(dims: Sequence[int], rank: int, seed: int = 0,
 
 
 def _starting_factors(factors, dims, rank, dtype, device):
-    """Given factors as the start: clamped positive, columns rescaled to
-    sum 1 (the JAX package's warm start, `ingest.grow_factors`)."""
+    """Given factors as the exact start, checked and placed."""
     if len(factors) != len(dims):
         raise ValueError(f"{len(factors)} factors for {len(dims)} modes")
     out = []
@@ -95,8 +94,7 @@ def _starting_factors(factors, dims, rank, dtype, device):
         if tuple(A.shape) != (I, rank):
             raise ValueError(f"factor {n} has shape {tuple(A.shape)}; "
                              f"expected {(I, rank)}")
-        A = A.clamp_min(1e-10)
-        out.append((A / A.sum(dim=0, keepdim=True)).contiguous())
+        out.append(A.contiguous())
     return out
 
 
@@ -178,13 +176,17 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
            plan: plan_mod.ExecutionPlan | None = None,
            factors: list[torch.Tensor] | None = None,
            lam: torch.Tensor | None = None,
-           tune: str = "off") -> CpaprResult:
+           tune: str = "off", warm_start=None) -> CpaprResult:
     """CP-APR MU driver (Alg. 2) on the tensor's device. ``pi_policy``:
     None (the plan's) | ``"pre"`` | ``"otf"``.
 
-    ``factors`` and ``lam`` give the starting state (clamped positive,
-    columns rescaled to sum 1; λ defaults to Σx / rank); without
-    ``factors`` it is `init_factors` with ``seed``. ``plan`` defaults to
+    ``factors`` and ``lam`` give the exact starting state (λ defaults to
+    Σx / rank; a bucket's tenant starts so, `core.batched`); without them
+    it is `init_factors` with ``seed``. ``warm_start`` starts from a
+    previous solve — a `CpaprResult`, ``(lam, factors)`` or a factor list
+    — clamped positive, columns rescaled to sum 1, the rows of extents
+    grown since filled small and positive (`ingest.grow_factors(positive=
+    True)`), the JAX package's warm start. ``plan`` defaults to
     `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
     with ``tune`` (`plan.make_plan`) measuring Φ on this tensor; oriented
     views come from the view cache (`core.views`).
@@ -211,6 +213,13 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
         raise ValueError(f"plan was built for rank {plan.rank}, "
                          f"cp_apr called with rank {rank}")
     total = float(at.values.sum())
+    if warm_start is not None:
+        if factors is not None or lam is not None:
+            raise ValueError("pass factors=/lam= or warm_start=, not both")
+        from repro_torch.core import ingest
+        lam, factors = ingest.grow_factors(
+            warm_start, at.dims, rank, seed=seed, dtype=dtype,
+            device=at.device, positive=True)
     if factors is None:
         lam0, factors = init_factors(at.dims, rank, seed=seed, total=total,
                                      dtype=dtype, device=at.device)

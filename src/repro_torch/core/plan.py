@@ -423,6 +423,18 @@ def plan_for(at: AltoTensor, rank: int, **kwargs) -> ExecutionPlan:
     return make_plan(at.meta, rank, **kwargs)
 
 
+def make_class_plan(sc, **kwargs) -> ExecutionPlan:
+    """`make_plan` over a shape class's canonical meta
+    (`core.shapeclass`): one plan, and under ``tune=`` one plan-store
+    entry (`autotune.class_plan_key`), for every tenant the class admits.
+    Every mode routes output-oriented (the canonical ``fiber_reuse`` is
+    1.0), carry or one-hot by `heuristics.choose_oriented_variant`. A
+    tensor given as ``at=`` must carry the canonical meta
+    (`shapeclass.canonicalize_tensor`)."""
+    from repro_torch.core import shapeclass
+    return make_plan(shapeclass.canonical_meta(sc), sc.rank, **kwargs)
+
+
 def build_views(at: AltoTensor, plan: ExecutionPlan) -> dict:
     """Cached oriented views for exactly the modes the plan routes
     output-oriented (either variant), through `core.views`; host streams

@@ -224,6 +224,17 @@ def invalidate(at: AltoTensor, modes=None) -> int:
     return len(dead)
 
 
+def invalidate_changed(old_at: AltoTensor, new_at: AltoTensor) -> int:
+    """After an append: drop ``old_at``'s cached entries only for the modes
+    whose `mode_fingerprint` changed between the two tensors. An empty
+    "sum" delta or a re-tile changes none, so every view keeps serving; a
+    content change stales every mode (each view permutes the whole
+    stream), released at once instead of aging out of the LRU."""
+    stale = [m for m in range(len(old_at.dims))
+             if mode_fingerprint(old_at, m) != mode_fingerprint(new_at, m)]
+    return invalidate(old_at, modes=stale) if stale else 0
+
+
 def cache_stats() -> dict[str, int]:
     """Hit/miss/build counters plus current size and bytes."""
     with _LOCK:

@@ -39,15 +39,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C signatures: library -> {function: argtypes}. All return int.
 _ALTO = [_P, _P, _I, _I, _I, _I, _I]        # factor ptrs, runs table, ...
 _PHI = [_P, _P, _F]                          # B, Π or null, eps
+_TENANTS = [_I, _P]                          # tenant count, strides or null
 SIGNATURES = {
     "mttkrp_oriented": {
         "alto_carry_runs": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
-                                    _I, _P, _P, _P, _P],
-        "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _I, _P, _P],
+                                    _I, _P, _P, _P] + _TENANTS + [_P],
+        "alto_carry_fixup": [_P, _P, _L, _I, _I, _I, _I, _P, _I, _L, _P],
         "alto_oriented_partials": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I,
-                                           _I, _I, _P, _P],
+                                           _I, _I, _P] + _TENANTS + [_P],
         "alto_segment_split": [_P, _P, _L, _L, _I, _I, _I, _I, _I, _P, _P,
-                               _P, _P],
+                               _P, _I, _P],
         "alto_carry_chunk": _ALTO + [_P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                                      _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },
@@ -60,9 +61,9 @@ SIGNATURES = {
     },
     "phi_oriented": {
         "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [
-            _P, _L, _L, _I, _I, _P, _P, _P, _P],
+            _P, _L, _L, _I, _I, _P, _P, _P] + _TENANTS + [_P],
         "alto_phi_oriented_partials": _ALTO + [_P, _P, _P] + _PHI + [
-            _P, _L, _L, _I, _P, _P],
+            _P, _L, _L, _I, _P] + _TENANTS + [_P],
         "alto_phi_carry_chunk": _ALTO + [_P, _P, _P] + _PHI + [
             _P, _L, _L, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     },

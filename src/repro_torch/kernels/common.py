@@ -44,32 +44,68 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_factors(enc: AltoEncoding, factors, rank: int) -> None:
+def check_factors(enc: AltoEncoding, factors, rank: int,
+                  lead: tuple = ()) -> None:
+    """Factor m is ``lead + (I_m, rank)``: ``lead`` is ``(T,)`` for a
+    bucket of T tenants (`tenant_lead`), else empty."""
     if len(factors) != enc.ndim:
         raise ValueError(f"{len(factors)} factors for {enc.ndim} modes")
     for m, f in enumerate(factors):
-        check_tensor(f, f"factor {m}", torch.float32, (enc.dims[m], rank))
+        check_tensor(f, f"factor {m}", torch.float32,
+                     lead + (enc.dims[m], rank))
+
+
+def tenant_lead(rows: torch.Tensor) -> tuple:
+    """The tenant axis of a stream: ``()`` for one tensor's ``(M,)`` rows,
+    ``(T,)`` for a bucket's stacked ``(T, M)``."""
+    if rows.dim() not in (1, 2):
+        raise ValueError(f"rows of shape {tuple(rows.shape)}: expected "
+                         f"(M,) or (T, M)")
+    return tuple(rows.shape[:-1])
+
+
+def tenant_args(enc: AltoEncoding, mode: int, rank: int, lead: tuple):
+    """The C entries' tenant arguments: the count and the host strides
+    (elements between two tenants' factor m, then their out and B), or
+    ``(1, None)`` for one tensor. The strides array comes first, for the
+    caller to keep alive across the call."""
+    if not lead:
+        return None, [1, None]
+    strides = np.array([I * rank for I in enc.dims]
+                       + [enc.dims[mode] * rank], dtype=np.int64)
+    return strides, [lead[0], strides.ctypes.data_as(ctypes.c_void_p)]
+
+
+def at_tenant(x, t: int):
+    """Tenant ``t`` of a stacked operand: a tensor's row t, a list's
+    tensors' rows t; None and scalars as they are."""
+    if isinstance(x, torch.Tensor):
+        return x[t]
+    if isinstance(x, (list, tuple)):
+        return [a[t] for a in x]
+    return x
 
 
 def check_phi_operands(enc, mode: int, M: int, B, factors, pi,
-                       r_block: int | None):
+                       r_block: int | None, lead: tuple = ()):
     """Checks shared by the Φ wrappers: exactly one of ``factors`` (OTF)
-    and ``pi`` (PRE), B ``(I_n, R)``, and no rank tiles. Returns the
-    factors as a list (or None) and R."""
+    and ``pi`` (PRE), B ``(I_n, R)``, and no rank tiles; each with the
+    leading tenant axis ``lead`` of a bucket. Returns the factors as a
+    list (or None) and R."""
     if (pi is None) == (factors is None):
         raise ValueError("pass exactly one of pi= / factors=")
-    R = B.shape[1]
+    R = B.shape[-1]
     if r_block not in (None, R):
         raise ValueError(f"the Φ kernels take the whole rank: r_block "
                          f"{r_block} != R {R}")
     if R > 1024:
         raise ValueError(f"rank {R} exceeds one CTA's 1024 threads")
-    check_tensor(B, "B", torch.float32, (enc.dims[mode], R))
+    check_tensor(B, "B", torch.float32, lead + (enc.dims[mode], R))
     if pi is not None:
-        check_tensor(pi, "pi", torch.float32, (M, R))
+        check_tensor(pi, "pi", torch.float32, lead + (M, R))
         return None, R
     factors = list(factors)
-    check_factors(enc, factors, R)
+    check_factors(enc, factors, R, lead)
     return factors, R
 
 

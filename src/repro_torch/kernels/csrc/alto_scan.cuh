@@ -60,6 +60,43 @@ namespace {
 // (tools/torch_mttkrp_lane_maps.py).
 constexpr int K1_UNROLL = 2;
 
+// The tenant axis (blockIdx.z) of the runs passes, the fix-up and the
+// split: one launch over `count` tenants of one shape class, whose
+// operands are stacked, each tenant's contiguous. A block finds its
+// tenant from blockIdx.z and its operands from the strides: the factors'
+// from factor[m], out's and B's from rows (I_n·R elements), the stream's,
+// the carries' and the slots' from n_blocks and block_m. Inside a tenant
+// the tiling, the lanes and the order of every sum are the solo launch's,
+// so a bucket's launch gives each tenant the bits of its solo launch. A
+// solo launch is one tenant with zero strides.
+struct Tenants {
+  int count;                        // tenants in the launch (gridDim.z)
+  int64_t factor[ALTO_MAX_MODES];   // elements between tenants' factor m
+  int64_t rows;                     // elements between tenants' out and B
+};
+
+// Host side: `count` tenants with strides[0 .. ndim) the factors' and
+// strides[ndim] out's (null strides: one tenant). False on a count the
+// grid cannot hold.
+static inline bool tenants_make(Tenants* t, int count,
+                                const int64_t* strides, int ndim) {
+  if (count < 1 || count > 65535 || (count > 1 && strides == nullptr))
+    return false;
+  t->count = count;
+  for (int m = 0; m < ALTO_MAX_MODES; ++m)
+    t->factor[m] = strides != nullptr && m < ndim ? strides[m] : 0;
+  t->rows = strides != nullptr ? strides[ndim] : 0;
+  return true;
+}
+
+// This block's tenant offsets of the factors (elements), for the term
+// helpers below.
+__device__ __forceinline__ void tenant_factor_offsets(
+    const Tenants& tn, int64_t t, int64_t (&foff)[ALTO_MAX_MODES]) {
+#pragma unroll
+  for (int m = 0; m < ALTO_MAX_MODES; ++m) foff[m] = t * tn.factor[m];
+}
+
 // x[c] = p[lane·COLS + c] for the columns inside the tile's rb, else 0.
 template <int COLS>
 __device__ __forceinline__ void load_cols(const float* p, int rb, int lane,
@@ -115,7 +152,8 @@ __device__ __forceinline__ void zero_rows(float* out, int64_t r0, int64_t r1,
 }
 
 // The MTTKRP terms of U nonzeros idx[u] of one sub-warp (those with
-// live[u]): term[u][c] for column col0 + lane·COLS + c. The words are
+// live[u]): term[u][c] for column col0 + lane·COLS + c, factor m read at
+// its tenant offset foff[m]. The words are
 // decoded through the byte tables; each lane gathers its own factor
 // entries, so a factor row is read once, a float4 a lane.
 // Rounding: the other modes' entries multiplied in increasing mode
@@ -125,8 +163,8 @@ template <int COLS, int U>
 __device__ __forceinline__ void mttkrp_subwarp_terms(
     const AltoArgs& a, const uint32_t* __restrict__ words,
     const float* __restrict__ values, const int64_t (&idx)[U],
-    const bool (&live)[U], int col0, int rb, int lane, bool vec4,
-    float (&term)[U][COLS]) {
+    const bool (&live)[U], const int64_t (&foff)[ALTO_MAX_MODES], int col0,
+    int rb, int lane, bool vec4, float (&term)[U][COLS]) {
   float v[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
@@ -141,7 +179,7 @@ __device__ __forceinline__ void mttkrp_subwarp_terms(
       if (m >= a.ndim || m == a.mode) continue;
       float x[COLS];
       load_cols<COLS>(
-          a.factors[m] +
+          a.factors[m] + foff[m] +
               static_cast<int64_t>(alto_coord_table(a, w, m)) * a.rank +
               col0,
           rb, lane, vec4, x);
@@ -179,20 +217,35 @@ __device__ __forceinline__ void mttkrp_subwarp_terms(
 //    (n_blocks, block_m, R) gets the slice's j-th run, the unused slots
 //    zeros: the JAX partials layout that ops.segment_merge reads.
 // The layout is a template flag, so K1's instantiations carry none of the
-// slot layout's registers.
+// slot layout's registers. Tenant blockIdx.z of a bucket (Tenants) walks
+// its own stream into its own out, carries and slots.
 template <int W, int COLS, int U, bool SLOTS>
 __global__ void mttkrp_carry_runs_kernel(
-    const __grid_constant__ AltoArgs a, const int* __restrict__ rows,
-    const uint32_t* __restrict__ words, const float* __restrict__ values,
-    int64_t block_m, int64_t n_blocks, int r_block, int n_rows,
-    bool zero_gaps, bool vec4, float* __restrict__ out,
-    int* __restrict__ carry_row, float* __restrict__ carry_val,
-    float* __restrict__ partials) {
+    const __grid_constant__ AltoArgs a, const __grid_constant__ Tenants tn,
+    const int* __restrict__ rows, const uint32_t* __restrict__ words,
+    const float* __restrict__ values, int64_t block_m, int64_t n_blocks,
+    int r_block, int n_rows, bool zero_gaps, bool vec4,
+    float* __restrict__ out, int* __restrict__ carry_row,
+    float* __restrict__ carry_val, float* __restrict__ partials) {
   const int lane = threadIdx.x % W;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / W) +
                     threadIdx.x / W;
   if (b >= n_blocks) return;           // the whole sub-warp leaves
   const int R = a.rank;
+  const int64_t t = blockIdx.z;        // the tenant
+  const int64_t Mt = n_blocks * block_m;
+  int64_t foff[ALTO_MAX_MODES];
+  tenant_factor_offsets(tn, t, foff);
+  rows += t * Mt;
+  words += t * Mt * a.nwords;
+  values += t * Mt;
+  if (SLOTS) {
+    partials += t * Mt * R;
+  } else {
+    out += t * tn.rows;
+    carry_row += t * 2 * n_blocks;
+    carry_val += t * 2 * n_blocks * R;
+  }
   const int col0 = blockIdx.y * r_block;
   float* const out0 = out + col0;      // this rank tile's columns
   const bool writes_rows = lane == 0 && blockIdx.y == 0;
@@ -219,7 +272,7 @@ __global__ void mttkrp_carry_runs_kernel(
       row[u] = live[u] ? __ldg(rows + idx[u]) : cur;
     }
     float term[U][COLS];
-    mttkrp_subwarp_terms<COLS, U>(a, words, values, idx, live, col0,
+    mttkrp_subwarp_terms<COLS, U>(a, words, values, idx, live, foff, col0,
                                   r_block, lane, vec4, term);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -344,6 +397,9 @@ __global__ void mttkrp_partials_smem_kernel(
   const int warp_sub = (tid - wl) / W;     // the warp's first sub-warp
   const int start = __ldg(part_start + l * a.ndim + a.mode);
   const int64_t s = l * chunk;
+  int64_t foff[ALTO_MAX_MODES];        // one tenant
+#pragma unroll
+  for (int m = 0; m < ALTO_MAX_MODES; ++m) foff[m] = 0;
   for (int64_t w0 = 0; w0 < temp_rows; w0 += window) {
     const int h = static_cast<int>(
         temp_rows - w0 < window ? temp_rows - w0 : window);
@@ -368,8 +424,8 @@ __global__ void mttkrp_partials_smem_kernel(
           live[u] = local[u] >= 0;
         }
         float term[U][COLS];
-        mttkrp_subwarp_terms<COLS, U>(a, words, values, idx, live, col0, rb,
-                                      lane, vec4, term);
+        mttkrp_subwarp_terms<COLS, U>(a, words, values, idx, live, foff,
+                                      col0, rb, lane, vec4, term);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (j0 + u >= n) break;

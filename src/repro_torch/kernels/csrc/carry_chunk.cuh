@@ -56,6 +56,7 @@ inline int launch_carry_fixup_chunk(int R, int r_block, int threads,
   if (n_blocks < 1 || cin_row == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   FixupArgs f{};
+  f.tenants = 1;
   f.row = static_cast<const int*>(pieces_row);
   f.val = static_cast<const float*>(pieces_val);
   f.n = 2 * n_blocks;

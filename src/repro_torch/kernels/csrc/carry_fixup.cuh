@@ -40,6 +40,13 @@
 // What bounds it on an H100: bytes — the pieces' rows and values, each
 // read once, and one store per chain and column. Each chain's fold is
 // serial per column (the contract), so a long chain costs its latency.
+//
+// The tenant axis (blockIdx.z): a bucket of same-class tenants stacks its
+// pieces (tenants, n) and its out (tenants, out_stride elements). Rows
+// are tenant-local, so a walk over the concatenated pieces would join
+// tenant t's last chain to tenant t + 1's first whenever their rows are
+// equal; here each tenant's blocks walk only that tenant's pieces, with
+// the solo launch's tiles and fold order.
 #pragma once
 
 #include <cstdint>
@@ -62,9 +69,11 @@ struct FixupChunk {
 };
 
 struct FixupArgs {
-  const int* row;        // (n) piece rows
+  const int* row;        // (n) piece rows (per tenant)
   const float* val;      // (n, R) piece values
-  int64_t n;
+  int64_t n;             // pieces per tenant
+  int tenants;           // stacked tenants (gridDim.z), at least 1
+  int64_t out_stride;    // elements between two tenants' out
   int slots;
   int R;                 // row stride of val and out
   int rb;                // rank tile: columns blockIdx.y·rb ... + rb
@@ -183,8 +192,13 @@ __device__ __forceinline__ void fixup_fold(const float* w, int k, int rb,
   }
 }
 
-__global__ void carry_fixup_tiles_kernel(const FixupArgs f) {
+__global__ void carry_fixup_tiles_kernel(const FixupArgs ft) {
   extern __shared__ float fix_smem[];
+  FixupArgs f = ft;                        // this block's tenant
+  const int64_t tenant = blockIdx.z;
+  f.row += tenant * f.n;
+  f.val += tenant * f.n * f.R;
+  f.out += tenant * f.out_stride;
   const unsigned all = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -351,13 +365,14 @@ __global__ void carry_fixup_tiles_kernel(const FixupArgs f) {
   }
 }
 
-// Launch the walk over n pieces, rank tile f.rb (blockIdx.y), CTAs of
-// about `threads` threads (whole warps).
+// Launch the walk over n pieces of each of f.tenants tenants, rank tile
+// f.rb (blockIdx.y), CTAs of about `threads` threads (whole warps).
 inline int launch_carry_fixup(const FixupArgs& f, int threads,
                               cudaStream_t stream) {
   if (f.rb < 1 || f.rb > 32 * FIX_MAX_COLS || f.R % f.rb != 0 ||
       f.slots < 1 || f.slots > 2 || f.n < 0 || threads < 1 ||
-      threads > 1024 || (f.ck.cin_row != nullptr && f.slots != 2))
+      threads > 1024 || f.tenants < 1 || f.tenants > 65535 ||
+      (f.ck.cin_row != nullptr && (f.slots != 2 || f.tenants > 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (f.n == 0) return 0;
   FixupArgs g = f;
@@ -370,7 +385,8 @@ inline int launch_carry_fixup(const FixupArgs& f, int threads,
   const int64_t n_tiles = (f.n + FIX_WIN - 1) / FIX_WIN;
   carry_fixup_tiles_kernel<<<
       dim3(static_cast<unsigned>((n_tiles + warps - 1) / warps),
-           static_cast<unsigned>(f.R / f.rb)),
+           static_cast<unsigned>(f.R / f.rb),
+           static_cast<unsigned>(f.tenants)),
       warps * 32, warps * per_warp, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }

@@ -54,6 +54,7 @@ namespace {
 
 struct CarryRunsArgs {     // the operands of K1's runs pass (K8's, K2's)
   AltoArgs a;              // a.dtab: the byte decode tables
+  Tenants tn;              // the tenant axis (one tenant for K8)
   const int* rows;
   const uint32_t* words;
   const float* values;
@@ -87,17 +88,18 @@ struct MttkrpCarryRunsLaunch {
     const int64_t per_cta = p.threads / W;
     const dim3 grid(
         static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta),
-        static_cast<unsigned>(p.a.rank / p.r_block));
+        static_cast<unsigned>(p.a.rank / p.r_block),
+        static_cast<unsigned>(p.tn.count));
     if (p.partials != nullptr)
       mttkrp_carry_runs_kernel<W, COLS, K1_UNROLL, true>
           <<<grid, p.threads, 0, p.stream>>>(
-              p.a, p.rows, p.words, p.values, p.block_m, p.n_blocks,
+              p.a, p.tn, p.rows, p.words, p.values, p.block_m, p.n_blocks,
               p.r_block, p.n_rows, p.zero_gaps, aligned4(p), p.out,
               p.carry_row, p.carry_val, p.partials);
     else
       mttkrp_carry_runs_kernel<W, COLS, K1_UNROLL, false>
           <<<grid, p.threads, 0, p.stream>>>(
-              p.a, p.rows, p.words, p.values, p.block_m, p.n_blocks,
+              p.a, p.tn, p.rows, p.words, p.values, p.block_m, p.n_blocks,
               p.r_block, p.n_rows, p.zero_gaps, aligned4(p), p.out,
               p.carry_row, p.carry_val, p.partials);
     return static_cast<int>(cudaGetLastError());
@@ -126,17 +128,21 @@ extern "C" {
 // K1, runs pass: inner runs and the zeros of skipped rows into out (of
 // n_rows rows), the slices' first and last runs into the carries. dtab:
 // the byte decode tables; (lanes, cols): the lane map; threads: CTA size
-// (whole warps).
+// (whole warps). n_tenants stacked tenants (the tenant axis, Tenants in
+// alto_scan.cuh): tenant_strides holds the elements between two tenants'
+// factor m (ndim entries), then between two tenants' out; null for one.
 int alto_carry_runs(const int64_t* factor_ptrs, const int* runs, int n_runs,
                     int ndim, int nwords, int mode, int rank,
                     const void* rows, const void* words, const void* values,
                     const void* dtab, long long block_m, long long n_blocks,
                     int r_block, int lanes, int cols, int threads,
                     int n_rows, void* out, void* carry_row, void* carry_val,
+                    int n_tenants, const int64_t* tenant_strides,
                     void* stream) {
   CarryRunsArgs p{};
   if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                      rank) ||
+      !tenants_make(&p.tn, n_tenants, tenant_strides, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   p.a.dtab = static_cast<const uint32_t*>(dtab);
   p.rows = static_cast<const int*>(rows);
@@ -157,11 +163,16 @@ int alto_carry_runs(const int64_t* factor_ptrs, const int* runs, int n_runs,
 
 // K1, fix-up walk (also the deterministic half of segment_merge, of the K5
 // route and of the pull reduction): n_pieces pieces in `slots` slots per
-// block, rank tile r_block, CTAs of `threads` (carry_fixup.cuh).
+// block, rank tile r_block, CTAs of `threads` (carry_fixup.cuh); over
+// n_tenants stacked tenants, each with n_pieces pieces and out_stride
+// elements of out.
 int alto_carry_fixup(const void* carry_row, const void* carry_val,
                      long long n_pieces, int slots, int rank, int r_block,
-                     int threads, void* out, void* stream) {
+                     int threads, void* out, int n_tenants,
+                     long long out_stride, void* stream) {
   FixupArgs f{};
+  f.tenants = n_tenants;
+  f.out_stride = out_stride;
   f.row = static_cast<const int*>(carry_row);
   f.val = static_cast<const float*>(carry_val);
   f.n = n_pieces;
@@ -189,7 +200,8 @@ int alto_carry_chunk(const int64_t* factor_ptrs, const int* runs, int n_runs,
                      void* stream) {
   CarryRunsArgs p{};
   if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || n_blocks < 1)
+                      rank) || n_blocks < 1 ||
+      !tenants_make(&p.tn, 1, nullptr, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   p.a.dtab = static_cast<const uint32_t*>(dtab);
   p.rows = static_cast<const int*>(rows);
@@ -215,17 +227,20 @@ int alto_carry_chunk(const int64_t* factor_ptrs, const int* runs, int n_runs,
 
 // K2: K1's runs pass into the slots partials (n_blocks, block_m, rank):
 // slot j of slice b the slice's j-th run, zeros in the unused slots (every
-// slot is written). dtab, (lanes, cols), threads: as alto_carry_runs.
+// slot is written). dtab, (lanes, cols), threads, n_tenants and
+// tenant_strides: as alto_carry_runs.
 int alto_oriented_partials(const int64_t* factor_ptrs, const int* runs,
                            int n_runs, int ndim, int nwords, int mode,
                            int rank, const void* rows, const void* words,
                            const void* values, const void* dtab,
                            long long block_m, long long n_blocks, int r_block,
                            int lanes, int cols, int threads, void* partials,
+                           int n_tenants, const int64_t* tenant_strides,
                            void* stream) {
   CarryRunsArgs p{};
   if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || partials == nullptr)
+                      rank) || partials == nullptr ||
+      !tenants_make(&p.tn, n_tenants, tenant_strides, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   p.a.dtab = static_cast<const uint32_t*>(dtab);
   p.rows = static_cast<const int*>(rows);
@@ -245,13 +260,15 @@ int alto_oriented_partials(const int64_t* factor_ptrs, const int* runs,
 // the padded stream `rows` -> inner runs and the zeros of skipped rows
 // into out (n_rows, rank), the slices' first and last runs into the
 // carries (segment_split.cuh); a warp per slice, sub-warps of the lane map
-// (lanes, cols), CTAs of `threads` (whole warps).
+// (lanes, cols), CTAs of `threads` (whole warps); over n_tenants stacked
+// tenants, each with n_blocks slices and n_rows rows of out.
 int alto_segment_split(const void* partials, const void* rows,
                        long long block_m, long long n_blocks, int rank,
                        int lanes, int cols, int threads, int n_rows,
                        void* out, void* carry_row, void* carry_val,
-                       void* stream) {
+                       int n_tenants, void* stream) {
   SplitArgs p{};
+  p.tenants = n_tenants;
   p.partials = static_cast<const float*>(partials);
   p.rows = static_cast<const int*>(rows);
   p.block_m = block_m;

@@ -43,18 +43,20 @@ struct PhiCarryRunsLaunch {
   static int run(const PhiArgs& p) {
     if (p.n_blocks == 0) return 0;
     const int64_t per_cta = p.threads / W;
-    const unsigned grid =
-        static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta);
+    const dim3 grid(
+        static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta), 1,
+        static_cast<unsigned>(p.tn.count));
     phi_carry_runs_kernel<W, COLS, phi_unroll<COLS>()>
         <<<grid, p.threads, 0, p.stream>>>(
-            p.a, p.B, p.pi, p.eps, p.rows, p.words, p.values, p.block_m,
-            p.n_blocks, p.out_rows, p.zero_gaps, p.out, p.carry_row,
+            p.a, p.tn, p.B, p.pi, p.eps, p.rows, p.words, p.values,
+            p.block_m, p.n_blocks, p.out_rows, p.zero_gaps, p.out, p.carry_row,
             p.carry_val, p.partials);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-int launch_phi_carry_runs(const AltoArgs& a, const void* B, const void* pi,
+int launch_phi_carry_runs(const AltoArgs& a, const Tenants& tn,
+                          const void* B, const void* pi,
                           float eps, const void* rows, const void* words,
                           const void* values, long long block_m,
                           long long n_blocks, int threads, int n_rows,
@@ -63,6 +65,7 @@ int launch_phi_carry_runs(const AltoArgs& a, const void* B, const void* pi,
   if (block_m < 1 || n_blocks < 0 || a.dtab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   PhiArgs p = phi_args(a, B, pi, eps, words, values, threads, stream);
+  p.tn = tn;
   p.rows = static_cast<const int*>(rows);
   p.block_m = block_m;
   p.n_blocks = n_blocks;
@@ -83,7 +86,9 @@ extern "C" {
 // (n_rows rows; written once with the fix-up, no memset), the slices'
 // first and last runs into the carries, finished by alto_carry_fixup. pi
 // is null under ALTO-OTF; dtab: the byte decode tables. threads: CTA size
-// (rounded to whole warps).
+// (rounded to whole warps). n_tenants stacked tenants: tenant_strides
+// holds the elements between two tenants' factor m (ndim entries), then
+// between two tenants' B and out; null for one (Tenants, alto_scan.cuh).
 int alto_phi_carry_runs(const int64_t* factor_ptrs, const int* runs,
                         int n_runs, int ndim, int nwords, int mode, int rank,
                         const void* rows, const void* words,
@@ -91,13 +96,16 @@ int alto_phi_carry_runs(const int64_t* factor_ptrs, const int* runs,
                         float eps, const void* dtab, long long block_m,
                         long long n_blocks, int threads, int n_rows,
                         void* out, void* carry_row, void* carry_val,
+                        int n_tenants, const int64_t* tenant_strides,
                         void* stream) {
   AltoArgs a;
+  Tenants tn;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                      rank) ||
+      !tenants_make(&tn, n_tenants, tenant_strides, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dtab = static_cast<const uint32_t*>(dtab);
-  return launch_phi_carry_runs(a, B, pi, eps, rows, words, values, block_m,
+  return launch_phi_carry_runs(a, tn, B, pi, eps, rows, words, values, block_m,
                                n_blocks, threads, n_rows, true, out,
                                carry_row, carry_val, nullptr, stream);
 }
@@ -117,11 +125,13 @@ int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
                          int final_chunk, void* cout_row, void* cout_val,
                          void* stream) {
   AltoArgs a;
+  Tenants tn;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || n_blocks < 1)
+                      rank) || n_blocks < 1 ||
+      !tenants_make(&tn, 1, nullptr, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dtab = static_cast<const uint32_t*>(dtab);
-  const int status = launch_phi_carry_runs(a, B, pi, eps, rows, words,
+  const int status = launch_phi_carry_runs(a, tn, B, pi, eps, rows, words,
                                            values, block_m, n_blocks,
                                            threads, 0, false, out,
                                            pieces_row, pieces_val, nullptr,
@@ -135,20 +145,24 @@ int alto_phi_carry_chunk(const int64_t* factor_ptrs, const int* runs,
 
 // K6: the runs pass into partials (n_blocks, block_m, rank); every slot is
 // written. pi is null under ALTO-OTF; dtab: the byte decode tables;
-// threads: CTA size (rounded to whole warps).
+// threads: CTA size (rounded to whole warps); n_tenants and
+// tenant_strides: as alto_phi_carry_runs.
 int alto_phi_oriented_partials(const int64_t* factor_ptrs, const int* runs,
                                int n_runs, int ndim, int nwords, int mode,
                                int rank, const void* rows, const void* words,
                                const void* values, const void* B,
                                const void* pi, float eps, const void* dtab,
                                long long block_m, long long n_blocks,
-                               int threads, void* partials, void* stream) {
+                               int threads, void* partials, int n_tenants,
+                               const int64_t* tenant_strides, void* stream) {
   AltoArgs a;
+  Tenants tn;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank))
+                      rank) ||
+      !tenants_make(&tn, n_tenants, tenant_strides, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dtab = static_cast<const uint32_t*>(dtab);
-  return launch_phi_carry_runs(a, B, pi, eps, rows, words, values, block_m,
+  return launch_phi_carry_runs(a, tn, B, pi, eps, rows, words, values, block_m,
                                n_blocks, threads, 0, false, nullptr, nullptr,
                                nullptr, partials, stream);
 }

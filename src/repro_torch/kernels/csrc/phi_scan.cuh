@@ -68,14 +68,13 @@ __device__ __forceinline__ unsigned subwarp_mask() {
   return (0xffffffffu >> (32 - W)) << ((threadIdx.x & 31) / W * W);
 }
 
-// The lane's krp entries and B entries of nonzero i (B row `brow`).
+// The lane's krp entries and B entries of nonzero i (B row `brow`);
+// factor m read at its tenant offset foff[m].
 template <int W, int COLS>
-__device__ __forceinline__ void phi_lane_load(const AltoArgs& a,
-                                              const float* pi,
-                                              const uint32_t* words,
-                                              int64_t i, const float* brow,
-                                              int lane, float (&krp)[COLS],
-                                              float (&bv)[COLS]) {
+__device__ __forceinline__ void phi_lane_load(
+    const AltoArgs& a, const float* pi, const uint32_t* words, int64_t i,
+    const float* brow, const int64_t (&foff)[ALTO_MAX_MODES], int lane,
+    float (&krp)[COLS], float (&bv)[COLS]) {
   const int R = a.rank;
   if (pi != nullptr) {
     const float* p = pi + i * R;
@@ -92,7 +91,7 @@ __device__ __forceinline__ void phi_lane_load(const AltoArgs& a,
 #pragma unroll
     for (int m = 0; m < ALTO_MAX_MODES; ++m) {
       if (m >= a.ndim || m == a.mode) continue;
-      const float* f = a.factors[m] +
+      const float* f = a.factors[m] + foff[m] +
                        static_cast<int64_t>(alto_coord_table(a, w, m)) * R;
 #pragma unroll
       for (int c = 0; c < COLS; ++c) {
@@ -137,15 +136,15 @@ __device__ __forceinline__ void phi_subwarp_terms(
     const AltoArgs& a, const float* pi, float eps,
     const uint32_t* __restrict__ words, const float* __restrict__ values,
     const int64_t (&idx)[U], const bool (&live)[U],
-    const float* const (&brow)[U], int lane, unsigned mask,
-    float (&term)[U][COLS]) {
+    const float* const (&brow)[U], const int64_t (&foff)[ALTO_MAX_MODES],
+    int lane, unsigned mask, float (&term)[U][COLS]) {
   float krp[U][COLS], prod[U][COLS], v[U], dot[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     float bv[COLS];
     if (live[u]) {
-      phi_lane_load<W, COLS>(a, pi, words, idx[u], brow[u], lane, krp[u],
-                             bv);
+      phi_lane_load<W, COLS>(a, pi, words, idx[u], brow[u], foff, lane,
+                             krp[u], bv);
       v[u] = __ldg(values + idx[u]);
     } else {
 #pragma unroll
@@ -201,20 +200,39 @@ __device__ __forceinline__ void phi_zero_rows(float* out, int64_t r0,
 //    (n_blocks, block_m, R) gets the slice's j-th run, the unused slots
 //    zeros: the JAX partials layout that ops.segment_merge reads.
 // The two add the same terms in the same order: K5 ≡ K6 + segment_merge.
+// Tenant blockIdx.z of a bucket (Tenants, alto_scan.cuh) walks its own
+// stream, B, Π or factors into its own out, carries and slots.
 template <int W, int COLS, int U>
 __global__ void phi_carry_runs_kernel(
-    const __grid_constant__ AltoArgs a, const float* __restrict__ B,
-    const float* __restrict__ pi, float eps, const int* __restrict__ rows,
-    const uint32_t* __restrict__ words, const float* __restrict__ values,
-    int64_t block_m, int64_t n_blocks, int n_rows, bool zero_gaps,
-    float* __restrict__ out, int* __restrict__ carry_row,
-    float* __restrict__ carry_val, float* __restrict__ partials) {
+    const __grid_constant__ AltoArgs a, const __grid_constant__ Tenants tn,
+    const float* __restrict__ B, const float* __restrict__ pi, float eps,
+    const int* __restrict__ rows, const uint32_t* __restrict__ words,
+    const float* __restrict__ values, int64_t block_m, int64_t n_blocks,
+    int n_rows, bool zero_gaps, float* __restrict__ out,
+    int* __restrict__ carry_row, float* __restrict__ carry_val,
+    float* __restrict__ partials) {
   const int lane = threadIdx.x % W;
   const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x / W) +
                     threadIdx.x / W;
   if (b >= n_blocks) return;           // the whole sub-warp leaves
   const unsigned mask = subwarp_mask<W>();
   const int R = a.rank;
+  const int64_t t = blockIdx.z;        // the tenant
+  const int64_t Mt = n_blocks * block_m;
+  int64_t foff[ALTO_MAX_MODES];
+  tenant_factor_offsets(tn, t, foff);
+  rows += t * Mt;
+  words += t * Mt * a.nwords;
+  values += t * Mt;
+  B += t * tn.rows;
+  if (pi != nullptr) pi += t * Mt * R;
+  if (partials != nullptr) {
+    partials += t * Mt * R;
+  } else {
+    out += t * tn.rows;
+    carry_row += t * 2 * n_blocks;
+    carry_val += t * 2 * n_blocks * R;
+  }
   const int64_t s = b * block_m;
   const int64_t e = s + block_m;
   float* const slots = partials == nullptr ? nullptr : partials + s * R;
@@ -240,7 +258,7 @@ __global__ void phi_carry_runs_kernel(
     }
     float term[U][COLS];
     phi_subwarp_terms<W, COLS, U>(a, pi, eps, words, values, idx, live,
-                                  brow, lane, mask, term);
+                                  brow, foff, lane, mask, term);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (!live[u]) break;
@@ -322,6 +340,9 @@ __global__ void phi_partials_smem_kernel(
   const int warp_sub = (tid - wl) / W;     // the warp's first sub-warp
   const int start = __ldg(part_start + l * a.ndim + a.mode);
   const int64_t s = l * chunk;
+  int64_t foff[ALTO_MAX_MODES];        // one tenant
+#pragma unroll
+  for (int m = 0; m < ALTO_MAX_MODES; ++m) foff[m] = 0;
   for (int64_t w0 = 0; w0 < temp_rows; w0 += window) {
     const int h = static_cast<int>(
         temp_rows - w0 < window ? temp_rows - w0 : window);
@@ -353,7 +374,7 @@ __global__ void phi_partials_smem_kernel(
         }
         float term[U][COLS];
         phi_subwarp_terms<W, COLS, U>(a, pi, eps, words, values, idx, live,
-                                      brow, lane, mask, term);
+                                      brow, foff, lane, mask, term);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (j0 + u >= n) break;
@@ -438,6 +459,7 @@ int phi_dispatch(int R, const Args& args) {
 
 struct PhiArgs {           // the operands of both Φ launches
   AltoArgs a;
+  Tenants tn;              // the runs pass's tenant axis (tenants_make)
   const float* B;
   const float* pi;         // Π rows (ALTO-PRE) or nullptr (ALTO-OTF)
   float eps;

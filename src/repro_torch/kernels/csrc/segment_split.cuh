@@ -26,6 +26,10 @@
 //
 // What bounds it on an H100: bytes — the rows (M·4), the used slots, out
 // (I_n·R·4) and the carries, each once.
+//
+// The tenant axis (blockIdx.z): a bucket stacks its tenants' slots, rows,
+// out and carries, each tenant's contiguous; a warp splits one slice of
+// its own tenant, as in the solo launch.
 #pragma once
 
 #include "alto_scan.cuh"
@@ -66,6 +70,12 @@ __global__ void segment_split_kernel(
   const int64_t b = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
                     (threadIdx.x >> 5);
   if (b >= n_blocks) return;                 // the whole warp leaves
+  const int64_t t = blockIdx.z;              // the tenant
+  partials += t * n_blocks * block_m * R;
+  rows += t * n_blocks * block_m;
+  out += t * n_rows * static_cast<int64_t>(R);
+  carry_row += t * 2 * n_blocks;
+  carry_val += t * 2 * n_blocks * R;
   const int64_t s = b * block_m, e = s + block_m;
   const float* const slots = partials + s * R;
   const int last = __ldg(rows + e - 1);      // the row of the last run
@@ -128,6 +138,7 @@ struct SplitArgs {
   int R;
   int n_rows;              // rows of out
   int threads;             // CTA threads, whole warps: a warp per slice
+  int tenants;             // stacked tenants (gridDim.z), at least 1
   float* out;
   int* carry_row;
   float* carry_val;
@@ -143,7 +154,8 @@ struct SegmentSplitLaunch {
                       reinterpret_cast<uintptr_t>(p.carry_val) % 16 == 0;
     const int64_t per_cta = p.threads / 32;
     segment_split_kernel<W, COLS>
-        <<<static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta),
+        <<<dim3(static_cast<unsigned>((p.n_blocks + per_cta - 1) / per_cta),
+                1, static_cast<unsigned>(p.tenants)),
            p.threads, 0, p.stream>>>(p.partials, p.rows, p.block_m,
                                      p.n_blocks, p.R, p.n_rows, vec4, p.out,
                                      p.carry_row, p.carry_val);
@@ -155,7 +167,8 @@ struct SegmentSplitLaunch {
 // any other).
 inline int launch_segment_split(int lanes, int cols, const SplitArgs& p) {
   if (p.R < 1 || p.threads < 32 || p.threads > 1024 || p.threads % 32 != 0 ||
-      p.block_m < 1 || p.n_blocks < 0 || p.n_rows < 1)
+      p.block_m < 1 || p.n_blocks < 0 || p.n_rows < 1 || p.tenants < 1 ||
+      p.tenants > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.n_blocks == 0) return 0;
   return k1_lane_dispatch<SegmentSplitLaunch>(lanes, cols, p);

@@ -47,6 +47,17 @@ a maximal stretch of equal rows inside one slice.
   carry_val)``: the run still open at the chunk's end, or (-1, zeros)
   after the ``final`` chunk. ``out`` is updated in place.
 
+The tenant axis. `carry_runs`, `carry_fixup`, `oriented_partials`,
+`segment_split`, `phi_carry_runs` and `phi_oriented_partials` (and the
+ops built on them) also take a bucket of T tenants of one shape class
+(`core.batched`): every operand stacked with a leading tenant axis —
+rows ``(T, M)``, words ``(T, M, W)``, factors ``(T, I_m, R)``, B and Π
+``(T, ...)``, out ``(T, I_n, R)``, carries ``(T, n_blocks, 2[, R])``,
+slots ``(T, n_blocks, block_m, R)`` — in one launch whose grid holds the
+tenants (``blockIdx.z``). Inside a tenant every tiling, lane and sum is
+the solo launch's, so each tenant gets the bits of its solo launch; the
+plain versions loop over the tenants.
+
 Accumulation order, shared by every kernel and plain version: a run sums
 its terms in stream order starting from 0.0, and a row's pieces add in
 block order. So K1 equals K2 + `ops.segment_merge` bit for bit, K5 equals
@@ -91,23 +102,40 @@ def run_rank_segments(rows: torch.Tensor) -> torch.Tensor:
 
 
 def _check_rows(enc, rows, words, values, block_m):
-    M = rows.shape[0]
+    """The stream's checks; returns its length per tenant and the tenant
+    axis (`common.tenant_lead`)."""
+    lead = common.tenant_lead(rows)
+    M = rows.shape[-1]
     if M % block_m:
         raise ValueError(f"stream length {M} not a multiple of block_m "
                          f"{block_m}")
-    common.check_tensor(rows, "rows", torch.int32, (M,))
-    common.check_tensor(words, "words", torch.int32, (M, enc.n_words))
-    common.check_tensor(values, "values", torch.float32, (M,))
-    return M
+    common.check_tensor(rows, "rows", torch.int32, lead + (M,))
+    common.check_tensor(words, "words", torch.int32,
+                        lead + (M, enc.n_words))
+    common.check_tensor(values, "values", torch.float32, lead + (M,))
+    return M, lead
 
 
 def _check_stream(enc, rows, words, values, factors, block_m, r_block):
-    M = _check_rows(enc, rows, words, values, block_m)
-    R = factors[0].shape[1]
+    M, lead = _check_rows(enc, rows, words, values, block_m)
+    R = factors[0].shape[-1]
     if R % r_block:
         raise ValueError(f"rank {R} not a multiple of r_block {r_block}")
-    common.check_factors(enc, factors, R)
-    return M, R
+    common.check_factors(enc, factors, R, lead)
+    return M, R, lead
+
+
+def tenant_loop(fn, lead, *args):
+    """A plain version over a bucket: ``fn`` on each tenant's operands
+    (`common.at_tenant`), the results stacked (tuples part by part); one
+    call for a single tensor."""
+    if not lead:
+        return fn(*args)
+    parts = [fn(*(common.at_tenant(a, t) for a in args))
+             for t in range(lead[0])]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.stack(z) for z in zip(*parts))
+    return torch.stack(parts)
 
 
 # ---------------------------------------------------------------------------
@@ -266,9 +294,14 @@ def phi_oriented_partials_plain(enc: AltoEncoding, mode: int, eps: float,
 def _runs_into(plain, out):
     """A runs pass's plain result ``(out, carry_row, carry_val)`` with its
     kernel's write set into ``out`` when given: every row but the carried
-    pieces' rows, which the fix-up stores."""
+    pieces' rows, which the fix-up stores (tenant by tenant for a
+    bucket)."""
     if out is None:
         return plain
+    if out.dim() == 3:
+        for t in range(out.shape[0]):
+            _runs_into(tuple(x[t] for x in plain), out[t])
+        return (out,) + plain[1:]
     written = torch.ones(out.shape[0], dtype=torch.bool)
     written[plain[1][plain[1] >= 0].long()] = False
     out[written] = plain[0][written]
@@ -282,33 +315,38 @@ def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
     card ``out`` (``torch.empty`` unless given) gets every row except the
     carried pieces' rows, which `carry_fixup` stores."""
     factors = list(factors)
-    rb = r_block or common.rank_tile(factors[0].shape[1])
-    M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
+    rb = r_block or common.rank_tile(factors[0].shape[-1])
+    M, R, lead = _check_stream(enc, rows, words, values, factors, block_m,
+                               rb)
     lanes, cols = lane_map(rb)
     if out is not None:
-        common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
+        common.check_tensor(out, "out", torch.float32,
+                            lead + (enc.dims[mode], R))
     if not common.on_cuda(rows, words, values, *factors,
                           *([] if out is None else [out])):
-        return _runs_into(carry_runs_plain(enc, mode, rows, words, values,
-                                           factors, block_m), out)
+        return _runs_into(tenant_loop(
+            lambda *a: carry_runs_plain(enc, mode, *a, block_m), lead,
+            rows, words, values, factors), out)
     nb = M // block_m
     if out is None:
-        out = torch.empty((enc.dims[mode], R), dtype=torch.float32,
+        out = torch.empty(lead + (enc.dims[mode], R), dtype=torch.float32,
                           device=rows.device)
-    carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
-    carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
+    carry_row = torch.empty(lead + (nb, 2), dtype=torch.int32,
+                            device=rows.device)
+    carry_val = torch.empty(lead + (nb, 2, R), dtype=torch.float32,
                             device=rows.device)
     keep, args = common.alto_args(enc, mode, factors, R)
+    strides, tenants = common.tenant_args(enc, mode, R, lead)
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_carry_runs(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb, rb,
         lanes, cols, common.cta_threads(threads), enc.dims[mode],
         out.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(),
-        common.stream_ptr(rows))
-    del keep
+        *tenants, common.stream_ptr(rows))
+    del keep, strides
     _build.check(status, "alto_carry_runs")
-    _build.count_launch("carry_runs", M)
+    _build.count_launch("carry_runs", rows.numel())
     return out, carry_row, carry_val
 
 
@@ -321,28 +359,37 @@ def carry_fixup(carry_row, carry_val, out, r_block: int | None = None,
     (first and last run, row -1 when absent), or one slot per piece, every
     piece present and sorted by row (the pull reduction). ``r_block`` is
     the launch's rank tile (default `common.rank_tile`; it changes no
-    bit); ``threads`` its CTA size."""
-    nb, slots = carry_row.shape
-    R = out.shape[1]
+    bit); ``threads`` its CTA size. A bucket's carries ``(T, n, slots)``
+    and out ``(T, I_n, R)`` walk tenant by tenant: rows are tenant-local,
+    so one tenant's chain never continues into the next's."""
+    if carry_row.dim() not in (2, 3):
+        raise ValueError(f"carry_row of shape {tuple(carry_row.shape)}")
+    lead = tuple(carry_row.shape[:-2])
+    nb, slots = carry_row.shape[-2:]
+    R = out.shape[-1]
     rb = r_block or common.rank_tile(R)
     if R % rb or rb > common.MAX_RANK_TILE:
         raise ValueError(f"rank {R}: r_block {rb} does not divide it or "
                          f"exceeds {common.MAX_RANK_TILE}")
     if slots not in (1, 2):
         raise ValueError(f"carry_row has {slots} slots, not 1 or 2")
-    common.check_tensor(carry_row, "carry_row", torch.int32, (nb, slots))
+    common.check_tensor(carry_row, "carry_row", torch.int32,
+                        lead + (nb, slots))
     common.check_tensor(carry_val, "carry_val", torch.float32,
-                        (nb, slots, R))
-    common.check_tensor(out, "out", torch.float32, tuple(out.shape))
+                        lead + (nb, slots, R))
+    common.check_tensor(out, "out", torch.float32,
+                        lead + tuple(out.shape[-2:]))
     if not common.on_cuda(carry_row, carry_val, out):
-        return carry_fixup_plain(carry_row, carry_val, out)
+        tenant_loop(carry_fixup_plain, lead, carry_row, carry_val, out)
+        return out                     # updated in place, tenant by tenant
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_carry_fixup(
         carry_row.data_ptr(), carry_val.data_ptr(), slots * nb, slots, R,
         rb, common.cta_threads(threads), out.data_ptr(),
+        lead[0] if lead else 1, out[0].numel() if lead else 0,
         common.stream_ptr(out))
     _build.check(status, "alto_carry_fixup")
-    _build.count_launch("carry_fixup", slots * nb)
+    _build.count_launch("carry_fixup", carry_row.numel())
     return out
 
 
@@ -370,30 +417,34 @@ def oriented_partials(enc: AltoEncoding, mode: int, rows, words, values,
     j-th run sum to slot j and zeros to the unused slots; ``threads`` is
     the CTA size."""
     factors = list(factors)
-    rb = r_block or common.rank_tile(factors[0].shape[1])
-    M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
+    rb = r_block or common.rank_tile(factors[0].shape[-1])
+    M, R, lead = _check_stream(enc, rows, words, values, factors, block_m,
+                               rb)
     lanes, cols = lane_map(rb)
     nb = M // block_m
     if out is not None:
-        common.check_tensor(out, "out", torch.float32, (nb, block_m, R))
+        common.check_tensor(out, "out", torch.float32,
+                            lead + (nb, block_m, R))
     if not common.on_cuda(rows, words, values, *factors,
                           *([] if out is None else [out])):
-        plain = oriented_partials_plain(enc, mode, rows, words, values,
-                                        factors, block_m)
+        plain = tenant_loop(
+            lambda *a: oriented_partials_plain(enc, mode, *a, block_m),
+            lead, rows, words, values, factors)
         return plain if out is None else out.copy_(plain)
     if out is None:
-        out = torch.empty((nb, block_m, R), dtype=torch.float32,
+        out = torch.empty(lead + (nb, block_m, R), dtype=torch.float32,
                           device=rows.device)
     keep, args = common.alto_args(enc, mode, factors, R)
+    strides, tenants = common.tenant_args(enc, mode, R, lead)
     lib = _build.library("mttkrp_oriented")
     status = lib.alto_oriented_partials(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb, rb,
-        lanes, cols, common.cta_threads(threads), out.data_ptr(),
+        lanes, cols, common.cta_threads(threads), out.data_ptr(), *tenants,
         common.stream_ptr(rows))
-    del keep
+    del keep, strides
     _build.check(status, "alto_oriented_partials")
-    _build.count_launch("oriented_partials", M)
+    _build.count_launch("oriented_partials", rows.numel())
     return out
 
 
@@ -404,26 +455,35 @@ def segment_split(partials, rows, out_dim: int,
     the card ``out`` (``torch.empty`` unless given) gets every row except
     the carried pieces' rows, which `carry_fixup` stores; ``threads`` is
     the CTA size (a warp per slice)."""
-    nb, bm, R = partials.shape
-    common.check_tensor(partials, "partials", torch.float32, (nb, bm, R))
-    common.check_tensor(rows, "rows", torch.int32, (nb * bm,))
+    lead = common.tenant_lead(rows)
+    if partials.dim() != len(lead) + 3:
+        raise ValueError(f"partials of shape {tuple(partials.shape)} for "
+                         f"rows of shape {tuple(rows.shape)}")
+    nb, bm, R = partials.shape[-3:]
+    common.check_tensor(partials, "partials", torch.float32,
+                        lead + (nb, bm, R))
+    common.check_tensor(rows, "rows", torch.int32, lead + (nb * bm,))
     if out is not None:
-        common.check_tensor(out, "out", torch.float32, (out_dim, R))
+        common.check_tensor(out, "out", torch.float32, lead + (out_dim, R))
     if not common.on_cuda(partials, rows, *([] if out is None else [out])):
-        return _runs_into(segment_split_plain(partials, rows, out_dim), out)
+        return _runs_into(tenant_loop(
+            lambda p, r: segment_split_plain(p, r, out_dim), lead,
+            partials, rows), out)
     if out is None:
-        out = torch.empty((out_dim, R), dtype=torch.float32,
+        out = torch.empty(lead + (out_dim, R), dtype=torch.float32,
                           device=rows.device)
-    carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
-    carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
+    carry_row = torch.empty(lead + (nb, 2), dtype=torch.int32,
+                            device=rows.device)
+    carry_val = torch.empty(lead + (nb, 2, R), dtype=torch.float32,
                             device=rows.device)
     lanes, cols = lane_map(common.rank_tile(R))
     status = _build.library("mttkrp_oriented").alto_segment_split(
         partials.data_ptr(), rows.data_ptr(), bm, nb, R, lanes, cols,
         common.cta_threads(threads), out_dim, out.data_ptr(),
-        carry_row.data_ptr(), carry_val.data_ptr(), common.stream_ptr(rows))
+        carry_row.data_ptr(), carry_val.data_ptr(),
+        lead[0] if lead else 1, common.stream_ptr(rows))
     _build.check(status, "alto_segment_split")
-    _build.count_launch("segment_split", nb * bm)
+    _build.count_launch("segment_split", rows.numel())
     return out, carry_row, carry_val
 
 
@@ -437,35 +497,39 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
     K1's, the pass stores zeros to the rows the stream skips, so ``out``
     (``torch.empty`` unless given) gets every row except the carried
     pieces' rows, which `carry_fixup` stores."""
-    M = _check_rows(enc, rows, words, values, block_m)
+    M, lead = _check_rows(enc, rows, words, values, block_m)
     factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
-                                           r_block)
+                                           r_block, lead)
     if out is not None:
-        common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
+        common.check_tensor(out, "out", torch.float32,
+                            lead + (enc.dims[mode], R))
     tensors = [rows, words, values, B] + (factors or [pi]) + (
         [] if out is None else [out])
     if not common.on_cuda(*tensors):
-        return _runs_into(phi_carry_runs_plain(enc, mode, eps, rows, words,
-                                               values, B, factors, pi,
-                                               block_m), out)
+        return _runs_into(tenant_loop(
+            lambda r, w, v, b, f, p: phi_carry_runs_plain(
+                enc, mode, eps, r, w, v, b, f, p, block_m),
+            lead, rows, words, values, B, factors, pi), out)
     nb = M // block_m
     if out is None:
-        out = torch.empty((enc.dims[mode], R), dtype=torch.float32,
+        out = torch.empty(lead + (enc.dims[mode], R), dtype=torch.float32,
                           device=rows.device)
-    carry_row = torch.empty((nb, 2), dtype=torch.int32, device=rows.device)
-    carry_val = torch.empty((nb, 2, R), dtype=torch.float32,
+    carry_row = torch.empty(lead + (nb, 2), dtype=torch.int32,
+                            device=rows.device)
+    carry_val = torch.empty(lead + (nb, 2, R), dtype=torch.float32,
                             device=rows.device)
     keep, args = common.alto_args(enc, mode, factors, R)
+    strides, tenants = common.tenant_args(enc, mode, R, lead)
     lib = _build.library("phi_oriented")
     status = lib.alto_phi_carry_runs(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
         threads, enc.dims[mode], out.data_ptr(), carry_row.data_ptr(),
-        carry_val.data_ptr(), common.stream_ptr(rows))
-    del keep
+        carry_val.data_ptr(), *tenants, common.stream_ptr(rows))
+    del keep, strides
     _build.check(status, "alto_phi_carry_runs")
-    _build.count_launch("phi_carry_runs", M)
+    _build.count_launch("phi_carry_runs", rows.numel())
     return out, carry_row, carry_val
 
 
@@ -490,26 +554,29 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
     """K6: per-slice Φ run sums (n_blocks, block_m, R). On the card K5's
     runs pass (a sub-warp per slice) stores the slice's j-th run sum to
     slot j and zeros to the unused slots; ``threads`` is the CTA size."""
-    M = _check_rows(enc, rows, words, values, block_m)
+    M, lead = _check_rows(enc, rows, words, values, block_m)
     factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
-                                           r_block)
+                                           r_block, lead)
     tensors = [rows, words, values, B] + (factors or [pi])
     if not common.on_cuda(*tensors):
-        return phi_oriented_partials_plain(enc, mode, eps, rows, words,
-                                           values, B, factors, pi, block_m)
+        return tenant_loop(
+            lambda r, w, v, b, f, p: phi_oriented_partials_plain(
+                enc, mode, eps, r, w, v, b, f, p, block_m),
+            lead, rows, words, values, B, factors, pi)
     nb = M // block_m
-    partials = torch.empty((nb, block_m, R), dtype=torch.float32,
+    partials = torch.empty(lead + (nb, block_m, R), dtype=torch.float32,
                            device=rows.device)
     keep, args = common.alto_args(enc, mode, factors, R)
+    strides, tenants = common.tenant_args(enc, mode, R, lead)
     lib = _build.library("phi_oriented")
     status = lib.alto_phi_oriented_partials(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
-        threads, partials.data_ptr(), common.stream_ptr(rows))
-    del keep
+        threads, partials.data_ptr(), *tenants, common.stream_ptr(rows))
+    del keep, strides
     _build.check(status, "alto_phi_oriented_partials")
-    _build.count_launch("phi_oriented_partials", M)
+    _build.count_launch("phi_oriented_partials", rows.numel())
     return partials
 
 
@@ -517,7 +584,9 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
 # Out-of-core chunk kernels (K8, K9)
 # ---------------------------------------------------------------------------
 
-def _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R):
+def _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R, lead):
+    if lead:
+        raise ValueError("the chunk kernels take one tensor, not a bucket")
     if M == 0:
         raise ValueError("empty chunk: a chunk holds at least one block")
     common.check_tensor(out, "out", torch.float32, (enc.dims[mode], R))
@@ -542,8 +611,9 @@ def carry_chunk(enc: AltoEncoding, mode: int, rows, words, values, factors,
     carry_val)``. ``out`` is updated in place."""
     factors = list(factors)
     rb = r_block or common.rank_tile(factors[0].shape[1])
-    M, R = _check_stream(enc, rows, words, values, factors, block_m, rb)
-    _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R)
+    M, R, lead = _check_stream(enc, rows, words, values, factors, block_m,
+                               rb)
+    _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R, lead)
     if not common.on_cuda(rows, words, values, *factors, out, carry_row,
                           carry_val):
         return carry_chunk_plain(enc, mode, rows, words, values, factors,
@@ -573,10 +643,10 @@ def phi_carry_chunk(enc: AltoEncoding, mode: int, eps: float, rows, words,
     """K9: one chunk of the carry Φ -> ``(out, carry_row, carry_val)``.
     Pass ``pi`` (the chunk's Π rows, ALTO-PRE) or ``factors`` (ALTO-OTF).
     ``out`` is updated in place."""
-    M = _check_rows(enc, rows, words, values, block_m)
+    M, lead = _check_rows(enc, rows, words, values, block_m)
     factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
                                            None)
-    _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R)
+    _check_chunk_state(enc, mode, M, out, carry_row, carry_val, R, lead)
     tensors = [rows, words, values, B, out, carry_row, carry_val] + (
         factors or [pi])
     if not common.on_cuda(*tensors):

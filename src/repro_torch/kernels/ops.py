@@ -15,6 +15,14 @@ The chunked entries (`mttkrp_oriented_chunked`,
 stream (`core.stream.HostStream`) flows through the card in chunks, K8 /
 K9 carrying the open run from one chunk to the next.
 
+The oriented entries (`mttkrp_oriented`, `mttkrp_oriented_carry`,
+`cpapr_phi_oriented`, `cpapr_phi_oriented_carry`, `segment_merge`) also
+take a bucket of same-class tenants (`core.batched.stack_tenants`): a
+stacked view (rows ``(T, M)``, words ``(T, M, W)``, values ``(T, M)``),
+stacked factors ``(T, I_m, R)``, B and Π; each kernel then launches once
+for the whole bucket along its tenant axis (`kernels.mttkrp_oriented`)
+and returns ``(T, I_n, R)``.
+
 `timing_stats` is the measurement primitive: CUDA events on the card, the
 host clock on the CPU, one bump of `timing_runs` per call.
 """
@@ -91,25 +99,30 @@ def pad_sorted_stream(rows, words, values, mult: int, pi=None):
     the padding joins the final run) with zero values and zero Π rows, so
     padded elements contribute nothing. An empty stream pads one full
     block of zero rows and words. ``rows``, ``values`` or ``pi`` may be
-    None. Returns ``(rows, words, values, pi)``.
+    None. A bucket's stacked streams (words ``(T, M, W)``) pad tenant by
+    tenant along their element axis. Returns ``(rows, words, values,
+    pi)``.
     """
-    M = words.shape[0]
+    lead = tuple(words.shape[:-2])
+    M, W = words.shape[-2:]
     pad = mult if M == 0 else (-M) % mult
     if pad == 0:
         return rows, words, values, pi
     if M == 0:
-        pad_rows = None if rows is None else rows.new_zeros(pad)
-        pad_words = words.new_zeros((pad, words.shape[1]))
+        pad_rows = None if rows is None else rows.new_zeros(lead + (pad,))
+        pad_words = words.new_zeros(lead + (pad, W))
     else:
-        pad_rows = None if rows is None else rows[-1:].expand(pad)
-        pad_words = words[-1:].expand(pad, words.shape[1])
+        pad_rows = (None if rows is None
+                    else rows[..., -1:].expand(lead + (pad,)))
+        pad_words = words[..., -1:, :].expand(lead + (pad, W))
     if rows is not None:
-        rows = torch.cat([rows, pad_rows])
-    words = torch.cat([words, pad_words])
+        rows = torch.cat([rows, pad_rows], dim=-1)
+    words = torch.cat([words, pad_words], dim=-2)
     if values is not None:
-        values = torch.cat([values, values.new_zeros(pad)])
+        values = torch.cat([values, values.new_zeros(lead + (pad,))], dim=-1)
     if pi is not None:
-        pi = torch.cat([pi, pi.new_zeros((pad, pi.shape[1]))])
+        pi = torch.cat([pi, pi.new_zeros(lead + (pad, pi.shape[-1]))],
+                       dim=-2)
     return rows, words, values, pi
 
 

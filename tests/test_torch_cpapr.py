@@ -60,8 +60,9 @@ def _both(problem, policy, params):
                         warm_start=(jnp.asarray(lam),
                                     [jnp.asarray(f) for f in fs]))
     got = tcpapr.cp_apr(at, RANK, params=params, pi_policy=policy,
-                        track_ll=True, plan=tp, lam=torch.from_numpy(lam),
-                        factors=interop.factors(fs, device="cpu"))
+                        track_ll=True, plan=tp,
+                        warm_start=(torch.from_numpy(lam),
+                                    interop.factors(fs, device="cpu")))
     return ref, got
 
 

@@ -460,8 +460,8 @@ def test_streamed_cp_apr_bitwise_and_near_reference(policy):
     lam = np.full(4, float(np.asarray(jat.values).sum()) / 4, np.float32)
     params = tcpapr.CpaprParams(k_max=2, l_max=3)
     runs = [tcpapr.cp_apr(at, 4, params, pi_policy=policy, track_ll=True,
-                          plan=p, lam=torch.from_numpy(lam),
-                          factors=interop.factors(fs, "cpu"))
+                          plan=p, warm_start=(torch.from_numpy(lam),
+                                              interop.factors(fs, "cpu")))
             for p in (tp, dataclasses.replace(tp, streaming=None))]
     rs, ri = runs
     assert rs.log_likelihoods == ri.log_likelihoods

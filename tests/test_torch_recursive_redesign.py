@@ -404,7 +404,7 @@ def test_small_cp_apr_on_cpu_repeats_under_any_thread_count(policy):
         torch.set_num_threads(threads)
         res = tcpapr.cp_apr(at, 16, tcpapr.CpaprParams(k_max=2, l_max=10),
                             pi_policy=policy, track_ll=True,
-                            factors=[f.clone() for f in fs], plan=p)
+                            warm_start=[f.clone() for f in fs], plan=p)
         results.append(res)
     first = results[0]
     for res in results[1:]:

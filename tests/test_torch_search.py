@@ -205,8 +205,8 @@ def test_cp_apr_tune_search_matches_reference_static(store, monkeypatch):
     lam = np.full(4, float(np.asarray(jat.values).sum()) / 4, np.float32)
     got = tcpapr.cp_apr(at, 4, tcpapr.CpaprParams(k_max=3, l_max=5),
                         track_ll=True, tune="search",
-                        lam=torch.from_numpy(lam),
-                        factors=interop.factors(fs, "cpu"))
+                        warm_start=(torch.from_numpy(lam),
+                                    interop.factors(fs, "cpu")))
     plans = json.loads(store.read_text())["plans"]
     assert [r["tuned"]["objective"] for r in plans.values()] == ["phi"]
     ref = jcpapr.cp_apr(jat, 4, params=jcpapr.CpaprParams(k_max=3, l_max=5),

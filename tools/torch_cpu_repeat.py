@@ -59,7 +59,7 @@ def main() -> int:
                 res = cpapr.cp_apr(at, 16,
                                    cpapr.CpaprParams(k_max=3, l_max=10),
                                    pi_policy=policy, track_ll=True,
-                                   factors=[f.clone() for f in fs], plan=p)
+                                   warm_start=[f.clone() for f in fs], plan=p)
                 h = hashlib.sha256()
                 for f in res.factors:
                     h.update(f.numpy().tobytes())

@@ -8,7 +8,11 @@ commit's run and its change's, made in one call) and compares every
 sequence the decompositions produced on the card: CP-ALS fits, CP-APR
 log-likelihoods and KKT violations, in core under both routings, streamed
 and small (keys ``fits``, ``fits_cuda``, ``log_likelihoods``,
-``ll_cuda``, ``kkt_violations``), as exact float equality. Prints the
+``ll_cuda``, ``kkt_violations``); each shape-class bucket's per-tenant
+fits, KKT violations and inner-step counts (``batched``: lists of
+lists, and ``n_inner_total``); and the warm- and cold-start CP-ALS fits
+of the ingest phase (``warm_fits``, ``cold_fits``), as exact equality.
+Prints the
 count compared, the keys found in only one file and the keys that
 differ, and exits 1 when any differs or is missing. Runs anywhere.
 """
@@ -17,7 +21,8 @@ from __future__ import annotations
 import json
 import sys
 
-KEYS = ("fits", "fits_cuda", "log_likelihoods", "ll_cuda", "kkt_violations")
+KEYS = ("fits", "fits_cuda", "log_likelihoods", "ll_cuda", "kkt_violations",
+        "n_inner_total", "warm_fits", "cold_fits")
 
 
 def sequences(node, path=()) -> dict[str, list]:
