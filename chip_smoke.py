@@ -99,7 +99,31 @@ sm_90a), then:
    past 2**25) against ``build_device(merge_coo(...))``, bit for bit;
    3 warm-start CP-ALS iterations on the grown DARPA tensor from step 3's
    result against a cold start; the views ``invalidate_changed`` drops
-   after a no-op and after a content append.
+   after a no-op and after a content append;
+13. serves step 11's classes through ``launch.serve_cpd.CpdService``
+   (`phase_serve`): class A's 64 tenants to a CP-ALS service (capacity 16,
+   5 sweeps, ``guard=True``, ``tune="auto"`` on a plan store under
+   ``build/``) from 4 submitter threads with the worker running, class B's
+   16 to a CP-APR service (capacity 8, 3 outer iterations); every tenant
+   bit for bit its solo run on its padded tensor under the class plan; a
+   second service on the warm store takes no timing run and launches each
+   kernel once a mode and sweep; class A unguarded gives the same bits;
+   eight deltas equal ``ingest.append_delta`` + ``cp_als(warm_start=)``;
+   no fault fired and no retry, degradation, quarantine, eviction or error
+   counted. Then each fault site armed alone with the outcome it must
+   give: ``batched.nan`` (NaN, then 1e30) quarantines tenant 3 and leaves
+   its 15 mates' bits; ``batched.sweep`` bisects (once) and quarantines
+   the offender alone (twice); ``views.build`` is one retry, the same
+   bits; ``autotune.store`` reads as a miss; ``plan.dispatch`` evicts the
+   stored plan for the static one; ``ops.exec`` twice on a class B bucket
+   is no rung at all: the bucket is bisected, the offender's solo re-run
+   fails too and only it gets an error, its 7 mates are served alone on
+   the kernels with the clean run's bits, and nothing is degraded;
+   ``ingest.merge`` fails the delta and not its base;
+   ``ops.chunk_oom`` on Chicago's streamed plan halves ``chunk_m``
+   (`health.degrade_plan`) with the same bits; ``stream.memmap_load``,
+   ``stream.checksum`` and ``stream.respill`` on a spilled Chicago mode
+   stream retry, rebuild and keep the old generation.
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
 instantiation of the redesigned kernels (the runs pass that K1, K2 and K8
@@ -130,10 +154,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -167,17 +194,19 @@ def _imports():
     sys.path.insert(0, str(ROOT / "src"))
     torch = torch_mod
     from repro_torch.core import (alto, autotune, batched, cpals, cpapr,
-                                  heuristics, ingest, mttkrp, plan, search,
-                                  shapeclass, stream, views)
+                                  faults, health, heuristics, ingest, mttkrp,
+                                  plan, search, shapeclass, stream, views)
     from repro_torch.kernels import _build, common, ops
     from repro_torch.kernels import cpapr_phi as k7
     from repro_torch.kernels import delinearize as k4
     from repro_torch.kernels import mttkrp as k3
     from repro_torch.kernels import mttkrp_oriented as kori
     from repro_torch.kernels import ref
+    from repro_torch.launch import serve_cpd
     from repro_torch.sparse import synthetic
     return dict(alto=alto, autotune=autotune, cpals=cpals, cpapr=cpapr,
                 batched=batched, ingest=ingest, shapeclass=shapeclass,
+                faults=faults, health=health, serve=serve_cpd,
                 heuristics=heuristics, mttkrp=mttkrp, plan=plan,
                 search=search, build=_build, common=common,
                 ops=ops, k3=k3,
@@ -2262,6 +2291,578 @@ def phase_ingest(m, chicago, darpa) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The multi-tenant service: clean runs, deltas and the fault sites
+# ---------------------------------------------------------------------------
+
+SERVE_CAPACITY = {"A": 16, "B": 8}
+SERVE_THREADS = 4
+SERVE_TIMEOUT_S = 600.0
+
+
+def _serve_threads(m, svc, xs, seeds) -> tuple[dict, float]:
+    """``xs`` submitted from `SERVE_THREADS` threads with the worker
+    running, each thread waiting on its own requests; returns the
+    responses by tenant index and the wall seconds."""
+    out, errors = {}, []
+    lock = threading.Lock()
+
+    def client(k):
+        try:
+            mine = [(i, svc.submit(xs[i], seed=seeds[i]))
+                    for i in range(k, len(xs), SERVE_THREADS)]
+            for i, rid in mine:
+                r = svc.wait(rid, timeout=SERVE_TIMEOUT_S)
+                with lock:
+                    out[i] = r
+        except Exception as exc:  # noqa: BLE001 — reported below
+            with lock:
+                errors.append(exc)
+
+    svc.serve(poll_s=0.002)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(SERVE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(SERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    svc.shutdown(timeout=SERVE_TIMEOUT_S)
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads) or svc.serving:
+        _fail("serve: a submitter or the worker did not finish")
+    if sorted(out) != list(range(len(xs))):
+        _fail(f"serve: {len(out)} of {len(xs)} responses")
+    return out, wall
+
+
+def _served(m, label, svc, xs, seeds, threads=True):
+    """One counted serve: worker and submitter threads, or the caller's
+    `process()`; every response must be ok."""
+    def run():
+        if threads:
+            return _serve_threads(m, svc, xs, seeds)
+        t0 = time.perf_counter()
+        ids = [svc.submit(x, seed=s) for x, s in zip(xs, seeds)]
+        got = {r.request_id: r for r in svc.process()}
+        return {i: got[rid] for i, rid in enumerate(ids)}, \
+            time.perf_counter() - t0
+    (out, wall), seconds, counts = _counted(m, label, run, set())
+    bad = {i: r.error for i, r in out.items() if not r.ok}
+    if bad:
+        _fail(f"{label}: errors {bad}")
+    return out, wall, counts
+
+
+def _serve_stats_zero(label, s) -> None:
+    for k in ("retries", "degraded_dispatches", "quarantined_tenants",
+              "plan_evictions", "errors", "deadline_expired",
+              "worker_recoveries"):
+        if s[k]:
+            _fail(f"{label}: stats {k} = {s[k]} on a clean run")
+
+
+def _solo_equal(m, label, svc, xs, seeds, out, n_iters, apr) -> list:
+    """Every served tenant against its solo run on its padded tensor under
+    the service's class plan, from the embedded start, bit for bit;
+    returns the canonical tensors and views."""
+    cpals, cpapr, batched = m["cpals"], m["cpapr"], m["batched"]
+    members = []
+    for i, x in enumerate(xs):
+        sc = m["shapeclass"].classify(x, RANK)
+        p = svc._class_plan(sc)
+        (at,), (views,) = _members(m, [x], sc, p)
+        if apr:
+            lam0, f0 = cpapr.init_factors(x.dims, RANK, seed=seeds[i],
+                                          total=float(at.values.sum()))
+            solo = cpapr.cp_apr(
+                at, RANK, cpapr.CpaprParams(k_max=n_iters, tau=svc.tol),
+                plan=p, views=views, lam=lam0,
+                factors=batched.embed_factors(f0, sc.dims))
+            fields = ("kkt_violations", "n_outer", "n_inner_total")
+        else:
+            f0 = cpals.init_factors(x.dims, RANK, seed=seeds[i])
+            solo = cpals.cp_als(at, RANK, n_iters=n_iters, tol=svc.tol,
+                                plan=p, views=views,
+                                factors=batched.embed_factors(f0, sc.dims))
+            fields = ("fits",)
+        _same_bits(f"{label} tenant {i}", out[i].result, solo, fields)
+        members.append((at, views))
+    return members
+
+
+def _fault(m, label, site, arm, run, expect_fired=1) -> tuple:
+    """``run()`` with ``site`` armed; the site must fire ``expect_fired``
+    times. Returns (run's result, seconds)."""
+    fl = m["faults"]
+    fl.reset()
+    fl.arm(site, **arm)
+    _sync()
+    t0 = time.perf_counter()
+    out = run()
+    _sync()
+    seconds = time.perf_counter() - t0
+    fired = fl.fired().get(site, 0)
+    fl.reset()
+    if fired != expect_fired:
+        _fail(f"{label}: {site} fired {fired} times, expected "
+              f"{expect_fired}")
+    return out, seconds
+
+
+def _bucket_now(m, svc, xs, seeds):
+    """``xs`` served by the caller's `process()`, responses in order."""
+    ids = [svc.submit(x, seed=s) for x, s in zip(xs, seeds)]
+    got = {r.request_id: r for r in svc.process()}
+    return [got[rid] for rid in ids]
+
+
+def serve_faults(m, clean_a, xs_a, clean_b, xs_b, chicago, store) -> dict:
+    """Each fault site armed on its own, with the outcome it must give."""
+    Svc = m["serve"].CpdService
+    out = {}
+    K = SERVE_CAPACITY["A"]
+    xa, sa = xs_a[:K], list(range(K))
+
+    def svc_a(**kw):
+        kw.setdefault("tune", "auto")
+        return Svc(RANK, "cp_als", capacity=K, n_iters=5, tol=0.0,
+                   retry_base_s=1e-3, **kw)
+
+    def mates_equal(label, rs, skip=()):
+        for i, r in enumerate(rs):
+            if i in skip:
+                continue
+            if not r.ok:
+                _fail(f"{label}: tenant {i} error {r.error}")
+            _same_bits(f"{label} tenant {i}", r.result, clean_a[i].result,
+                       ("fits",))
+
+    # batched.nan: NaN, then a huge but finite value, in slot 3 at sweep 3.
+    for value in (float("nan"), 1e30):
+        label = f"serve batched.nan {value}"
+        svc = svc_a()
+        rs, sec = _fault(m, label, "batched.nan",
+                         dict(data={"tenant": 3, "value": value}, after=2),
+                         lambda: _bucket_now(m, svc, xa, sa))
+        r3 = rs[3]
+        if r3.ok or "quarantined" not in r3.error or not r3.degraded:
+            _fail(f"{label}: tenant 3 ok={r3.ok} error={r3.error}")
+        if r3.result.fits != clean_a[3].result.fits[:2] or not all(
+                bool(torch.isfinite(f).all()) for f in r3.result.factors):
+            _fail(f"{label}: tenant 3 rollback {r3.result.fits}")
+        mates_equal(label, rs, skip=(3,))
+        s = svc.stats()
+        if s["quarantined_tenants"] != 1 or s["errors"] != 1:
+            _fail(f"{label}: stats {s}")
+        out[f"batched_nan_{value}"] = {"seconds": sec}
+    # batched.sweep x1: the bucket is bisected, every member served alone.
+    svc = svc_a()
+    rs, sec = _fault(m, "serve batched.sweep", "batched.sweep", {},
+                     lambda: _bucket_now(m, svc, xa, sa))
+    if any(r.bucket_size != 1 for r in rs):
+        _fail("serve batched.sweep: a member was not re-run alone")
+    mates_equal("serve batched.sweep", rs)
+    out["batched_sweep_bisect"] = {"seconds": sec}
+    # batched.sweep twice, after one good sweep: the first solo re-run
+    # fails too, and only that tenant gets an error.
+    svc = svc_a()
+    rs, sec = _fault(m, "serve batched.sweep x2", "batched.sweep",
+                     dict(times=2, after=1),
+                     lambda: _bucket_now(m, svc, xa, sa),
+                     expect_fired=2)
+    if rs[0].ok or "quarantined after repeated failures" not in rs[0].error:
+        _fail(f"serve batched.sweep x2: tenant 0 {rs[0].error}")
+    mates_equal("serve batched.sweep x2", rs, skip=(0,))
+    if svc.stats()["quarantined_tenants"] != 1:
+        _fail(f"serve batched.sweep x2: stats {svc.stats()}")
+    out["batched_sweep_quarantine"] = {"seconds": sec}
+    # views.build x1: one retry, the same bits.
+    m["views"].cache_clear()
+    svc = svc_a()
+    rs, sec = _fault(m, "serve views.build", "views.build", {},
+                     lambda: _bucket_now(m, svc, xa, sa))
+    if any(r.retries != 1 for r in rs) or svc.stats()["retries"] != 1:
+        _fail(f"serve views.build: retries {[r.retries for r in rs]}")
+    mates_equal("serve views.build", rs)
+    out["views_build_retry"] = {"seconds": sec}
+    # autotune.store: the corrupt store reads as a miss (the class is
+    # tuned again), not a crash.
+    svc = svc_a()
+    r0 = m["ops"].timing_runs()
+    rs, sec = _fault(m, "serve autotune.store", "autotune.store", {},
+                     lambda: _bucket_now(m, svc, xa, sa))
+    if not all(r.ok for r in rs) or m["ops"].timing_runs() == r0:
+        _fail("serve autotune.store: not served, or the corrupt store "
+              "was not a miss")
+    out["autotune_store_miss"] = {"seconds": sec,
+                                  "timing_runs": m["ops"].timing_runs() - r0}
+    # plan.dispatch on the stored plan: evicted, the static plan served.
+    sc = m["shapeclass"].classify(xa[0], RANK)
+    key = m["autotune"].class_plan_key(sc, "cuda")
+    if key not in m["autotune"].load_store(store):
+        _fail("serve plan.dispatch: class A's plan is not stored")
+    svc = svc_a()
+    rs, sec = _fault(m, "serve plan.dispatch", "plan.dispatch", {},
+                     lambda: _bucket_now(m, svc, xa, sa))
+    s = svc.stats()
+    if (not all(r.ok and r.degraded for r in rs) or s["plan_evictions"] != 1
+            or s["degraded_dispatches"] != 0
+            or key in m["autotune"].load_store(store)):
+        _fail(f"serve plan.dispatch: stats {s}")
+    static = m["plan"].make_class_plan(sc)
+    if svc._class_plan(sc) != static:
+        _fail("serve plan.dispatch: the static plan did not take over")
+    out["plan_dispatch_evict"] = {"seconds": sec,
+                                  "same_bits_as_tuned": all(
+                                      r.result.fits == clean_a[i].result.fits
+                                      for i, r in enumerate(rs))}
+    # ops.exec twice on a class B bucket: a DispatchError under the static
+    # plan has no rung (the kernels are never swapped for their plain
+    # versions), so the bucket is bisected; the first solo re-run fails
+    # too and only that tenant gets an error. Its mates are served alone
+    # on the kernels, each with the clean run's bits.
+    KB = SERVE_CAPACITY["B"]
+    svc = Svc(RANK, "cp_apr", capacity=KB, n_iters=3, tune="off",
+              retry_base_s=1e-3)
+    sc_b = m["shapeclass"].classify(xs_b[0], RANK)
+    kernels_b = set(_bucket_kernels(m, m["plan"].make_class_plan(sc_b),
+                                    apr=True))
+
+    def run_b():
+        return _counted(m, "serve ops.exec", lambda: _bucket_now(
+            m, svc, xs_b[:KB], list(range(1000, 1000 + KB))), kernels_b)
+    (rs, _, counts), sec = _fault(m, "serve ops.exec", "ops.exec",
+                                  dict(times=2), run_b, expect_fired=2)
+    s = svc.stats()
+    r0 = rs[0]
+    if (r0.ok or "quarantined after repeated failures" not in r0.error
+            or "injected dispatch failure" not in r0.error):
+        _fail(f"serve ops.exec: tenant 0 ok={r0.ok} error={r0.error}")
+    if (any(r.degraded for r in rs) or s["degraded_dispatches"]
+            or s["plan_evictions"] or s["quarantined_tenants"] != 1
+            or s["errors"] != 1 or svc._class_plan(sc_b).backend != "cuda"):
+        _fail(f"serve ops.exec: stats {s}")
+    for i, r in enumerate(rs[1:], 1):
+        if not r.ok or r.bucket_size != 1:
+            _fail(f"serve ops.exec tenant {i}: ok={r.ok} bucket "
+                  f"{r.bucket_size} error={r.error}")
+        _same_bits(f"serve ops.exec tenant {i}", r.result, clean_b[i].result,
+                   ("kkt_violations", "n_outer", "n_inner_total"))
+    out["ops_exec_bisect"] = {
+        "seconds": sec, "launches": {k: v for k, v in
+                                     counts["launches"].items() if v}}
+    # ingest.merge: the delta gets an error, its base stays serviceable.
+    svc = svc_a()
+    base = _bucket_now(m, svc, xa[:1], sa[:1])[0]
+    coords, values = _delta(xa[0].dims, 100, 7)
+
+    def delta():
+        did = svc.submit_delta(base.request_id, coords, values)
+        return {x.request_id: x for x in svc.process()}[did]
+    r, sec = _fault(m, "serve ingest.merge", "ingest.merge", {}, delta)
+    if r.ok or "resubmit is safe" not in r.error:
+        _fail(f"serve ingest.merge: {r.error}")
+    did = svc.submit_delta(base.request_id, coords, values)
+    r = {x.request_id: x for x in svc.process()}[did]
+    if not r.ok:
+        _fail(f"serve ingest.merge resubmit: {r.error}")
+    out["ingest_merge"] = {"seconds": sec}
+    out.update(serve_stream_faults(m, chicago))
+    return out
+
+
+def serve_stream_faults(m, chicago) -> dict:
+    """``ops.chunk_oom`` on Chicago's streamed plan through
+    `health.degrade_plan` (chunk_m halved, the same bits), then
+    ``stream.memmap_load``, ``stream.checksum`` and ``stream.respill`` on
+    a spilled Chicago mode stream."""
+    at, stream = chicago["at"], m["stream"]
+    ps = streamed_plan(m, at.meta)
+    hs, _ = _streamed_views(m, at, ps)
+    fs = _factors(at.dims, seed=0)
+
+    def als(p):
+        return m["cpals"].cp_als(at, RANK, n_iters=2, tol=0.0, factors=fs,
+                                 plan=p, views=hs)
+    clean = als(ps)
+    fl = m["faults"]
+    fl.reset()
+    fl.arm("ops.chunk_oom", after=ps.streaming.n_chunks + 3)
+    t0 = time.perf_counter()
+    try:
+        als(ps)
+        _fail("serve ops.chunk_oom: no allocator failure")
+    except torch.OutOfMemoryError as exc:
+        halved, why = m["health"].degrade_plan(ps, exc)
+    fl.reset()
+    if halved is None or halved.streaming.chunk_m >= ps.streaming.chunk_m:
+        _fail(f"serve ops.chunk_oom: no halved plan ({why})")
+    again = als(halved)
+    _sync()
+    sec = time.perf_counter() - t0
+    _same_bits("serve ops.chunk_oom", again, clean, ("fits",))
+    out = {"chunk_oom_halve": {"seconds": sec, "why": why,
+                               "n_chunks": [ps.streaming.n_chunks,
+                                            halved.streaming.n_chunks]}}
+    # A spilled Chicago mode stream.
+    spill = ROOT / "build" / "chip_smoke_serve" / "spill"
+    shutil.rmtree(spill, ignore_errors=True)
+    mode = 1
+    mapped = stream.to_memmap(hs[mode], spill)
+    t0 = time.perf_counter()
+    fl.arm("stream.memmap_load")
+    try:
+        stream.from_memmap(spill, at.meta, mode)
+        _fail("serve stream.memmap_load: the read did not fail")
+    except OSError:
+        again = stream.from_memmap(spill, at.meta, mode)
+    fl.reset()
+    if again.checksum != mapped.checksum:
+        _fail("serve stream.memmap_load: the retry read another stream")
+    out["memmap_load_retry"] = {"seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    rebuilds = stream.integrity_stats()["rebuilds"]
+    fl.arm("stream.checksum")
+    rebuilt = stream.load_or_rebuild(spill, at, mode)
+    fl.reset()
+    if (stream.integrity_stats()["rebuilds"] != rebuilds + 1
+            or not all(torch.equal(getattr(rebuilt, f), getattr(mapped, f))
+                       for f in ("rows", "words", "values"))):
+        _fail("serve stream.checksum: no rebuild, or another stream")
+    out["checksum_rebuild"] = {"seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    coords, values = _delta(at.dims, 1000, 11)
+    grown = m["ingest"].append_delta(at, coords, values,
+                                     invalidate_stale=False)
+    fl.arm("stream.respill")
+    try:
+        stream.append_stream(rebuilt, grown)
+        _fail("serve stream.respill: the respill did not fail")
+    except m["faults"].InjectedInterrupt:
+        pass
+    fl.reset()
+    old = stream.from_memmap(spill, at.meta, mode)
+    if old.checksum != mapped.checksum or not torch.equal(old.words,
+                                                          mapped.words):
+        _fail("serve stream.respill: the old generation did not survive")
+    redo = stream.append_stream(old, grown)
+    fresh = stream.host_stream(grown, mode)
+    if not (torch.equal(redo.words, fresh.words)
+            and torch.equal(redo.values, fresh.values)):
+        _fail("serve stream.respill: the retry differs from a rebuild")
+    out["respill_interrupt"] = {"seconds": time.perf_counter() - t0}
+    del hs, grown, fresh, redo, old, rebuilt, mapped
+    m["views"].cache_clear()
+    shutil.rmtree(spill, ignore_errors=True)
+    return out
+
+
+def phase_serve(m, buckets, chicago) -> dict:
+    """The service (`launch.serve_cpd`) on classes A and B at full width:
+    clean runs with the worker and submitter threads, a second service on
+    the warm store, deltas, the guard's cost, then every fault site."""
+    env = m["autotune"].PLAN_CACHE_ENV
+    saved = os.environ.get(env)
+    root = ROOT / "build" / "chip_smoke_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    os.environ[env] = str(root / "plans.json")
+    try:
+        return _phase_serve(m, buckets, chicago, root / "plans.json")
+    finally:
+        if saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved
+        m["faults"].reset()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_serve(m, buckets, chicago, store) -> dict:
+    Svc, fl = m["serve"].CpdService, m["faults"]
+    t_start = time.perf_counter()
+    fl.reset()
+    out, runs = {}, []
+    # 1. Clean CP-ALS service, class A, tuned on a cold store.
+    K = SERVE_CAPACITY["A"]
+    xs_a = _bucket_tensors(m, BUCKET_CLASSES["A"])
+    seeds_a = list(range(len(xs_a)))
+    svc = Svc(RANK, "cp_als", capacity=K, n_iters=5, tol=0.0, guard=True,
+              tune="auto", max_wait_s=0.05)
+    r0 = m["ops"].timing_runs()
+    clean_a, wall_a, c = _served(m, "serve class A", svc, xs_a, seeds_a)
+    runs.append(c)
+    sa = svc.stats()
+    _serve_stats_zero("serve class A", sa)
+    members = _solo_equal(m, "serve class A", svc, xs_a, seeds_a, clean_a,
+                          5, apr=False)
+    sc_a = m["shapeclass"].classify(xs_a[0], RANK)
+    p_a = svc._class_plan(sc_a)
+    out["A"] = {"tenants": len(xs_a), "capacity": K, "wall_s": wall_a,
+                "tune_timing_runs": m["ops"].timing_runs() - r0,
+                "plan": [(mp.traversal.value, mp.r_block, mp.block_m)
+                         for mp in p_a.modes],
+                "launches": c["launches"],
+                **{k: sa[k] for k in ("buckets_run", "tenants_per_s",
+                                      "latency_p50_s", "latency_p99_s")},
+                "wall_tenants_per_s": len(xs_a) / wall_a,
+                "direct_bucket_tenants_per_s":
+                    buckets["A"]["cp_als"]["tenants_per_s"]}
+    # Zero warm-up: a second service on the same store, 16 more tenants,
+    # one bucket: no timing run, one launch per kernel and mode a sweep.
+    xs_w = _bucket_tensors(m, dict(BUCKET_CLASSES["A"], tenants=K,
+                                   seed=103))
+    svc_w = Svc(RANK, "cp_als", capacity=K, n_iters=5, tol=0.0,
+                tune="auto", max_wait_s=0.05)
+    r0 = m["ops"].timing_runs()
+    _, wall_w, c = _served(m, "serve class A warm", svc_w, xs_w,
+                           list(range(K)))
+    runs.append(c)
+    if m["ops"].timing_runs() != r0 or svc_w._class_plan(sc_a) != p_a:
+        _fail("serve: the second service measured, or took another plan")
+    per_sweep = {k: v // 5 for k, v in c["launches"].items() if v}
+    expect = _bucket_kernels(m, p_a, apr=False)
+    if per_sweep != expect or any(v % 5 for v in c["launches"].values()):
+        _fail(f"serve: launches {c['launches']} in 5 sweeps, expected "
+              f"{expect} a sweep")
+    # phase_batched's capacity-16 bucket (the same 16 tenants, one sweep)
+    # under the service's class plan: the same launches a sweep; under the
+    # static plan, also phase_batched's own count.
+    ats = [a for a, _ in members[:K]]
+    vws = [v for _, v in members[:K]]
+    dims = [x.dims for x in xs_a[:K]]
+    bat = m["batched"]
+    _, _, c = _counted(m, "serve class A capacity 16", lambda:
+                       bat.batched_cp_als(ats, vws, dims, RANK, plan=p_a,
+                                          n_iters=1, tol=0.0, capacity=K),
+                       set())
+    cap16_tuned = {k: v for k, v in c["launches"].items() if v}
+    if per_sweep != cap16_tuned:
+        _fail(f"serve: launches a sweep {per_sweep} against phase_batched's "
+              f"capacity-16 bucket under the same plan {cap16_tuned}")
+    static_a = m["plan"].make_class_plan(sc_a)
+    cap16 = {k: v for k, v in
+             buckets["A"]["capacity_launches"][16].items() if v}
+    if p_a == static_a and per_sweep != cap16:
+        _fail(f"serve: launches a sweep {per_sweep} against phase_batched's "
+              f"{cap16} at capacity 16")
+    out["A"].update(warm_wall_s=wall_w, warm_launches_per_sweep=per_sweep,
+                    cap16_same_plan=cap16_tuned, phase_batched_cap16=cap16,
+                    plan_is_static=p_a == static_a)
+    # The guard: class A again unguarded (the same bits), and its share
+    # of a direct bucket's sweep.
+    svc_ng = Svc(RANK, "cp_als", capacity=K, n_iters=5, tol=0.0,
+                 guard=False, tune="auto")
+    ng, wall_ng, c = _served(m, "serve class A unguarded", svc_ng, xs_a,
+                             seeds_a, threads=False)
+    runs.append(c)
+    for i in range(len(xs_a)):
+        _same_bits(f"serve class A unguarded tenant {i}", ng[i].result,
+                   clean_a[i].result, ("fits",))
+    times = {True: [], False: []}
+    for guard in (False, True, True, False) * 2:
+        _sync()
+        t0 = time.perf_counter()
+        bat.batched_cp_als(ats, vws, dims, RANK, plan=p_a, n_iters=5,
+                           tol=0.0, seeds=seeds_a[:K], capacity=K,
+                           guard=guard)
+        _sync()
+        times[guard].append((time.perf_counter() - t0) / 5 * 1e3)
+    sweep = {g: sum(v) / len(v) for g, v in times.items()}
+    fac = bat.stack_tenants([m["batched"].embed_factors(
+        m["cpals"].init_factors(d, RANK, seed=i), sc_a.dims)
+        for i, d in enumerate(dims)])
+    leaves = [*fac, torch.ones((K, RANK), device=fac[0].device), fac[-1]]
+    check_ms = _ms(m, m["health"].tenants_finite, leaves)
+    out["guard"] = {"sweep_ms": sweep[True], "unguarded_sweep_ms":
+                    sweep[False], "share": (sweep[True] - sweep[False])
+                    / sweep[False], "check_ms": check_ms,
+                    "check_share": check_ms / sweep[False]}
+    # 2. Clean CP-APR service, class B.
+    KB = SERVE_CAPACITY["B"]
+    xs_b = _bucket_tensors(m, BUCKET_CLASSES["B"])
+    seeds_b = [1000 + i for i in range(len(xs_b))]
+    svc_b = Svc(RANK, "cp_apr", capacity=KB, n_iters=3, tune="off",
+                max_wait_s=0.05)
+    clean_b, wall_b, c = _served(m, "serve class B", svc_b, xs_b, seeds_b)
+    runs.append(c)
+    sb = svc_b.stats()
+    _serve_stats_zero("serve class B", sb)
+    _solo_equal(m, "serve class B", svc_b, xs_b, seeds_b, clean_b, 3,
+                apr=True)
+    out["B"] = {"tenants": len(xs_b), "capacity": KB, "wall_s": wall_b,
+                "launches": c["launches"],
+                **{k: sb[k] for k in ("buckets_run", "tenants_per_s",
+                                      "latency_p50_s", "latency_p99_s")},
+                "wall_tenants_per_s": len(xs_b) / wall_b,
+                "direct_bucket_tenants_per_s":
+                    buckets["B"]["cp_apr"]["tenants_per_s"]}
+    # 3. Deltas: 1 % of eight class A tenants' nonzeros, each equal to a
+    # direct append and warm start.
+    ids = {}
+    for i in range(8):
+        coords, values = _delta(xs_a[i].dims, max(1, xs_a[i].nnz // 100),
+                                500 + i)
+        ids[i] = (svc.submit_delta(clean_a[i].request_id, coords, values),
+                  coords, values)
+    got, delta_s, c = _counted(m, "serve deltas", lambda: {
+        r.request_id: r for r in svc.process()}, set())
+    runs.append(c)
+    lat = []
+    for i, (did, coords, values) in ids.items():
+        r = got[did]
+        if not r.ok:
+            _fail(f"serve delta {i}: {r.error}")
+        at = m["alto"].build_device(xs_a[i], n_partitions=8,
+                                    compute_reuse=False)
+        grown = m["ingest"].append_delta(at, coords, values)
+        want = m["cpals"].cp_als(grown, RANK, n_iters=5, tol=0.0,
+                                 warm_start=clean_a[i].result, guard=True)
+        _same_bits(f"serve delta {i}", r.result, want, ("fits",))
+        lat.append(r.latency_s)
+    out["deltas"] = {"count": len(ids), "seconds": delta_s,
+                     "latency_s": lat}
+    # 4. The clean runs fired nothing and counted nothing.
+    if fl.fired():
+        _fail(f"serve: faults fired on the clean runs: {fl.fired()}")
+    for label, s in (("class A", svc.stats()), ("class B", svc_b.stats()),
+                     ("warm", svc_w.stats()), ("unguarded", svc_ng.stats())):
+        _serve_stats_zero(f"serve {label}", s)
+    # 5. The fault sites.
+    out["faults"] = serve_faults(m, clean_a, xs_a, clean_b, xs_b, chicago,
+                                 store)
+    out["runs"] = [{"launches": c["launches"], "elements": c["elements"]}
+                   for c in runs]
+    out["seconds"] = time.perf_counter() - t_start
+    del members, ats, vws
+    m["views"].cache_clear()
+    a, b, g = out["A"], out["B"], out["guard"]
+    print(f"chip_smoke: serve: class A {a['tenants']} tenants, capacity "
+          f"{a['capacity']}, {SERVE_THREADS} submitters: "
+          f"{a['wall_tenants_per_s']:.1f} tenants/s wall "
+          f"({a['tenants_per_s']:.1f} busy; direct bucket "
+          f"{a['direct_bucket_tenants_per_s']:.1f}), p50 "
+          f"{a['latency_p50_s'] * 1e3:.0f} ms, p99 "
+          f"{a['latency_p99_s'] * 1e3:.0f} ms, {a['buckets_run']} buckets, "
+          f"plan {a['plan']} (static {a['plan_is_static']}), tuned in "
+          f"{a['tune_timing_runs']} timing runs; warm store: 0 timing runs, "
+          f"launches a sweep {a['warm_launches_per_sweep']}; class B "
+          f"{b['tenants']} CP-APR tenants: {b['wall_tenants_per_s']:.2f} "
+          f"tenants/s wall (direct bucket "
+          f"{b['direct_bucket_tenants_per_s']:.2f}), p50 "
+          f"{b['latency_p50_s']:.2f} s, p99 {b['latency_p99_s']:.2f} s; "
+          f"every tenant equal to its solo run; {out['deltas']['count']} "
+          f"deltas equal to append + warm start; guard {g['sweep_ms']:.1f} "
+          f"against {g['unguarded_sweep_ms']:.1f} ms a sweep (check "
+          f"{g['check_ms']:.3f} ms); faults: " + ", ".join(
+              f"{k} {v['seconds']:.2f} s" for k, v in out["faults"].items())
+          + f"; {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Real-size kernel checks and timings
 # ---------------------------------------------------------------------------
 
@@ -2759,6 +3360,7 @@ def main() -> int:
     c_str = phase_chicago_streamed(m, chicago)
     buckets = phase_batched(m)
     ingested = phase_ingest(m, chicago, darpa)
+    served = phase_serve(m, buckets, chicago)
     split = {"chicago": carry_split(
                  m, chicago["at"], chicago["plan"],
                  chicago["run"]["res"].factors, (1, 2, 3), "chicago",
@@ -2770,7 +3372,7 @@ def main() -> int:
             chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
             c_str["run"], *buckets["A"]["runs"], *buckets["B"]["runs"],
-            *ingested["runs"]]
+            *ingested["runs"], *served["runs"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
     launches["elements"] = {k: sum(r["elements"][k] for r in runs)
@@ -2875,7 +3477,7 @@ def main() -> int:
         | {"cp_apr": _apr_detail(c_str["run"]),
            "cp_apr_incore": _apr_detail(c_str["incore_run"])},
         "overlap_efficiency": overlap, "tuning": tuning,
-        "batched": buckets, "ingest": ingested,
+        "batched": buckets, "ingest": ingested, "serve": served,
         "kernels": kernels, "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"

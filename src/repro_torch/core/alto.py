@@ -20,10 +20,15 @@ Each segment's bounding box ``T_l`` (per-mode closed intervals) is exact;
 boxes of different partitions may overlap (paper Fig. 7) and the pull
 reduction resolves the overlap. The largest interval per mode sizes the
 recursive kernel's ``Temp``.
+
+`device_ingest_traces` counts the distinct shape keys the device build,
+view and merge have run: the port's counterpart of the JAX package's jit
+traces of its ingest cores (the serving layer's stats report it).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -187,6 +192,25 @@ def oriented_view(at: AltoTensor, mode: int) -> OrientedView:
 # Format generation (device side)
 # ---------------------------------------------------------------------------
 
+_INGEST_KEYS: dict[str, set] = {"build": set(), "view": set(),
+                                "merge": set()}
+_INGEST_LOCK = threading.Lock()
+
+
+def note_ingest(kind: str, key: tuple) -> None:
+    """Record one run of the device ``kind`` ("build", "view", "merge")
+    at the shape ``key``."""
+    with _INGEST_LOCK:
+        _INGEST_KEYS[kind].add(key)
+
+
+def device_ingest_traces() -> dict[str, int]:
+    """Distinct shape keys (encoding, partitions, lengths, dtype, device
+    type) that the device build, the device view and the ingest merge
+    have run in this process."""
+    with _INGEST_LOCK:
+        return {k: len(v) for k, v in _INGEST_KEYS.items()}
+
 def build_device(x: SparseTensor, n_partitions: int = 8,
                  compute_reuse: bool = True, device=None) -> AltoTensor:
     """ALTO format generation in torch on ``device`` (default ``cuda``).
@@ -201,6 +225,8 @@ def build_device(x: SparseTensor, n_partitions: int = 8,
     L = max(1, int(n_partitions))
     M = x.nnz
     N, W = enc.ndim, enc.n_words
+    note_ingest("build", (enc, L, M, bool(compute_reuse),
+                          str(np.asarray(x.values).dtype), dev.type))
     coords = torch.from_numpy(x.coords).to(dev)
     values = torch.from_numpy(np.asarray(x.values)).to(dev)
     words = enc_mod.linearize(enc, coords)
@@ -238,6 +264,8 @@ def oriented_view_device(at: AltoTensor, mode: int) -> OrientedView:
     tensor's device: a masked bit extract of the target mode, then ONE
     stable sort by row whose permutation carries words and values.
     Bit-identical to the host `oriented_view`."""
+    note_ingest("view", (at.meta.enc, mode, at.words.shape[0],
+                         str(at.values.dtype), at.words.device.type))
     rows = enc_mod.extract_mode(at.meta.enc, at.words, mode)
     rows, perm = torch.sort(rows, stable=True)
     return OrientedView(meta=at.meta, mode=mode, rows=rows,

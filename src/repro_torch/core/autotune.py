@@ -49,7 +49,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import heuristics
+from repro_torch.core import faults, heuristics
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoMeta, AltoTensor
@@ -144,8 +144,10 @@ def store_path(override=None) -> pathlib.Path:
 
 def load_store(path=None) -> dict:
     """The store's ``plans`` mapping; a missing, unreadable, corrupt or
-    other-version file loads as empty (and is left as it is)."""
+    other-version file loads as empty (and is left as it is); so does a
+    read the ``autotune.store`` fault site corrupts."""
     try:
+        faults.inject("autotune.store")
         raw = json.loads(store_path(path).read_text())
     except (OSError, ValueError):
         return {}
@@ -400,7 +402,8 @@ def dedupe(cands, backend: str, objective: str, streaming: bool = False):
 
 def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
               objective: str = "mttkrp", max_candidates: int | None = None,
-              persist: bool = True, store_path=None
+              persist: bool = True, store_path=None,
+              oriented_only: bool = False
               ) -> tuple[plan_mod.ExecutionPlan, TuneReport]:
     """Time every candidate of every mode and return the winning plan.
 
@@ -410,7 +413,8 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     cap_candidates`. Factors are seeded (seed 0), so the timings depend
     only on what the store key fingerprints. Returns ``(plan, report)``;
     each mode's winner is its report's `ModeReport.best`: the static
-    candidate unless another `beats` it."""
+    candidate unless another `beats` it. ``oriented_only`` drops the
+    recursive candidates (a shape class's plan, `plan.make_class_plan`)."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     if max_candidates is None:
@@ -428,10 +432,12 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     winners, reports = [], []
     for n in range(meta.enc.ndim):
         t_mode = time.perf_counter()
-        cands = plan_mod.cap_candidates(dedupe(
-            plan_mod.candidate_mode_plans(meta, n, rank,
-                                          objective=objective),
-            backend, objective), max_candidates)
+        cands = plan_mod.candidate_mode_plans(meta, n, rank,
+                                              objective=objective)
+        if oriented_only:
+            cands = [c for c in cands if heuristics.is_oriented(c.traversal)]
+        cands = plan_mod.cap_candidates(dedupe(cands, backend, objective),
+                                        max_candidates)
         oriented = any(heuristics.is_oriented(c.traversal) for c in cands)
         view = views_mod.get_view(at, n) if oriented else None
         views = {n: view} if view is not None else {}
@@ -506,7 +512,8 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
                device_bytes: int | None = None,
                search_budget_runs: int | None = None,
                search_budget_s: float | None = None, search_seed: int = 0,
-               store_path=None) -> plan_mod.ExecutionPlan | None:
+               store_path=None,
+               oriented_only: bool = False) -> plan_mod.ExecutionPlan | None:
     """A store hit, else a measurement on ``at``; None tells `make_plan`
     to fall back to the static plan (no data, ``require`` False).
 
@@ -514,7 +521,7 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
     (`core.search`) instead of the exhaustive tuner. ``device_bytes``
     marks a streaming plan: those always go through the search
     (``chunk_m`` is one of its genes) and are stored under a key of that
-    budget."""
+    budget. ``oriented_only`` measures oriented candidates only."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     hit = lookup(meta, rank, backend=backend, device=device,
@@ -532,10 +539,11 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
                 at, rank, backend=backend, objective=objective,
                 device_bytes=device_bytes, budget_runs=search_budget_runs,
                 budget_s=search_budget_s, seed=search_seed,
-                store_path=store_path)
+                store_path=store_path, oriented_only=oriented_only)
             return plan
         plan, _ = tune_plan(at, rank, backend=backend, objective=objective,
-                            store_path=store_path)
+                            store_path=store_path,
+                            oriented_only=oriented_only)
         return plan
     if require:
         raise ValueError(

@@ -30,6 +30,15 @@ elements carry value 0 and padded factor rows receive no contributions,
 so the bucket's trajectory is the solo trajectory on the padded tensor,
 zeros appended; the answer is sliced back to the tenant's dims.
 
+Quarantine (``guard=True``, `core.health`): after each sweep (CP-ALS) or
+mode update (CP-APR) a per-slot finite mask, and for CP-ALS the fit
+floor, flag a poisoned slot; it rolls back to its state before the sweep
+(outer iteration) and freezes through the same ``torch.where`` as a
+converged slot, so its mates keep their bits and it costs the bucket at
+most the update that poisoned it. Fault sites: ``batched.sweep`` before
+each sweep (outer iteration), ``batched.nan`` after each sweep (mode
+update), poisoning one slot.
+
 Short buckets are filled to ``capacity`` with inactive replicas of slot
 0, so every bucket of a class has one shape and launches the same
 kernels. `sweep_traces` counts the batched set-ups (one per algorithm and
@@ -39,13 +48,15 @@ the JAX package's jit traces: a class costs a few, never one per tenant.
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import cpals, cpapr, heuristics
+from repro_torch.core import cpals, cpapr, faults, heuristics
+from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.kernels import ops
@@ -200,9 +211,12 @@ def pi_rows(enc, words_b: torch.Tensor, factors_b, mode: int):
 # Batched CP-ALS
 # ---------------------------------------------------------------------------
 
-def _als_sweep(plan, views_b, factors_b, lam_b):
+def _als_sweep(plan, views_b, factors_b, lam_b, active):
     """One CP-ALS sweep of every slot: `cpals._sweep` with the MTTKRP of
-    the whole bucket and the dense algebra slot by slot."""
+    the whole bucket and the dense algebra slot by slot, skipped for the
+    slots not ``active`` (converged, quarantined or fill: their factors
+    and λ come back as they were, and a quarantined slot's data never
+    reaches a pseudo-inverse)."""
     T = lam_b.shape[0]
     N = len(factors_b)
     factors_b = list(factors_b)
@@ -212,6 +226,10 @@ def _als_sweep(plan, views_b, factors_b, lam_b):
         M = _mttkrp(plan, views_b, factors_b, n)
         new, lams = [], []
         for t in range(T):
+            if not active[t]:
+                new.append(factors_b[n][t])
+                lams.append(lam_b[t])
+                continue
             V = None
             for m in range(N):
                 if m == n:
@@ -228,10 +246,26 @@ def _als_sweep(plan, views_b, factors_b, lam_b):
     return factors_b, torch.stack(lams), M
 
 
+def _freeze(mask: np.ndarray, new, old):
+    """``new`` where ``mask`` (over the slots) is set, else ``old``."""
+    m = torch.from_numpy(mask).to(old.device)
+    return torch.where(m.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+
+def _poison(x: torch.Tensor, pd: dict) -> torch.Tensor:
+    """``x`` with the ``batched.nan`` poison in its slot's first entry."""
+    x = x.clone()
+    x[int(pd.get("tenant", 0)), 0, 0] = pd.get("value", float("nan"))
+    return x
+
+
 @dataclasses.dataclass
 class BatchedCpalsResult:
     results: list[cpals.CpalsResult]   # per tenant, factors at its dims
     n_sweeps: int                      # batched sweeps run
+    # quarantined[i]: under guard=True tenant i's update went non-finite
+    # (or below the fit floor); its result is the last good iterate.
+    quarantined: list[bool] = dataclasses.field(default_factory=list)
 
 
 def batched_cp_als(ats: Sequence[AltoTensor],
@@ -242,7 +276,8 @@ def batched_cp_als(ats: Sequence[AltoTensor],
                    n_iters: int = 50, tol: float = 1e-5,
                    seeds: Sequence[int] | None = None,
                    init_factors: Sequence[list[torch.Tensor]] | None = None,
-                   capacity: int | None = None) -> BatchedCpalsResult:
+                   capacity: int | None = None,
+                   guard: bool = False) -> BatchedCpalsResult:
     """CP-ALS over K same-class tenants, one bucket.
 
     ``ats`` and ``views`` are the canonicalized class members (all with
@@ -252,6 +287,11 @@ def batched_cp_als(ats: Sequence[AltoTensor],
     fixes the stacked tenant axis: short buckets are filled with inactive
     replicas of slot 0. Each tenant stops on the solo driver's rule (fit
     change below ``tol``) and freezes while its mates sweep.
+
+    ``guard=True`` quarantines a slot whose sweep output is not finite or
+    whose fit falls below `health.FIT_FLOOR`: it rolls back to its
+    previous iterate and freezes (``quarantined``); its mates keep their
+    bits, and a clean bucket's bits do not change.
     """
     K = len(ats)
     if K == 0:
@@ -278,32 +318,53 @@ def batched_cp_als(ats: Sequence[AltoTensor],
     normX2 = [float((at.values.detach().double() ** 2).sum()) for at in ats]
     active = np.zeros(cap, bool)
     active[:K] = True
+    quarantined = np.zeros(cap, bool)
     fits: list[list[float]] = [[] for _ in range(K)]
     prev = np.full(K, -np.inf)
     n_sweeps = 0
     for _ in range(n_iters):
-        new_f, new_lam, M_last = _als_sweep(plan, views_b, factors_b, lam_b)
-        a = torch.from_numpy(active).to(dev)
-        factors_b = [torch.where(a[:, None, None], nf, f)
-                     for nf, f in zip(new_f, factors_b)]
-        lam_b = torch.where(a[:, None], new_lam, lam_b)
+        faults.inject("batched.sweep")
+        good_f, good_l = factors_b, lam_b
+        new_f, new_lam, M_last = _als_sweep(plan, views_b, factors_b, lam_b,
+                                            active)
+        factors_b = [_freeze(active, nf, f) for nf, f in zip(new_f, factors_b)]
+        lam_b = _freeze(active, new_lam, lam_b)
         n_sweeps += 1
-        live = [i for i in range(K) if active[i]]
+        pd = faults.fire("batched.nan")
+        if pd is not None:
+            factors_b[-1] = _poison(factors_b[-1], pd)
+        bad = np.zeros(cap, bool)
+        if guard:
+            bad = active & ~health_mod.tenants_finite(
+                [*factors_b, lam_b, M_last])
+        live = [i for i in range(K) if active[i] and not bad[i]]
         now = torch.stack([cpals._fit_tensor(
             M_last[i], [A[i] for A in factors_b], lam_b[i], normX2[i])
-            for i in live]).cpu().tolist()          # one copy a sweep
+            for i in live]).cpu().tolist() if live else []  # one copy
         for i, fit in zip(live, now):
+            if guard and not (math.isfinite(fit)
+                              and fit >= health_mod.FIT_FLOOR):
+                # Huge but finite: quarantined before its Grams overflow
+                # the next sweep (health.FIT_FLOOR).
+                bad[i] = True
+                continue
             fits[i].append(fit)
             if abs(fit - prev[i]) < tol:
                 active[i] = False
             prev[i] = fit
+        if bad.any():
+            factors_b = [_freeze(bad, g, f) for g, f in zip(good_f, factors_b)]
+            lam_b = _freeze(bad, good_l, lam_b)
+            quarantined |= bad
+            active &= ~bad
         if not active[:K].any():
             break
     results = [cpals.CpalsResult(
         lam=lam_b[i], factors=_slice_factors([A[i] for A in factors_b],
                                              real_dims[i]),
         fits=fits[i], n_iters=len(fits[i]), plan=plan) for i in range(K)]
-    return BatchedCpalsResult(results=results, n_sweeps=n_sweeps)
+    return BatchedCpalsResult(results=results, n_sweeps=n_sweeps,
+                              quarantined=[bool(q) for q in quarantined[:K]])
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +422,8 @@ def _apr_mode_update(plan, view_b, mode: int, lam_b, factors_b, phi_prev,
 class BatchedCpaprResult:
     results: list[cpapr.CpaprResult]   # per tenant, factors at its dims
     n_outer: int                       # batched outer iterations run
+    # The contract of BatchedCpalsResult.quarantined (guard=True only).
+    quarantined: list[bool] = dataclasses.field(default_factory=list)
 
 
 def batched_cp_apr(ats: Sequence[AltoTensor],
@@ -371,13 +434,20 @@ def batched_cp_apr(ats: Sequence[AltoTensor],
                    params: cpapr.CpaprParams | None = None,
                    seeds: Sequence[int] | None = None,
                    init_factors: Sequence[tuple] | None = None,
-                   capacity: int | None = None) -> BatchedCpaprResult:
+                   capacity: int | None = None,
+                   guard: bool = False) -> BatchedCpaprResult:
     """CP-APR over K same-class tenants, one bucket; the stacking and
     freezing contract of `batched_cp_als`. Tenant i starts from
     `cpapr.init_factors` at its dims with ``seeds[i]`` and λ = Σx / R, or
     from ``init_factors[i] = (λ, factors)``, embedded; it freezes (factors,
     λ and Φ memory) once every mode reports KKT convergence, the solo
-    driver's rule. The Π policy is the plan's."""
+    driver's rule. The Π policy is the plan's.
+
+    ``guard=True`` checks each mode update per slot (λ, the updated
+    factor and the KKT violation finite): a poisoned slot rolls back to
+    its state before the outer iteration and freezes (``quarantined``),
+    so it never holds its mates' inner loop past the mode that poisoned
+    it, and they keep their bits."""
     K = len(ats)
     if K == 0:
         return BatchedCpaprResult(results=[], n_outer=0)
@@ -407,11 +477,14 @@ def batched_cp_apr(ats: Sequence[AltoTensor],
 
     active = np.zeros(cap, bool)
     active[:K] = True
+    quarantined = np.zeros(cap, bool)
     kkt_hist: list[list[float]] = [[] for _ in range(K)]
     n_inner_tot = np.zeros(cap, np.int64)
     n_outer_seen = np.zeros(K, np.int64)
     n_outer = 0
     for outer in range(1, p.k_max + 1):
+        faults.inject("batched.sweep")
+        good = (lam_b, list(factors_b), list(phi_b))
         n_outer = outer
         conv_all = np.ones(cap, bool)
         kkt_max = np.zeros(cap)
@@ -420,15 +493,28 @@ def batched_cp_apr(ats: Sequence[AltoTensor],
             A, lam_new, Phi, conv, n_inner, kkt = _apr_mode_update(
                 plan, views_b[n], n, lam_b, factors_b, phi_b[n], active,
                 outer == 1, pre_pi, p)
-            a = torch.from_numpy(active).to(dev)
             factors_b = list(factors_b)
-            factors_b[n] = torch.where(a[:, None, None], A, factors_b[n])
-            lam_b = torch.where(a[:, None], lam_new, lam_b)
-            phi_b[n] = torch.where(a[:, None, None], Phi, phi_b[n])
+            factors_b[n] = _freeze(active, A, factors_b[n])
+            lam_b = _freeze(active, lam_new, lam_b)
+            phi_b[n] = _freeze(active, Phi, phi_b[n])
+            pd = faults.fire("batched.nan")
+            if pd is not None:
+                factors_b[n] = _poison(factors_b[n], pd)
             conv_all &= conv
             n_inner_tot += np.where(active, n_inner, 0)
             # Python's max, as the solo driver folds (NaN-blind).
             kkt_max = np.array([max(a, b) for a, b in zip(kkt_max, kkt)])
+            if guard:
+                bad = active & ~(health_mod.tenants_finite(
+                    [lam_b, factors_b[n]]) & np.isfinite(kkt))
+                if bad.any():
+                    g_lam, g_fac, g_phi = good
+                    factors_b = [_freeze(bad, g, f)
+                                 for g, f in zip(g_fac, factors_b)]
+                    phi_b = [_freeze(bad, g, f) for g, f in zip(g_phi, phi_b)]
+                    lam_b = _freeze(bad, g_lam, lam_b)
+                    quarantined |= bad
+                    active &= ~bad
         for i in range(K):
             if active[i]:
                 kkt_hist[i].append(float(kkt_max[i]))
@@ -444,4 +530,5 @@ def batched_cp_apr(ats: Sequence[AltoTensor],
         n_outer=int(n_outer_seen[i]), n_inner_total=int(n_inner_tot[i]),
         pi_policy=plan.pi_policy.value, traversals=traversals, plan=plan)
         for i in range(K)]
-    return BatchedCpaprResult(results=results, n_outer=n_outer)
+    return BatchedCpaprResult(results=results, n_outer=n_outer,
+                              quarantined=[bool(q) for q in quarantined[:K]])

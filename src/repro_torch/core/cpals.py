@@ -26,6 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import faults
+from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.core.mttkrp import mttkrp_adaptive
@@ -39,6 +41,7 @@ class CpalsResult:
     fits: list[float]                # fit per iteration
     n_iters: int
     plan: plan_mod.ExecutionPlan | None = None
+    health: health_mod.HealthReport | None = None   # guard=True only
 
 
 def init_factors(dims: Sequence[int], rank: int, seed: int = 0,
@@ -114,7 +117,8 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
            seed: int = 0, views: dict[int, OrientedView] | None = None,
            factors: list[torch.Tensor] | None = None,
            plan: plan_mod.ExecutionPlan | None = None,
-           tune: str = "off", warm_start=None) -> CpalsResult:
+           tune: str = "off", warm_start=None, guard: bool = False,
+           guard_slack: float = 1e-3) -> CpalsResult:
     """CP-ALS driver on the tensor's device. ``factors`` seeds the
     iteration (default `init_factors` with ``seed``); ``plan`` defaults to
     `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
@@ -124,7 +128,15 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
     ``(lam, factors)`` or a factor list — with the rows of extents grown
     since (`ingest.append_delta`) drawn from `init_factors` with ``seed``
     (`ingest.grow_factors`) and λ folded into the first factor, so the
-    first sweep starts at the previous model."""
+    first sweep starts at the previous model.
+
+    ``guard=True`` runs the health guards after each sweep
+    (`core.health`): the fit must be finite and at least
+    `health.FIT_FLOOR`, the factors, λ and the last MTTKRP finite, and
+    the fit may not drop by more than ``guard_slack``. On a violation the
+    result is the last good ``(factors, λ)`` and the solve stops;
+    `CpalsResult.health` says why. On finite inputs the guard changes no
+    bit."""
     resolve_device(at.device)
     if factors is not None and warm_start is not None:
         raise ValueError("pass factors= or warm_start=, not both")
@@ -158,18 +170,51 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
         views = plan_mod.build_views(at, plan)
     lam = torch.ones((rank,), dtype=dtype, device=at.device)
     normX2 = float((at.values.detach().double() ** 2).sum())
+    report = health_mod.HealthReport() if guard else None
     fits: list[float] = []
     prev_fit = -np.inf
     it = 0
     for it in range(1, n_iters + 1):
+        good = (factors, lam)
         factors, lam, M_last = _sweep(plan, at, views, factors, lam)
+        pd = faults.fire("cpals.nan")
+        if pd is not None:
+            # Poison the last factor: the next sweep's first mode update
+            # reads it through the Gram products.
+            factors[-1] = factors[-1].clone()
+            factors[-1][0, 0] = pd.get("value", float("nan"))
         fit = _fit(M_last, factors, lam, normX2)
+        if guard:
+            reason = _violation(fit, fits, [*factors, lam, M_last], it,
+                                guard_slack)
+            report.checks += 1
+            if reason is not None:
+                report.violations += 1
+                report.rolled_back = True
+                report.reason = reason
+                factors, lam = good
+                it -= 1
+                break
         fits.append(fit)
         if abs(fit - prev_fit) < tol:
             break
         prev_fit = fit
     return CpalsResult(lam=lam, factors=list(factors), fits=fits,
-                       n_iters=it, plan=plan)
+                       n_iters=it, plan=plan, health=report)
+
+
+def _violation(fit: float, fits: list[float], tensors, it: int,
+               slack: float) -> str | None:
+    """The fit guard's verdict on one sweep, None when it passes."""
+    if not math.isfinite(fit) or not health_mod.all_finite(tensors):
+        return f"non-finite sweep output at iteration {it}"
+    if fit < health_mod.FIT_FLOOR:
+        # Huge but finite: stopped here, before the next sweep's Grams
+        # overflow (health.FIT_FLOOR).
+        return f"fit diverged to {fit:.3e} at iteration {it}"
+    if fits and fit < fits[-1] - slack:
+        return f"fit regressed {fits[-1]:.6f} -> {fit:.6f} at iteration {it}"
+    return None
 
 
 def reconstruct_values(coords: torch.Tensor, lam: torch.Tensor,

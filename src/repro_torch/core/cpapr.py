@@ -34,7 +34,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import heuristics
+from repro_torch.core import faults, heuristics
+from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.core.mttkrp import krp_rows
@@ -65,6 +66,7 @@ class CpaprResult:
     traversals: list[str]
     plan: plan_mod.ExecutionPlan | None = None
     kkt_wait_s: float = 0.0        # host seconds blocked on KKT reads
+    health: health_mod.HealthReport | None = None   # guard=True only
 
 
 def init_factors(dims: Sequence[int], rank: int, seed: int = 0,
@@ -176,7 +178,8 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
            plan: plan_mod.ExecutionPlan | None = None,
            factors: list[torch.Tensor] | None = None,
            lam: torch.Tensor | None = None,
-           tune: str = "off", warm_start=None) -> CpaprResult:
+           tune: str = "off", warm_start=None,
+           guard: bool = False) -> CpaprResult:
     """CP-APR MU driver (Alg. 2) on the tensor's device. ``pi_policy``:
     None (the plan's) | ``"pre"`` | ``"otf"``.
 
@@ -190,6 +193,11 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
     `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
     with ``tune`` (`plan.make_plan`) measuring Φ on this tensor; oriented
     views come from the view cache (`core.views`).
+
+    ``guard=True`` checks after each outer iteration that λ, the factors
+    and the KKT violation are finite (`core.health`); on a violation the
+    result is the state before that iteration and the solve stops
+    (`CpaprResult.health`). On finite inputs it changes no bit.
     """
     resolve_device(at.device)
     p = params or CpaprParams()
@@ -243,24 +251,41 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
                   else "recursive" for n in range(N)]
 
     phi_prev = [torch.zeros_like(A) for A in factors]
+    report = health_mod.HealthReport() if guard else None
     kkt_hist: list[float] = []
     ll_hist: list[float] = []
     n_inner_total = 0
     wait_s = 0.0
     outer = 0
     for outer in range(1, p.k_max + 1):
+        good = (lam, list(factors), list(phi_prev))
         all_converged = True
         kkt_max = 0.0
         for n in range(N):
             A, lam, phi_prev[n], conv, n_inner, kkt, wait = _mode_update(
                 plan, at, views.get(n), n, lam, factors, phi_prev[n],
                 first_outer=(outer == 1), pre_pi=pre_pi, p=p)
+            pd = faults.fire("cpapr.nan")
+            if pd is not None:
+                A = A.clone()
+                A[0, 0] = pd.get("value", float("nan"))
             factors = list(factors)
             factors[n] = A
             n_inner_total += n_inner
             wait_s += wait
             all_converged &= conv
             kkt_max = max(kkt_max, kkt)
+        if guard:
+            report.checks += 1
+            if not np.isfinite(kkt_max) or not health_mod.all_finite(
+                    [lam, *factors]):
+                report.violations += 1
+                report.rolled_back = True
+                report.reason = (f"non-finite mode update at outer "
+                                 f"iteration {outer}")
+                lam, factors, phi_prev = good
+                outer -= 1
+                break
         kkt_hist.append(kkt_max)
         if track_ll:
             ll_hist.append(float(log_likelihood(at, lam, factors)))
@@ -269,4 +294,5 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
     return CpaprResult(lam=lam, factors=factors, kkt_violations=kkt_hist,
                        log_likelihoods=ll_hist, n_outer=outer,
                        n_inner_total=n_inner_total, pi_policy=pi_policy,
-                       traversals=traversals, plan=plan, kkt_wait_s=wait_s)
+                       traversals=traversals, plan=plan, kkt_wait_s=wait_s,
+                       health=report)

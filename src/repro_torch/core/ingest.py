@@ -37,7 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import alto
+from repro_torch.core import alto, faults
 from repro_torch.core import encoding as enc_mod
 from repro_torch.core import views as views_mod
 from repro_torch.core.alto import AltoTensor
@@ -58,6 +58,9 @@ def _merge_device(at: AltoTensor, delta: torch.Tensor,
     M = at.meta.nnz
     D = int(delta.shape[0])
     N, W = new_enc.ndim, new_enc.n_words
+    alto.note_ingest("merge", (old_enc, new_enc, L, M, D, policy,
+                               bool(compute_reuse), delta_form,
+                               str(at.values.dtype), at.words.device.type))
     MD = M + D
     chunk = -(-max(MD, L) // L)
     Mp = chunk * L
@@ -120,6 +123,9 @@ def _append(at: AltoTensor, delta, delta_values, new_dims, delta_form: str,
     if compute_reuse is None:
         # The resident tensor's choice (NaN reuse: it was off).
         compute_reuse = not math.isnan(at.meta.fiber_reuse[0])
+    # The merge is functional (the resident tensor is never written), so
+    # an interruption here leaves `at` serviceable and a retry re-runs it.
+    faults.inject("ingest.merge")
     out = _merge_device(at, delta, delta_values, new_enc, L, policy,
                         bool(compute_reuse), delta_form)
     new_at = _finalize(out, new_enc, at.meta.nnz + int(delta.shape[0]), L)

@@ -63,7 +63,7 @@ import os
 
 import torch
 
-from repro_torch.core import heuristics
+from repro_torch.core import faults, heuristics
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
 from repro_torch.kernels import common, ops
@@ -350,7 +350,8 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
               at: AltoTensor | None = None,
               search_budget: int | None = None,
               search_seconds: float | None = None,
-              search_seed: int = 0, store_path=None) -> ExecutionPlan:
+              search_seed: int = 0, store_path=None,
+              oriented_only: bool = False) -> ExecutionPlan:
     """Resolve heuristics + static meta into a concrete execution plan.
     ``backend`` defaults from ``device`` (`default_backend`).
 
@@ -375,7 +376,9 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
     ``"off"`` (``chunk_m`` is one of its genes). ``tune_objective``
     names what is timed: ``"mttkrp"`` (CP-ALS) or ``"phi"`` (CP-APR); it
     is part of the store key. The device whose kind keys the store is
-    ``at``'s, else ``device``. A store hit costs zero timing runs."""
+    ``at``'s, else ``device``. A store hit costs zero timing runs.
+    ``oriented_only`` keeps the tuner to oriented candidates (the static
+    choice must be oriented too)."""
     backend = backend or default_backend(
         at.device if at is not None and device is None else device)
     if backend not in BACKENDS:
@@ -396,7 +399,7 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
             device_bytes=device_bytes if streaming_needed else None,
             search_budget_runs=search_budget,
             search_budget_s=search_seconds, search_seed=search_seed,
-            store_path=store_path)
+            store_path=store_path, oriented_only=oriented_only)
         if tuned is not None:
             return tuned
     modes = tuple(static_mode_plan(meta, n, rank,
@@ -428,11 +431,14 @@ def make_class_plan(sc, **kwargs) -> ExecutionPlan:
     (`core.shapeclass`): one plan, and under ``tune=`` one plan-store
     entry (`autotune.class_plan_key`), for every tenant the class admits.
     Every mode routes output-oriented (the canonical ``fiber_reuse`` is
-    1.0), carry or one-hot by `heuristics.choose_oriented_variant`. A
-    tensor given as ``at=`` must carry the canonical meta
+    1.0), carry or one-hot by `heuristics.choose_oriented_variant`, and
+    under ``tune=`` the tuner measures oriented candidates only: the
+    batched drivers (`core.batched`) take oriented modes alone. A tensor
+    given as ``at=`` must carry the canonical meta
     (`shapeclass.canonicalize_tensor`)."""
     from repro_torch.core import shapeclass
-    return make_plan(shapeclass.canonical_meta(sc), sc.rank, **kwargs)
+    return make_plan(shapeclass.canonical_meta(sc), sc.rank,
+                     oriented_only=True, **kwargs)
 
 
 def build_views(at: AltoTensor, plan: ExecutionPlan) -> dict:
@@ -454,6 +460,7 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
     plan routes oriented but without a view falls back to the recursive
     traversal (same contract as `mttkrp_adaptive`). A streaming plan runs
     the chunked executor over the mode's host stream."""
+    faults.inject("plan.dispatch")
     mp = plan.modes[mode]
     oriented = (heuristics.is_oriented(mp.traversal)
                 and views is not None and mode in views)
@@ -494,6 +501,7 @@ def execute_phi(plan: ExecutionPlan, at: AltoTensor,
     builds each chunk's Π rows on the device under ALTO-PRE): ``pre``
     then names the policy, the plan's by default. In-core routes ignore
     ``pre``."""
+    faults.inject("plan.dispatch")
     if (pi is None) == (factors is None):
         raise ValueError("pass exactly one of pi= / factors=")
     mp = plan.modes[mode]

@@ -43,7 +43,7 @@ import zlib
 import numpy as np
 import torch
 
-from repro_torch.core import alto
+from repro_torch.core import alto, faults
 from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
 
 # One alignment for every host stream: a multiple of every legal oriented
@@ -207,7 +207,8 @@ def _respill(hs: HostStream, d: pathlib.Path) -> HostStream:
     phase leaves the previous generation byte for byte on disk. A crash
     between the replaces can still tear across files; the checksum,
     written alongside and verified by `from_memmap`, turns that into a
-    load-time `StreamIntegrityError`.
+    load-time `StreamIntegrityError`. The ``stream.respill`` fault site
+    sits between the two phases.
     """
     d.mkdir(parents=True, exist_ok=True)
     checksum = stream_checksum(hs.rows, hs.words, hs.values)
@@ -221,6 +222,7 @@ def _respill(hs: HostStream, d: pathlib.Path) -> HostStream:
         tmp = d / f".{name}.tmp.npy"
         np.save(tmp, arr)
         tmps[name] = tmp
+    faults.inject("stream.respill")
     for name, tmp in tmps.items():
         os.replace(tmp, d / f"{name}.npy")
     return from_memmap(d, hs.meta, hs.mode)
@@ -241,7 +243,10 @@ def from_memmap(directory, meta: AltoMeta, mode: int) -> HostStream:
 
     The maps are copy-on-write (``mmap_mode="c"``): the file never
     changes, and the tensors over them are writable as torch requires.
+    Fault sites: ``stream.memmap_load`` (the read fails) and
+    ``stream.checksum`` (the stored checksum reads one bit flipped).
     """
+    faults.inject("stream.memmap_load")
     d = pathlib.Path(directory)
     length = int(np.load(d / "length.npy")[0])
     arrays = [np.load(d / f"{n}.npy", mmap_mode="c")
@@ -254,6 +259,8 @@ def from_memmap(directory, meta: AltoMeta, mode: int) -> HostStream:
     cpath = d / "checksum.npy"
     if cpath.exists():
         stored = int(np.load(cpath)[0])
+        if faults.fire("stream.checksum") is not None:
+            stored ^= 1                       # as a flipped bit on disk
         actual = stream_checksum(*arrays)
         if stored != actual:
             _integrity_bump("checksum_failures")

@@ -37,7 +37,7 @@ import threading
 
 import torch
 
-from repro_torch.core import alto, heuristics
+from repro_torch.core import alto, faults, heuristics
 from repro_torch.core import mttkrp as mttkrp_mod
 from repro_torch.core import stream as stream_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
@@ -169,10 +169,16 @@ def _get_or_build(key: tuple, build):
 
 
 def get_view(at: AltoTensor, mode: int) -> OrientedView:
-    """The oriented view for ``(at, mode)``: cached, built on a miss."""
+    """The oriented view for ``(at, mode)``: cached, built on a miss
+    (the ``views.build`` fault site fails the build: the latch releases
+    its waiters and the next caller builds)."""
     key = ("view", *mode_fingerprint(at, mode))
-    view = _get_or_build(key, lambda: alto.oriented_view_device(at, mode))
-    return _rebind_meta(key, view, at)
+
+    def build():
+        faults.inject("views.build")
+        return alto.oriented_view_device(at, mode)
+
+    return _rebind_meta(key, _get_or_build(key, build), at)
 
 
 def get_stream(at: AltoTensor, mode: int) -> HostStream:
@@ -182,8 +188,12 @@ def get_stream(at: AltoTensor, mode: int) -> HostStream:
     Eviction is safe mid-flight: a chunked executor holds the stream's
     tensors, which outlive the cache entry."""
     key = ("stream", *mode_fingerprint(at, mode))
-    hs = _get_or_build(key, lambda: stream_mod.host_stream(at, mode))
-    return _rebind_meta(key, hs, at)
+
+    def build():
+        faults.inject("views.build")
+        return stream_mod.host_stream(at, mode)
+
+    return _rebind_meta(key, _get_or_build(key, build), at)
 
 
 def get_pull_order(at: AltoTensor, mode: int) -> PullOrder:

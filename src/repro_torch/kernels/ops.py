@@ -25,6 +25,11 @@ and returns ``(T, I_n, R)``.
 
 `timing_stats` is the measurement primitive: CUDA events on the card, the
 host clock on the CPU, one bump of `timing_runs` per call.
+
+Fault sites (`core.faults`): ``ops.exec`` at the top of each in-core
+MTTKRP and Φ entry, on every call; ``ops.chunk_oom`` before each chunk's
+kernel in the chunked executors; ``stream.chunk_io`` where `_chunks`
+starts a chunk's copy.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core import stream as _stream
 from repro_torch.core import views as _views
@@ -140,6 +146,7 @@ def delinearize(enc: AltoEncoding, words: torch.Tensor) -> torch.Tensor:
 def mttkrp(at: AltoTensor, factors, mode: int, r_block: int | None = None,
            threads: int = _mttkrp.DEFAULT_THREADS) -> torch.Tensor:
     """Recursive-traversal MTTKRP: K3 partials + pull reduction."""
+    faults.inject("ops.exec")
     meta = at.meta
     partials = _mttkrp.recursive_partials(
         meta.enc, mode, meta.temp_rows[mode], at.words, at.values,
@@ -154,6 +161,7 @@ def mttkrp_oriented(view: OrientedView, factors,
                     threads: int = _oriented.DEFAULT_THREADS
                     ) -> torch.Tensor:
     """Output-oriented MTTKRP: K2 partials + `segment_merge`."""
+    faults.inject("ops.exec")
     rows, words, values, _ = pad_sorted_stream(view.rows, view.words,
                                                view.values, block_m)
     partials = _oriented.oriented_partials(
@@ -170,6 +178,7 @@ def mttkrp_oriented_carry(view: OrientedView, factors,
                           ) -> torch.Tensor:
     """Carry-oriented MTTKRP: K1 (runs + fix-up), no partials buffer.
     Bit-identical to `mttkrp_oriented` at the same ``block_m``."""
+    faults.inject("ops.exec")
     rows, words, values, _ = pad_sorted_stream(view.rows, view.words,
                                                view.values, block_m)
     return _oriented.mttkrp_oriented_carry(
@@ -186,6 +195,7 @@ def cpapr_phi(at: AltoTensor, B: torch.Tensor, mode: int, factors=None,
               threads: int = _mttkrp.DEFAULT_THREADS) -> torch.Tensor:
     """Recursive-traversal Φ: K7 partials + pull reduction. ``pi`` holds
     the Π rows of the ALTO-ordered (padded) stream."""
+    faults.inject("ops.exec")
     meta = at.meta
     partials = _phi.phi_partials(
         meta.enc, mode, meta.temp_rows[mode], eps, at.words, at.values,
@@ -201,6 +211,7 @@ def cpapr_phi_oriented(view: OrientedView, B: torch.Tensor, factors=None,
                        ) -> torch.Tensor:
     """Output-oriented Φ: K6 partials + `segment_merge`. ``pi`` holds the
     Π rows in the view's order."""
+    faults.inject("ops.exec")
     rows, words, values, pi = pad_sorted_stream(view.rows, view.words,
                                                 view.values, block_m, pi=pi)
     partials = _oriented.phi_oriented_partials(
@@ -218,6 +229,7 @@ def cpapr_phi_oriented_carry(view: OrientedView, B: torch.Tensor,
                              ) -> torch.Tensor:
     """Carry-oriented Φ: K5 (runs + fix-up), no partials buffer.
     Bit-identical to `cpapr_phi_oriented` at the same ``block_m``."""
+    faults.inject("ops.exec")
     rows, words, values, pi = pad_sorted_stream(view.rows, view.words,
                                                 view.values, block_m, pi=pi)
     return _oriented.phi_oriented_carry(
@@ -294,6 +306,7 @@ def _chunks(hs: _stream.HostStream, bounds, device: torch.device):
     _bump("prefetches", len(bounds) - 1)
     if device.type != "cuda":
         for s, e in bounds:
+            faults.inject("stream.chunk_io")
             yield hs.chunk(s, e)
         return
     compute = torch.cuda.current_stream(device)
@@ -319,6 +332,7 @@ def _chunks(hs: _stream.HostStream, bounds, device: torch.device):
     consumed = [torch.cuda.Event() for _ in range(2)]
 
     def start_copy(i):
+        faults.inject("stream.chunk_io")
         s, e = bounds[i]
         k, n = i % 2, e - s
         src = hs.chunk(s, e)
@@ -377,6 +391,7 @@ def mttkrp_oriented_chunked(view, factors, *, chunk_m: int,
     crow, cval = _empty_carry(R, dev)
     last = len(bounds) - 1
     for i, (rows, words, values) in enumerate(_chunks(hs, bounds, dev)):
+        faults.inject("ops.chunk_oom")
         out, crow, cval = _oriented.carry_chunk(
             hs.meta.enc, hs.mode, rows, words, values, factors, out, crow,
             cval, block_m=block_m, r_block=r_block, threads=threads,
@@ -410,6 +425,7 @@ def cpapr_phi_oriented_chunked(view, B: torch.Tensor, factors, *,
     last = len(bounds) - 1
     for i, (rows, words, values) in enumerate(_chunks(hs, bounds,
                                                       B.device)):
+        faults.inject("ops.chunk_oom")
         if pre:
             kw = dict(pi=core_mttkrp.krp_rows(delinearize(enc, words),
                                               factors, mode).contiguous())
@@ -435,6 +451,7 @@ def mttkrp_oriented_chunked_reference(view, factors, *,
     out = torch.zeros((enc.dims[mode], R), dtype=torch.float32, device=dev)
     for rows, words, values in _chunks(
             hs, _chunk_bounds(hs.length, chunk_m), dev):
+        faults.inject("ops.chunk_oom")
         out.index_add_(0, rows.long(), core_mttkrp.contributions(
             enc, words, values, factors, mode))
         _bump("chunks")
@@ -454,6 +471,7 @@ def cpapr_phi_oriented_chunked_reference(view, B: torch.Tensor, factors, *,
                       device=B.device)
     for rows, words, values in _chunks(
             hs, _chunk_bounds(hs.length, chunk_m), B.device):
+        faults.inject("ops.chunk_oom")
         if pre:
             kw = dict(pi=core_mttkrp.krp_rows(
                 core_mttkrp.delinearize(enc, words), factors, mode))
