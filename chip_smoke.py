@@ -123,7 +123,23 @@ sm_90a), then:
    ``ops.chunk_oom`` on Chicago's streamed plan halves ``chunk_m``
    (`health.degrade_plan`) with the same bits; ``stream.memmap_load``,
    ``stream.checksum`` and ``stream.respill`` on a spilled Chicago mode
-   stream retry, rebuild and keep the old generation.
+   stream retry, rebuild and keep the old generation;
+14. runs row-range-sharded CPD (``repro_torch.dist.cpd``, `phase_dist`,
+   after step 5): over NCCL at world size 1, DARPA's 3 CP-ALS iterations
+   through ``distributed_cp_als`` and 2 CP-APR outer iterations under the
+   sharded plan bit for bit steps 3 and 5, the sharded sweep's ms against
+   the single-device sweep's, Chicago's 10 CP-ALS iterations (mode 0
+   oriented) within 1e-4 of step 2's fits, and the sharded tuner (a key
+   of its own, the second make no timing run, oriented winners); then
+   2, 4 and 8 shards one slice at a time on DARPA mode 2 (ALTO-PRE) and
+   Chicago modes 0 and 1 (ALTO-OTF): K1, K2 + split + fix-up, K5 and K6
+   on each slice's row window against their plain versions (the same
+   tolerance), zeros off the slice, the slices summed in rank order
+   against the unsharded kernel; then two gloo ranks spawned on the one
+   card: each first-sweep MTTKRP bit for bit the in-process sum of the
+   two slices, 3 CP-ALS iterations within 1e-4 of the one-rank run, the
+   1 % DARPA delta through ``sharded_append_delta`` bit for bit
+   ``append_delta``, each rank's seconds and peak memory.
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
 instantiation of the redesigned kernels (the runs pass that K1, K2 and K8
@@ -139,7 +155,9 @@ log-likelihoods must be finite and rise from the first outer iteration to
 the last, KKT violations finite, factors non-negative with column sums 1
 within 1e-3.
 
-Output: the card's name and power limit, a ``{"kernels": [...]}`` line
+Output: a ``{"dist": {...}}`` line (step 14's runs: seconds, fits,
+launches, per-rank peak memory and each bitwise verdict), the card's name
+and power limit, a ``{"kernels": [...]}`` line
 (each kernel's main-path ``launches`` and ``elements``, the stream
 lengths summed over those launches, and under ``tenant_axis`` its
 bucketed launches: ms against the T solo launches' ms, the plain
@@ -151,6 +169,7 @@ the script exits non-zero and prints no result. Details go to
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -202,9 +221,11 @@ def _imports():
     from repro_torch.kernels import mttkrp as k3
     from repro_torch.kernels import mttkrp_oriented as kori
     from repro_torch.kernels import ref
+    from repro_torch.dist import cpd
     from repro_torch.launch import serve_cpd
     from repro_torch.sparse import synthetic
     return dict(alto=alto, autotune=autotune, cpals=cpals, cpapr=cpapr,
+                cpd=cpd,
                 batched=batched, ingest=ingest, shapeclass=shapeclass,
                 faults=faults, health=health, serve=serve_cpd,
                 heuristics=heuristics, mttkrp=mttkrp, plan=plan,
@@ -230,6 +251,20 @@ def _check_close(name: str, got, plain) -> float:
         _fail(f"{name}: max_abs_err {err} beyond rtol={RTOL}, "
               f"atol={ATOL_REL}·{scale}")
     return err
+
+
+@contextlib.contextmanager
+def _index_order():
+    """PyTorch's deterministic mode, for a plain version's reference. On
+    the card `index_add_` adds with float atomics in no fixed order, so a
+    row summed from thousands of pieces differs from run to run; in this
+    mode it adds in index order, the order the plain versions state and
+    the kernels keep."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def _check_equal(name: str, a, b) -> None:
@@ -1002,7 +1037,6 @@ def phase_darpa(m) -> dict:
     at = m["alto"].build_device(x, n_partitions=1024)
     _sync()
     build_s = time.perf_counter() - t0
-    del x
     p = m["plan"].plan_for(at, RANK)
     port = run_cp_als(m, at, p, 3, "darpa cp_als (port plan)")
     # The JAX package routes every mode to the one-hot partials (K2) here;
@@ -1017,7 +1051,7 @@ def phase_darpa(m) -> dict:
               f"{port['fits']} vs {onehot['fits']}")
     return {"at": at, "plan": p, "run": port, "onehot_run": onehot,
             "gen_s": gen_s, "build_s": build_s, "nnz": at.meta.nnz,
-            "fiber_reuse": at.meta.fiber_reuse}
+            "fiber_reuse": at.meta.fiber_reuse, "x": x}
 
 
 def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
@@ -2863,6 +2897,584 @@ def _phase_serve(m, buckets, chicago, store) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Row-range-sharded CP-ALS and CP-APR over a process group (dist.cpd)
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = (2, 4, 8)     # shard counts run one slice at a time
+DIST_RANKS = 2              # gloo ranks sharing the one card
+DIST_TIMEOUT_S = 600.0
+DIST_FIT_TOL = 1e-4
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _same_plan_tiles(label, a, b) -> None:
+    tiles = [[(mp.traversal, mp.r_block, mp.block_m, mp.threads)
+              for mp in p.modes] for p in (a, b)]
+    if tiles[0] != tiles[1]:
+        _fail(f"{label}: sharded plan {tiles[0]} against {tiles[1]}")
+
+
+def run_dist_cp_als(m, at, n_iters: int, label: str) -> dict:
+    """One counted `distributed_cp_als` run on the world group, from
+    `_factors` with seed 0 (as `run_cp_als`)."""
+    sp = m["plan"].make_plan(at.meta, RANK,
+                             shards=torch.distributed.get_world_size())
+    fs = _factors(at.dims, seed=0)
+    (lam, factors, fits), seconds, counts = _counted(
+        m, label, lambda: m["cpd"].distributed_cp_als(
+            at, RANK, n_iters=n_iters, tol=0.0, factors=fs),
+        als_kernels(m, sp))
+    if len(fits) != n_iters or not all(math.isfinite(f) for f in fits):
+        _fail(f"{label}: fits {fits}")
+    print(f"chip_smoke: {label}: traversals {sp.traversals()} fits {fits} "
+          f"in {seconds:.3f} s; launches {counts['launches']}")
+    return {"traversals": sp.traversals(), "fits": fits, "seconds": seconds,
+            "launches": counts["launches"], "elements": counts["elements"],
+            "lam": lam, "factors": factors, "plan": sp}
+
+
+def _sweep_ms(m, at, p, factors, lam, gram_fn=None) -> float:
+    views = m["plan"].build_views(at, p)
+    _sync()
+    t0 = time.perf_counter()
+    m["cpals"]._sweep(p, at, views, factors, lam, gram_fn)
+    _sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _typical(plain) -> float:
+    """The median |value| of the nonzero entries of ``plain``, from a
+    strided sample of about 2^20 of its elements."""
+    flat = plain.reshape(-1)
+    flat = flat[::max(1, flat.numel() >> 20)].abs()
+    flat = flat[flat > 0]
+    return float(flat.median()) if flat.numel() else 0.0
+
+
+def check_shard_slices(m, at, mode, factors, B, label, *, pi=None,
+                       phi_factors=None) -> dict:
+    """`DIST_SHARDS` ranks' slices of one mode's stream, one slice at a
+    time on the card, through the shard-local functions the sharded path
+    calls (`cpd.local_mttkrp`, `cpd.local_phi`: the kernels on the
+    slice's row window): K1, K2 + the split + the fix-up (on the CP-ALS
+    ``factors``), K5 and K6 (Φ of the CP-APR model ``B``, with ``pi``
+    under ALTO-PRE, else ``phi_factors``: the model's own factors, so
+    that its values at the nonzeros are positive and Φ stays at the
+    scale of the data) on each slice against their plain versions on the
+    same slice at full width; K1 ≡ K2 + merge and K5 ≡ K6 + merge; zeros
+    off the slice's rows; K1 on the window into a NaN-filled output equal
+    to K1 (every row written). Then the slices summed in rank order
+    against the unsharded kernel at that tolerance. Returns the largest
+    errors, beside each the largest and the smallest median |plain| the
+    tolerance was taken from, and the seconds."""
+    if (pi is None) == (phi_factors is None):
+        _fail(f"{label}: pass exactly one of pi= / phi_factors=")
+    ops, kori, cpd = m["ops"], m["kori"], m["cpd"]
+    trav = m["heuristics"].Traversal
+    enc = at.meta.enc
+    I_n = at.dims[mode]
+    eps = 1e-10
+    view = m["views"].get_view(at, mode)
+    keys = ("K1", "K2", "K5", "K6", "K1_sum", "K5_sum")
+    errs = dict.fromkeys(keys, 0.0)
+    max_plain = dict.fromkeys(keys, 0.0)
+    median_plain = dict.fromkeys(keys, math.inf)
+    bitwise = dict.fromkeys(keys, 0)    # comparisons equal bit for bit
+    n_checks = dict.fromkeys(keys, 0)
+
+    def close(key, name, got, ref):
+        errs[key] = max(errs[key], _check_close(name, got, ref))
+        max_plain[key] = max(max_plain[key], float(ref.abs().max()))
+        median_plain[key] = min(median_plain[key], _typical(ref))
+        bitwise[key] += torch.equal(got, ref)
+        n_checks[key] += 1
+
+    def plain(runs):
+        """The plain runs pass ``runs()`` through the plain fix-up, with
+        `index_add_` in index order."""
+        with _index_order():
+            o, cr, cv = runs()
+            return kori.carry_fixup_plain(cr, cv, o)
+    t0 = time.perf_counter()
+    for D in DIST_SHARDS:
+        sp = m["plan"].make_plan(at.meta, RANK, shards=D)
+        mp = sp.modes[mode]
+        bm, rb, th = mp.block_m, mp.r_block, mp.threads
+        routed = {t: dataclasses.replace(sp, modes=tuple(
+            dataclasses.replace(q, traversal=t) if q.mode == mode else q
+            for q in sp.modes))
+            for t in (trav.ORIENTED_CARRY, trav.OUTPUT_ORIENTED)}
+        carry, onehot = routed[trav.ORIENTED_CARRY], routed[
+            trav.OUTPUT_ORIENTED]
+        rows, words, values, pi_p = ops.pad_sorted_stream(
+            view.rows, view.words, view.values, D * bm, pi=pi)
+        s1 = s5 = None
+        for r in range(D):
+            sl = cpd._slice(rows.shape[0], D, r)
+            tag = f"{label} D={D} slice {r}"
+            rs, ws, vs = rows[sl], words[sl], values[sl]
+            args = (enc, mode, rs, ws, vs, factors)
+            phi_kw = (dict(factors=None, pi=pi_p[sl]) if pi is not None
+                      else dict(factors=phi_factors, pi=None))
+            k1 = cpd.local_mttkrp(carry, mode, rs, ws, vs, factors)
+            lo, hi = int(rs[0]), int(rs[-1])
+            if bool(k1[:lo].any()) or bool(k1[hi + 1:].any()):
+                _fail(f"{tag} K1: a row off the slice's rows {lo}..{hi} "
+                      f"is not zero")
+            w = hi - lo + 1
+            _check_equal(f"{tag} K1 on the window into a NaN-filled output",
+                         k1[lo:hi + 1], kori.mttkrp_oriented_carry(
+                             enc, mode, rs - lo, ws, vs, factors, bm, rb, th,
+                             out=torch.full((w, RANK), float("nan"),
+                                            device=k1.device), n_rows=w))
+            close("K1", f"{tag} K1", k1,
+                  plain(lambda: kori.carry_runs_plain(*args, bm)))
+            k2 = cpd.local_mttkrp(onehot, mode, rs, ws, vs, factors)
+            close("K2", f"{tag} K2 + split + fix-up", k2,
+                  plain(lambda: kori.split_block_runs(
+                      kori.oriented_partials_plain(*args, bm), rs, I_n)))
+            _check_equal(f"{tag} K1 vs K2 + segment_merge", k1, k2)
+            del k2
+            k5 = cpd.local_phi(carry, mode, eps, rs, ws, vs, B, **phi_kw)
+            close("K5", f"{tag} K5", k5,
+                  plain(lambda: kori.phi_carry_runs_plain(
+                      enc, mode, eps, rs, ws, vs, B, **phi_kw, block_m=bm)))
+            k6 = cpd.local_phi(onehot, mode, eps, rs, ws, vs, B, **phi_kw)
+            close("K6", f"{tag} K6 + split + fix-up", k6,
+                  plain(lambda: kori.split_block_runs(
+                      kori.phi_oriented_partials_plain(
+                          enc, mode, eps, rs, ws, vs, B, **phi_kw,
+                          block_m=bm), rs, I_n)))
+            _check_equal(f"{tag} K5 vs K6 + segment_merge", k5, k6)
+            del k6
+            s1 = k1 if s1 is None else s1 + k1
+            s5 = k5 if s5 is None else s5 + k5
+        close("K1_sum", f"{label} D={D} K1 slices summed", s1,
+              ops.mttkrp_oriented_carry(view, factors, bm, rb, th))
+        whole_kw = (dict(pi=pi) if pi is not None
+                    else dict(factors=phi_factors))
+        close("K5_sum", f"{label} D={D} K5 slices summed", s5,
+              ops.cpapr_phi_oriented_carry(view, B, eps=eps, block_m=bm,
+                                           threads=th, **whole_kw))
+        del s1, s5, rows, words, values, pi_p
+    out = {"max_abs_err": errs, "max_plain": max_plain,
+           "median_plain": median_plain, "bitwise": bitwise,
+           "checks": n_checks, "seconds": time.perf_counter() - t0}
+    print(f"chip_smoke: {label}: slices of {DIST_SHARDS} shards ok, worst "
+          f"errors {errs}; max|plain| {max_plain}; smallest median "
+          f"|plain| (nonzero) {median_plain}; bit for bit {bitwise} of "
+          f"{n_checks}")
+    return out
+
+
+def _dist_rank(rank: int, world: int, addr: str, out_dir: str,
+               coo_dir: str, n_iters: int) -> None:
+    """One gloo rank of `phase_dist`'s run on the one card (a spawned
+    process): builds the DARPA tensor from the saved COO, holds each mode's
+    MTTKRP of the first sweep against the in-process sum of the
+    ``world`` slices, runs ``n_iters`` counted CP-ALS iterations through
+    `distributed_cp_als`, and appends the 1 % delta through
+    `sharded_append_delta` against `append_delta`. Writes its results to
+    ``out_dir/rank<r>.json``."""
+    import functools
+    import traceback
+    out_dir = pathlib.Path(out_dir)
+    marks = [("start", time.perf_counter())]
+
+    def mark(what):
+        _sync()
+        marks.append((what, time.perf_counter()))
+    try:
+        m = _imports()
+        m["build"].build_all()          # loads the parent's build
+        dist, cpd = torch.distributed, m["cpd"]
+        torch.cuda.set_device(0)
+        torch.cuda.reset_peak_memory_stats()
+        mark("imports")
+        dist.init_process_group("gloo", init_method=addr, world_size=world,
+                                rank=rank)
+        mark("init")
+        from repro_torch.sparse.tensor import SparseTensor
+        coo = pathlib.Path(coo_dir)
+        x = SparseTensor(tuple(json.loads((coo / "dims.json").read_text())),
+                         np.load(coo / "coords.npy"),
+                         np.load(coo / "values.npy"))
+        _sync()
+        t0 = time.perf_counter()
+        at = m["alto"].build_device(x, n_partitions=1024)
+        _sync()
+        build_s = time.perf_counter() - t0
+        del x
+        sp = m["plan"].make_plan(at.meta, RANK, shards=world)
+        views = m["plan"].build_views(at, sp)
+        fs = _factors(at.dims, seed=0)
+        mark("tensor and views")
+        # The first sweep: each mode's all-reduced MTTKRP against the sum
+        # of the world's slices computed in this process, in rank order.
+        calls = []
+        sharded = cpd.sharded_mttkrp
+
+        def capture(plan, at_, views_, factors, mode, group=None):
+            out = sharded(plan, at_, views_, factors, mode, group=group)
+            calls.append((mode, list(factors), out))
+            return out
+        cpd.sharded_mttkrp = capture
+        try:
+            m["cpals"]._sweep(sp, at, views, fs,
+                              torch.ones(RANK, device=at.device),
+                              functools.partial(cpd.sharded_gram))
+        finally:
+            cpd.sharded_mttkrp = sharded
+        bitwise = []
+        ops = m["ops"]
+        for mode, factors, got in calls:
+            v = views[mode]
+            rows, words, values, _ = ops.pad_sorted_stream(
+                v.rows, v.words, v.values, cpd._shard_mult(sp, mode))
+            acc = None
+            for r in range(world):
+                sl = cpd._slice(rows.shape[0], world, r)
+                part = cpd.local_mttkrp(sp, mode, rows[sl], words[sl],
+                                        values[sl], factors)
+                acc = part if acc is None else acc + part
+            bitwise.append(bool(torch.equal(got, acc)))
+            del acc, part, rows, words, values
+        del calls
+        mark("first sweep and its checks")
+        m["build"].reset_counts()
+        t0 = time.perf_counter()
+        lam, factors, fits = cpd.distributed_cp_als(
+            at, RANK, n_iters=n_iters, tol=0.0, factors=fs)
+        _sync()
+        seconds = time.perf_counter() - t0
+        counts = m["build"].counts()
+        mark("cp_als")
+        # The collective that carries a sweep's largest output: the mode-2
+        # MTTKRP, through gloo (host copies and a TCP ring) on one card.
+        big = torch.ones((max(at.dims), RANK), device=at.device)
+        _sync()
+        t0 = time.perf_counter()
+        dist.all_reduce(big)
+        _sync()
+        gloo_ms = (time.perf_counter() - t0) * 1e3
+        if not bool((big == world).all()):
+            _fail(f"rank {rank}: gloo all_reduce of ones gave "
+                  f"{float(big.min())}..{float(big.max())}")
+        del big
+        mark("all_reduce")
+        coords, vals = _delta(at.dims, at.nnz // 100, 4)
+        _sync()
+        t0 = time.perf_counter()
+        got = cpd.sharded_append_delta(at, coords, vals,
+                                       invalidate_stale=False)
+        _sync()
+        append_ms = (time.perf_counter() - t0) * 1e3
+        ref = m["ingest"].append_delta(at, coords, vals,
+                                       invalidate_stale=False)
+        same = (torch.equal(got.words, ref.words)
+                and torch.equal(got.values, ref.values)
+                and torch.equal(got.part_start, ref.part_start)
+                and torch.equal(got.part_end, ref.part_end)
+                and got.meta == ref.meta)
+        mark("appends")
+        dist.destroy_process_group()
+        result = {"rank": rank, "traversals": sp.traversals(),
+                  "split_s": {b[0]: b[1] - a[1]
+                              for a, b in zip(marks, marks[1:])},
+                  "tiles": [(mp.r_block, mp.block_m, mp.threads)
+                            for mp in sp.modes],
+                  "build_s": build_s, "first_sweep_bitwise": bitwise,
+                  "fits": fits, "seconds": seconds,
+                  "all_reduce_mode2_ms": gloo_ms,
+                  "launches": counts["launches"],
+                  "elements": counts["elements"],
+                  "plain_on_cuda": counts["plain_on_cuda"],
+                  "append_delta": len(vals), "append_ms": append_ms,
+                  "append_bitwise": bool(same),
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(result))
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def dist_ranks(m, darpa, ws1_fits) -> dict:
+    """`DIST_RANKS` gloo ranks on the one card, spawned: 3 CP-ALS
+    iterations of DARPA and the sharded 1 % append (`_dist_rank`). Every
+    first-sweep MTTKRP must equal its in-process sum bit for bit, the
+    ranks' fits must agree and lie within `DIST_FIT_TOL` of the one-rank
+    run's, the append must equal `append_delta` bit for bit, and each
+    rank must have launched its plan's kernels and no plain version."""
+    import multiprocessing
+    work = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    x = darpa["x"]
+    np.save(work / "coords.npy", x.coords)
+    np.save(work / "values.npy", x.values)
+    (work / "dims.json").write_text(json.dumps(list(x.dims)))
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    addr = f"tcp://localhost:{_free_port()}"
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, DIST_RANKS, addr, str(work), str(work), 3))
+             for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        if any(p.is_alive() for p in procs):
+            _fail(f"dist ranks still running after {DIST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall_s = time.perf_counter() - t0
+    errors = [(work / f"rank{r}.err").read_text()
+              for r in range(DIST_RANKS) if (work / f"rank{r}.err").exists()]
+    if errors or any(p.exitcode != 0 for p in procs):
+        _fail("dist ranks failed: exit codes "
+              f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    expect = als_kernels(m, m["plan"].make_plan(darpa["at"].meta, RANK,
+                                                shards=DIST_RANKS))
+    for res in ranks:
+        tag = f"dist darpa {DIST_RANKS} ranks (gloo), rank {res['rank']}"
+        if not all(res["first_sweep_bitwise"]) or len(
+                res["first_sweep_bitwise"]) != len(darpa["at"].dims):
+            _fail(f"{tag}: first-sweep MTTKRP against the in-process sum "
+                  f"of the slices: {res['first_sweep_bitwise']}")
+        if res["fits"] != ranks[0]["fits"]:
+            _fail(f"{tag}: fits {res['fits']} against rank 0's "
+                  f"{ranks[0]['fits']}")
+        diff = max(abs(a - b) for a, b in zip(res["fits"], ws1_fits))
+        if len(res["fits"]) != len(ws1_fits) or diff > DIST_FIT_TOL:
+            _fail(f"{tag}: fits {res['fits']} against the one-rank run's "
+                  f"{ws1_fits}")
+        if not res["append_bitwise"]:
+            _fail(f"{tag}: sharded_append_delta differs from append_delta")
+        for k in expect:
+            if res["launches"][k] == 0:
+                _fail(f"{tag}: kernel {k} was never launched")
+        if any(res["plain_on_cuda"].values()):
+            _fail(f"{tag}: plain versions ran on CUDA tensors: "
+                  f"{res['plain_on_cuda']}")
+        res["fit_diff_to_one_rank"] = diff
+    print(f"chip_smoke: dist darpa {DIST_RANKS} ranks (gloo, one card): "
+          + "; ".join(f"rank {r['rank']}: fits {r['fits']} in "
+                      f"{r['seconds']:.3f} s (a mode-2 all-reduce "
+                      f"{r['all_reduce_mode2_ms']:.0f} ms), build "
+                      f"{r['build_s']:.2f} s, "
+                      f"append {r['append_ms']:.1f} ms, peak "
+                      f"{r['peak_memory_bytes'] / 1e9:.2f} GB, launches "
+                      f"{r['launches']}" for r in ranks)
+          + f"; {wall_s:.1f} s wall with the spawn")
+    return {"ranks": ranks, "wall_s": wall_s}
+
+
+def dist_tuning(m, at) -> dict:
+    """The sharded tuner at one rank on a temporary store: its key is not
+    the single-device key, the winner is oriented on every mode, and a
+    second ``tune="auto"`` is a store hit with no timing run."""
+    autotune, plan, ops = m["autotune"], m["plan"], m["ops"]
+    store = ROOT / "build" / "chip_smoke_dist_plans.json"
+    store.unlink(missing_ok=True)
+    try:
+        runs0 = ops.timing_runs()
+        t0 = time.perf_counter()
+        tuned = plan.make_plan(at.meta, RANK, shards=1, tune="auto", at=at,
+                               store_path=store)
+        tune_s = time.perf_counter() - t0
+        runs1 = ops.timing_runs()
+        again = plan.make_plan(at.meta, RANK, shards=1, tune="auto", at=at,
+                               store_path=store)
+        runs2 = ops.timing_runs()
+        key = autotune.plan_key(at.meta, RANK, "cuda", device=at.device,
+                                shards=1)
+        single_key = autotune.plan_key(at.meta, RANK, "cuda",
+                                       device=at.device)
+        stored = list(autotune.load_store(store))
+    finally:
+        store.unlink(missing_ok=True)
+    if key == single_key or stored != [key]:
+        _fail(f"dist tuning: sharded key {key}, single-device key "
+              f"{single_key}, stored {stored}")
+    if runs2 != runs1 or again != tuned:
+        _fail(f"dist tuning: the second make took {runs2 - runs1} timing "
+              f"runs")
+    if not all(m["heuristics"].is_oriented(mp.traversal)
+               for mp in tuned.modes) or tuned.shards != 1:
+        _fail(f"dist tuning: winner {tuned.traversals()} shards "
+              f"{tuned.shards}")
+    print(f"chip_smoke: dist tuning (Chicago, 1 rank): winner "
+          f"{tuned.traversals()} tiles "
+          f"{[(mp.r_block, mp.block_m) for mp in tuned.modes]} after "
+          f"{runs1 - runs0} timing runs in {tune_s:.2f} s; the second make "
+          f"{runs2 - runs1}")
+    return {"key": key, "single_device_key": single_key,
+            "timing_runs": runs1 - runs0, "second_timing_runs": runs2 - runs1,
+            "seconds": tune_s, "traversals": tuned.traversals()}
+
+
+def phase_dist(m, chicago, chicago_apr, darpa, darpa_apr) -> dict:
+    """Row-range-sharded CPD (`repro_torch.dist.cpd`) on the one card.
+
+    World size 1 over NCCL: DARPA's 3 CP-ALS iterations through
+    `distributed_cp_als` and 2 CP-APR outer iterations under the sharded
+    plan, bit for bit `phase_darpa`'s and `phase_darpa_apr`'s runs, the
+    sweep's ms against the single-device sweep's; Chicago's 10 CP-ALS
+    iterations (mode 0 oriented, not recursive) within `DIST_FIT_TOL` of
+    `phase_chicago`'s fits; the sharded tuner (`dist_tuning`). Then the
+    slices of 2, 4 and 8 shards one at a time (`check_shard_slices`) on
+    DARPA mode 2 (ALTO-PRE) and Chicago modes 0 and 1 (ALTO-OTF), and
+    `DIST_RANKS` gloo ranks sharing the card (`dist_ranks`)."""
+    dist = torch.distributed
+    t_start = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        # NCCL makes its communicator on the first collective: outside the
+        # counted runs.
+        dist.all_reduce(torch.zeros(1, device=DEVICE))
+        _sync()
+        init_s = time.perf_counter() - t_start
+        d_at, c_at = darpa["at"], chicago["at"]
+        _same_plan_tiles("dist darpa",
+                         m["plan"].make_plan(d_at.meta, RANK, shards=1),
+                         darpa["plan"])
+        als = run_dist_cp_als(m, d_at, 3, "dist darpa cp_als (1 rank, nccl)")
+        ref = darpa["run"]
+        if (als["fits"] != ref["fits"]
+                or not torch.equal(als["lam"], ref["res"].lam)
+                or not all(torch.equal(a, b) for a, b in
+                           zip(als["factors"], ref["res"].factors))):
+            _fail(f"dist darpa cp_als (1 rank): fits {als['fits']} against "
+                  f"phase_darpa's {ref['fits']}, or factors differ")
+        sp = als["plan"]
+        single_ms, sharded_ms = [], []
+        gram = m["cpd"].sharded_gram
+        for turn in range(6):
+            for kind in (("single", "sharded") if turn % 2 == 0
+                         else ("sharded", "single")):
+                if kind == "single":
+                    single_ms.append(_sweep_ms(m, d_at, darpa["plan"],
+                                               als["factors"], als["lam"]))
+                else:
+                    sharded_ms.append(_sweep_ms(m, d_at, sp, als["factors"],
+                                                als["lam"], gram))
+        # What the sharded sweep adds: the all-reduce of the largest
+        # output, and a Gram through the collective against A.T @ A.
+        big = torch.empty((max(d_at.dims), RANK), device=DEVICE)
+        A = als["factors"][0]
+        collective_ms = {
+            "all_reduce_mode2_out": _ms(m, dist.all_reduce, big),
+            "sharded_gram": _ms(m, gram, A), "gram": _ms(m, lambda: A.T @ A)}
+        del big
+        apr = run_cp_apr(m, d_at, sp, 2, "dist darpa cp_apr (1 rank, nccl)")
+        aref = darpa_apr["run"]
+        if (apr["log_likelihoods"] != aref["log_likelihoods"]
+                or apr["kkt_violations"] != aref["kkt_violations"]):
+            _fail(f"dist darpa cp_apr (1 rank): {apr['log_likelihoods']} "
+                  f"{apr['kkt_violations']} against phase_darpa_apr's "
+                  f"{aref['log_likelihoods']} {aref['kkt_violations']}")
+        # The JAX routing (one-hot on every mode: K2 + split + fix-up, K6)
+        # under the sharded plan: phase_darpa's fits, bit for bit.
+        trav = m["heuristics"].Traversal
+        onehot = dataclasses.replace(sp, modes=tuple(
+            dataclasses.replace(mp, traversal=trav.OUTPUT_ORIENTED)
+            for mp in sp.modes))
+        fs = _factors(d_at.dims, seed=0)
+        oh, oh_s, oh_c = _counted(
+            m, "dist darpa cp_als (1 rank, one-hot routing)",
+            lambda: m["cpals"].cp_als(d_at, RANK, n_iters=3, tol=0.0,
+                                      factors=fs, plan=onehot,
+                                      gram_fn=gram),
+            als_kernels(m, onehot))
+        if oh.fits != darpa["onehot_run"]["fits"]:
+            _fail(f"dist darpa cp_als (1 rank, one-hot routing): fits "
+                  f"{oh.fits} against phase_darpa's "
+                  f"{darpa['onehot_run']['fits']}")
+        oh_apr = run_cp_apr(m, d_at, onehot, 2,
+                            "dist darpa cp_apr (1 rank, one-hot routing)")
+        if (oh_apr["log_likelihoods"] != aref["log_likelihoods"]
+                or oh_apr["kkt_violations"] != aref["kkt_violations"]):
+            _fail("dist darpa cp_apr (1 rank, one-hot routing) differs from "
+                  "phase_darpa_apr's")
+        print(f"chip_smoke: dist darpa cp_als (1 rank, one-hot routing): "
+              f"fits {oh.fits} in {oh_s:.3f} s; launches "
+              f"{oh_c['launches']}")
+        c_als = run_dist_cp_als(m, c_at, 10,
+                                "dist chicago cp_als (1 rank, nccl)")
+        c_diff = max(abs(a - b) for a, b in
+                     zip(c_als["fits"], chicago["run"]["fits"]))
+        if c_diff > DIST_FIT_TOL:
+            _fail(f"dist chicago cp_als: fits {c_als['fits']} against "
+                  f"phase_chicago's {chicago['run']['fits']}")
+        tuning = dist_tuning(m, c_at)
+    finally:
+        dist.destroy_process_group()
+    one_rank_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    # One slice at a time.
+    d_res, c_res = darpa_apr["run"]["res"], chicago_apr["run"]["res"]
+    d_fs = darpa["run"]["res"].factors
+    d_view = m["views"].get_view(d_at, 2)
+    d_pi = _pi_rows(m, d_at.meta.enc, d_view.words, d_res.factors, 2)
+    slices = {"darpa_mode2": check_shard_slices(
+        m, d_at, 2, d_fs, d_res.factors[2] * d_res.lam[None, :],
+        "dist darpa mode 2 (pre)", pi=d_pi)}
+    del d_pi, d_view
+    c_fs = chicago["run"]["res"].factors
+    for mode in (0, 1):
+        slices[f"chicago_mode{mode}"] = check_shard_slices(
+            m, c_at, mode, c_fs, c_res.factors[mode] * c_res.lam[None, :],
+            f"dist chicago mode {mode} (otf)", phi_factors=c_res.factors)
+    slices_s = time.perf_counter() - t0
+    ranks = dist_ranks(m, darpa, als["fits"])
+    out = {
+        "darpa_1_rank": {
+            "fits": als["fits"], "seconds": als["seconds"],
+            "traversals": als["traversals"], "launches": als["launches"],
+            "bitwise_phase_darpa": True,
+            "sweep_ms": sorted(sharded_ms)[len(sharded_ms) // 2],
+            "single_sweep_ms": sorted(single_ms)[len(single_ms) // 2],
+            "sweep_ms_all": sharded_ms, "single_sweep_ms_all": single_ms,
+            "collective_ms": collective_ms,
+            "cp_apr": _apr_detail(apr), "cp_apr_bitwise": True,
+            "onehot_seconds": oh_s, "onehot_launches": oh_c["launches"],
+            "onehot_cp_apr": _apr_detail(oh_apr)},
+        "chicago_1_rank": {
+            "fits": c_als["fits"], "seconds": c_als["seconds"],
+            "traversals": c_als["traversals"],
+            "launches": c_als["launches"], "max_fit_diff": c_diff},
+        "tuning": tuning, "slices": slices, "two_ranks": ranks,
+        "runs": [{"launches": r["launches"], "elements": r["elements"]}
+                 for r in (als, apr, oh_c, oh_apr, c_als, *ranks["ranks"])]}
+    out["seconds"] = time.perf_counter() - t_start
+    out.update(nccl_init_s=init_s, one_rank_s=one_rank_s,
+               slices_s=slices_s)
+    print(f"chip_smoke: dist: one-rank DARPA sweep "
+          f"{out['darpa_1_rank']['sweep_ms']:.2f} ms against "
+          f"{out['darpa_1_rank']['single_sweep_ms']:.2f} ms single-device "
+          f"(collectives, ms: {collective_ms}); NCCL start {init_s:.2f} s, "
+          f"one-rank runs {one_rank_s:.1f} s, slices {slices_s:.1f} s, two "
+          f"ranks {ranks['wall_s']:.1f} s; phase {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Real-size kernel checks and timings
 # ---------------------------------------------------------------------------
 
@@ -3356,6 +3968,8 @@ def main() -> int:
     chicago_apr = phase_chicago_apr(m, chicago)
     darpa = phase_darpa(m)
     darpa_apr = phase_darpa_apr(m, darpa)
+    sharded = phase_dist(m, chicago, chicago_apr, darpa, darpa_apr)
+    del darpa["x"]          # the COO the ranks of phase_dist built from
     d_str = phase_darpa_streamed(m, darpa, darpa_apr)
     c_str = phase_chicago_streamed(m, chicago)
     buckets = phase_batched(m)
@@ -3372,7 +3986,7 @@ def main() -> int:
             chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
             c_str["run"], *buckets["A"]["runs"], *buckets["B"]["runs"],
-            *ingested["runs"], *served["runs"]]
+            *ingested["runs"], *served["runs"], *sharded["runs"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
     launches["elements"] = {k: sum(r["elements"][k] for r in runs)
@@ -3478,6 +4092,7 @@ def main() -> int:
            "cp_apr_incore": _apr_detail(c_str["incore_run"])},
         "overlap_efficiency": overlap, "tuning": tuning,
         "batched": buckets, "ingest": ingested, "serve": served,
+        "dist": {k: v for k, v in sharded.items() if k != "runs"},
         "kernels": kernels, "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"
@@ -3486,6 +4101,7 @@ def main() -> int:
     print(f"chip_smoke: per-mode MTTKRP ms {per_mode}; "
           f"{elapsed:.1f} s after the build; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    print(json.dumps({"dist": detail["dist"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

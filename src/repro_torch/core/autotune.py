@@ -35,6 +35,14 @@ measurement over the same space:
   in any later process) costs zero timing runs (`ops.timing_runs`).
   Missing, corrupt, other-version or malformed stores and entries are a
   miss, never fatal, and a store is only ever replaced by a new write.
+* **sharded plans** (`plan.make_plan(shards=)`) — the key also names the
+  shard count, so a sharded plan of one rank never shares a record with a
+  single-device plan (whose recursive modes a sharded plan cannot run;
+  a sharded lookup reads a record with a recursive mode as a miss). Every
+  rank of the group times the same candidates through the sharded
+  executables (each timed call is collective); rank 0's winner is
+  broadcast and only rank 0 writes the store, so every rank runs one
+  plan. A store hit is rank 0's too.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import faults, heuristics
 from repro_torch.core import mttkrp as core_mttkrp
@@ -96,12 +105,15 @@ def device_kind(device=None) -> str:
 
 def plan_key(meta: AltoMeta, rank: int, backend: str, *, device=None,
              objective: str = "mttkrp",
-             device_bytes: int | None = None) -> str:
+             device_bytes: int | None = None,
+             shards: int | None = None) -> str:
     """Stable store key: sha256 over everything a measurement depends on,
     `plan.SMEM_BYTES` and the Π-policy budget `heuristics.
     DEFAULT_FAST_MEM_BYTES` included. ``device_bytes`` is the budget a
     streaming plan was sized against (None for in-core plans, which never
-    share a record with it)."""
+    share a record with it); ``shards`` a sharded plan's shard count (None
+    for a single-device plan, whose key it leaves as it was)."""
+    fields = [] if shards is None else [f"shards={shards}"]
     blob = "|".join([
         f"store_v{PLAN_STORE_VERSION}",
         meta_fingerprint(meta),
@@ -115,6 +127,7 @@ def plan_key(meta: AltoMeta, rank: int, backend: str, *, device=None,
         f"fast_mem={heuristics.DEFAULT_FAST_MEM_BYTES}",
         f"objective={objective}",
         f"dev={device_bytes}",
+        *fields,
     ])
     return hashlib.sha256(blob.encode()).hexdigest()[:32]
 
@@ -212,12 +225,19 @@ def serialize_plan(plan: plan_mod.ExecutionPlan) -> dict:
         },
         "dims": list(plan.meta.dims),
         "nnz": plan.meta.nnz,
+        "shards": plan.shards,
     }
 
 
-def deserialize_plan(record: dict, meta: AltoMeta) -> plan_mod.ExecutionPlan:
-    """An `ExecutionPlan` from a store record and the caller's meta.
-    Raises KeyError / ValueError / TypeError on a malformed record."""
+def deserialize_plan(record: dict, meta: AltoMeta,
+                     shards: int | None = None) -> plan_mod.ExecutionPlan:
+    """An `ExecutionPlan` from a store record and the caller's meta, for
+    ``shards`` (None: one device). Raises KeyError / ValueError /
+    TypeError on a malformed record, on one made for another shard count,
+    and, for a sharded plan, on one with a mode that is not oriented."""
+    if record.get("shards") != shards:
+        raise ValueError(f"record for shards={record.get('shards')}, "
+                         f"wanted shards={shards}")
     modes = tuple(plan_mod.ModePlan(
         mode=int(m["mode"]),
         traversal=heuristics.Traversal(m["traversal"]),
@@ -245,6 +265,9 @@ def deserialize_plan(record: dict, meta: AltoMeta) -> plan_mod.ExecutionPlan:
         if m.threads not in sizes:
             raise ValueError(f"stored threads {m.threads} for r_block "
                              f"{m.r_block} ({m.traversal.value})")
+        if shards is not None and not heuristics.is_oriented(m.traversal):
+            raise ValueError(f"stored {m.traversal.value} mode {m.mode} in "
+                             f"a sharded plan")
     backend = str(record["backend"])
     if backend not in plan_mod.BACKENDS:
         raise ValueError(f"stored backend {backend!r}")
@@ -264,22 +287,23 @@ def deserialize_plan(record: dict, meta: AltoMeta) -> plan_mod.ExecutionPlan:
     return plan_mod.ExecutionPlan(
         meta=meta, rank=rank, backend=backend, modes=modes,
         pi_policy=heuristics.PiPolicy(record["pi_policy"]),
-        streaming=streaming)
+        streaming=streaming, shards=shards)
 
 
 def lookup(meta: AltoMeta, rank: int, *, backend: str, device=None,
            objective: str = "mttkrp", device_bytes: int | None = None,
-           path=None) -> plan_mod.ExecutionPlan | None:
+           path=None,
+           shards: int | None = None) -> plan_mod.ExecutionPlan | None:
     """The stored measured plan for this configuration, or None; zero
     timing runs either way. ``device_bytes`` selects a streaming record
-    (None: the in-core one)."""
+    (None: the in-core one), ``shards`` a sharded one."""
     key = plan_key(meta, rank, backend, device=device, objective=objective,
-                   device_bytes=device_bytes)
+                   device_bytes=device_bytes, shards=shards)
     record = load_store(path).get(key)
     if record is None:
         return None
     try:
-        return deserialize_plan(record, meta)
+        return deserialize_plan(record, meta, shards)
     except (KeyError, ValueError, TypeError, AttributeError):
         return None       # a malformed entry is a miss; tuning overwrites it
 
@@ -356,14 +380,17 @@ def pi_rows(at: AltoTensor, words: torch.Tensor, factors, mode: int):
                                 factors, mode).contiguous()
 
 
-def _time_mttkrp(cand_plan, at, views, factors, mode):
-    """(median, IQR) seconds of one MTTKRP under ``cand_plan``."""
-    return ops.timing_stats(plan_mod.execute_mttkrp, cand_plan, at, views,
-                            factors, mode, warmup=WARMUP, iters=ITERS,
-                            device=at.device)
+def _time_mttkrp(cand_plan, at, views, factors, mode, group=None):
+    """(median, IQR) seconds of one MTTKRP under ``cand_plan`` (over the
+    ranks of ``group`` for a sharded plan)."""
+    return ops.timing_stats(
+        lambda: plan_mod.execute_mttkrp(cand_plan, at, views, factors, mode,
+                                        group=group),
+        warmup=WARMUP, iters=ITERS, device=at.device)
 
 
-def _time_phi(cand_plan, at, view, B, factors, pi, mode, eps=1e-10):
+def _time_phi(cand_plan, at, view, B, factors, pi, mode, eps=1e-10,
+              group=None):
     """(median, IQR) seconds of one Φ under ``cand_plan``: with ``pi``
     (ALTO-PRE in core) or the factors (ALTO-OTF, and every streaming
     plan, which builds its chunks' Π itself)."""
@@ -371,8 +398,16 @@ def _time_phi(cand_plan, at, view, B, factors, pi, mode, eps=1e-10):
                 else dict(pi=pi))
     return ops.timing_stats(
         lambda: plan_mod.execute_phi(cand_plan, at, view, B, mode, eps=eps,
-                                     **operands),
+                                     group=group, **operands),
         warmup=WARMUP, iters=ITERS, device=at.device)
+
+
+def _from_rank0(obj, group):
+    """``obj`` as rank 0 of ``group`` holds it, on every rank."""
+    box = [obj]
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
 
 
 def dedupe(cands, backend: str, objective: str, streaming: bool = False):
@@ -403,8 +438,8 @@ def dedupe(cands, backend: str, objective: str, streaming: bool = False):
 def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
               objective: str = "mttkrp", max_candidates: int | None = None,
               persist: bool = True, store_path=None,
-              oriented_only: bool = False
-              ) -> tuple[plan_mod.ExecutionPlan, TuneReport]:
+              oriented_only: bool = False, shards: int | None = None,
+              group=None) -> tuple[plan_mod.ExecutionPlan, TuneReport]:
     """Time every candidate of every mode and return the winning plan.
 
     ``objective`` picks what is timed: ``"mttkrp"`` (CP-ALS) or ``"phi"``
@@ -414,7 +449,13 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     only on what the store key fingerprints. Returns ``(plan, report)``;
     each mode's winner is its report's `ModeReport.best`: the static
     candidate unless another `beats` it. ``oriented_only`` drops the
-    recursive candidates (a shape class's plan, `plan.make_class_plan`)."""
+    recursive candidates (a shape class's plan, `plan.make_class_plan`).
+
+    ``shards`` tunes a sharded plan on the ranks of ``group`` (every rank
+    calls it with the same tensor): the candidates are the sharded plan's
+    (`plan.candidate_mode_plans`), each timed through its collective
+    executable, rank 0's winner of each mode is every rank's, and only
+    rank 0 writes the store."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     if max_candidates is None:
@@ -426,14 +467,16 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     pi_policy = heuristics.choose_pi_policy(meta, rank)
     pre_pi = pi_policy is heuristics.PiPolicy.PRE
     factors = seeded_factors(meta, rank, 0, at.device)
-    base = tuple(plan_mod.static_mode_plan(meta, n, rank)
+    base = tuple(plan_mod.static_mode_plan(meta, n, rank, shards=shards)
                  for n in range(meta.enc.ndim))
 
+    collective = {} if shards is None else {"group": group}
     winners, reports = [], []
     for n in range(meta.enc.ndim):
         t_mode = time.perf_counter()
         cands = plan_mod.candidate_mode_plans(meta, n, rank,
-                                              objective=objective)
+                                              objective=objective,
+                                              shards=shards)
         if oriented_only:
             cands = [c for c in cands if heuristics.is_oriented(c.traversal)]
         cands = plan_mod.cap_candidates(dedupe(cands, backend, objective),
@@ -455,28 +498,35 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
             cand = plan_mod.ExecutionPlan(meta=meta, rank=rank,
                                           backend=backend,
                                           modes=tuple(modes),
-                                          pi_policy=pi_policy)
+                                          pi_policy=pi_policy, shards=shards)
             if objective == "phi":
                 pi = ((pi_view if heuristics.is_oriented(mp.traversal)
                        else pi_alto) if pre_pi else None)
-                t, iqr = _time_phi(cand, at, view, B, factors, pi, n)
+                t, iqr = _time_phi(cand, at, view, B, factors, pi, n,
+                                   **collective)
             else:
-                t, iqr = _time_mttkrp(cand, at, views, factors, n)
+                t, iqr = _time_mttkrp(cand, at, views, factors, n,
+                                      **collective)
             timings.append(CandidateTiming(
                 mode=n, traversal=mp.traversal.value, r_block=mp.r_block,
                 block_m=mp.block_m, threads=mp.threads, median_s=float(t),
                 iqr_s=float(iqr), is_static=i == 0))
         report = ModeReport(mode=n, candidates=tuple(timings),
                             seconds=time.perf_counter() - t_mode)
-        winners.append(cands[timings.index(report.best)])
+        best = timings.index(report.best)
+        if shards is not None:
+            # Each rank timed its own run; one plan must hold on all.
+            best = _from_rank0(best, group)
+        winners.append(cands[best])
         reports.append(report)
 
     plan = plan_mod.ExecutionPlan(meta=meta, rank=rank, backend=backend,
-                                  modes=tuple(winners), pi_policy=pi_policy)
+                                  modes=tuple(winners), pi_policy=pi_policy,
+                                  shards=shards)
     key = plan_key(meta, rank, backend, device=at.device,
-                   objective=objective)
+                   objective=objective, shards=shards)
     stored = ""
-    if persist:
+    if persist and (shards is None or dist.get_rank(group) == 0):
         record = serialize_plan(plan)
         record["tuned"] = {
             "mode": "exhaustive", "device": device_kind(at.device),
@@ -512,8 +562,9 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
                device_bytes: int | None = None,
                search_budget_runs: int | None = None,
                search_budget_s: float | None = None, search_seed: int = 0,
-               store_path=None,
-               oriented_only: bool = False) -> plan_mod.ExecutionPlan | None:
+               store_path=None, oriented_only: bool = False,
+               shards: int | None = None,
+               group=None) -> plan_mod.ExecutionPlan | None:
     """A store hit, else a measurement on ``at``; None tells `make_plan`
     to fall back to the static plan (no data, ``require`` False).
 
@@ -521,19 +572,28 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
     (`core.search`) instead of the exhaustive tuner. ``device_bytes``
     marks a streaming plan: those always go through the search
     (``chunk_m`` is one of its genes) and are stored under a key of that
-    budget. ``oriented_only`` measures oriented candidates only."""
+    budget. ``oriented_only`` measures oriented candidates only.
+
+    ``shards`` (a sharded plan) looks up and tunes on the ranks of
+    ``group``, rank 0's store hit or winner holding on every rank, and
+    always through the exhaustive tuner, whose timing is collective."""
     if objective not in OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
     hit = lookup(meta, rank, backend=backend, device=device,
                  objective=objective, device_bytes=device_bytes,
-                 path=store_path)
+                 path=store_path, shards=shards)
+    if shards is not None:
+        record = _from_rank0(None if hit is None else serialize_plan(hit),
+                             group)
+        hit = None if record is None else deserialize_plan(record, meta,
+                                                           shards)
     if hit is not None:
         return hit
     if at is not None:
         if at.meta != meta:
             raise ValueError("tune: at.meta does not match the meta the "
                              "plan is being built for")
-        if search or device_bytes is not None:
+        if (search or device_bytes is not None) and shards is None:
             from repro_torch.core import search as search_mod
             plan, _ = search_mod.search_plan(
                 at, rank, backend=backend, objective=objective,
@@ -543,7 +603,8 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
             return plan
         plan, _ = tune_plan(at, rank, backend=backend, objective=objective,
                             store_path=store_path,
-                            oriented_only=oriented_only)
+                            oriented_only=oriented_only, shards=shards,
+                            group=group)
         return plan
     if require:
         raise ValueError(

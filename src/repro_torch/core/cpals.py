@@ -65,13 +65,23 @@ def build_views(at: AltoTensor,
     return plan_mod.build_views(at, plan)
 
 
-def _sweep(plan, at: AltoTensor, views, factors, lam):
+def _gram(A: torch.Tensor) -> torch.Tensor:
+    return A.T @ A
+
+
+def _sweep(plan, at: AltoTensor, views, factors, lam, gram_fn=None,
+           group=None):
     """One CP-ALS sweep over all modes -> (factors, lam, M_last); M_last
     is the final mode's MTTKRP, the one consistent with the returned
-    factors."""
+    factors.
+
+    ``gram_fn`` computes the Gram matrices (default ``A.T @ A``): the
+    distributed driver passes `dist.cpd.sharded_gram`. A sharded plan
+    routes the MTTKRP over the ranks of ``group`` itself."""
+    gram = gram_fn or _gram
     N = len(factors)
     factors = list(factors)
-    grams = [A.T @ A for A in factors]
+    grams = [gram(A) for A in factors]
     M = None
     for n in range(N):
         V = None
@@ -79,13 +89,14 @@ def _sweep(plan, at: AltoTensor, views, factors, lam):
             if m == n:
                 continue
             V = grams[m] if V is None else V * grams[m]
-        M = mttkrp_adaptive(at, views, factors, n, plan=plan)  # (I_n, R)
+        M = mttkrp_adaptive(at, views, factors, n, plan=plan,
+                            group=group)                     # (I_n, R)
         A = M @ torch.linalg.pinv(V)
         lam = torch.linalg.vector_norm(A, dim=0)
         lam = torch.where(lam > 0, lam, torch.ones_like(lam))
         A = A / lam[None, :]
         factors[n] = A
-        grams[n] = A.T @ A
+        grams[n] = gram(A)
     return factors, lam, M
 
 
@@ -118,7 +129,8 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
            factors: list[torch.Tensor] | None = None,
            plan: plan_mod.ExecutionPlan | None = None,
            tune: str = "off", warm_start=None, guard: bool = False,
-           guard_slack: float = 1e-3) -> CpalsResult:
+           guard_slack: float = 1e-3, gram_fn=None,
+           group=None) -> CpalsResult:
     """CP-ALS driver on the tensor's device. ``factors`` seeds the
     iteration (default `init_factors` with ``seed``); ``plan`` defaults to
     `plan.plan_for` (kernels on CUDA, reference traversals on the CPU),
@@ -136,7 +148,13 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
     the fit may not drop by more than ``guard_slack``. On a violation the
     result is the last good ``(factors, λ)`` and the solve stops;
     `CpalsResult.health` says why. On finite inputs the guard changes no
-    bit."""
+    bit.
+
+    Under a sharded plan (`plan.make_plan(shards=)`) every MTTKRP sums
+    the ranks of ``group`` (default the world group) and ``gram_fn``
+    replaces ``A.T @ A`` (`dist.cpd.distributed_cp_als` passes
+    `dist.cpd.sharded_gram`); the factors are replicated, so every rank
+    computes the same fit."""
     resolve_device(at.device)
     if factors is not None and warm_start is not None:
         raise ValueError("pass factors= or warm_start=, not both")
@@ -176,7 +194,8 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
     it = 0
     for it in range(1, n_iters + 1):
         good = (factors, lam)
-        factors, lam, M_last = _sweep(plan, at, views, factors, lam)
+        factors, lam, M_last = _sweep(plan, at, views, factors, lam,
+                                      gram_fn, group)
         pd = faults.fire("cpals.nan")
         if pd is not None:
             # Poison the last factor: the next sweep's first mode update

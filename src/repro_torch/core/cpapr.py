@@ -24,6 +24,12 @@ the chunked executor over host streams, which takes the factors under
 both Π policies and builds each chunk's Π rows itself under ALTO-PRE, so
 no full-stream Π is built. The log-likelihood still decodes the
 card-resident ALTO tensor: only the oriented copies stream.
+
+A sharded plan (`core.plan.make_plan(shards=)`) routes Φ through
+`execute_phi` to `dist.cpd.sharded_phi` over the ranks of ``group``: each
+rank reduces its slice of the row-sorted stream, the ALTO-PRE Π rows cut
+with it. λ, the factors, the KKT violations and the log-likelihood are
+replicated.
 """
 from __future__ import annotations
 
@@ -102,7 +108,8 @@ def _starting_factors(factors, dims, rank, dtype, device):
 
 def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
                  view: OrientedView | None, mode: int, lam, factors,
-                 phi_prev, first_outer: bool, pre_pi: bool, p: CpaprParams):
+                 phi_prev, first_outer: bool, pre_pi: bool, p: CpaprParams,
+                 group=None):
     """One full Alg. 2 mode update (lines 4-15). Returns (A, λ, Φ of the
     final B, converged, inner steps taken, KKT of the first step, host
     seconds blocked on KKT reads)."""
@@ -140,7 +147,7 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
     wait = 0.0
     for _ in range(p.l_max):
         Phi = plan_mod.execute_phi(plan, at, view, B, mode, eps=p.eps_div,
-                                   **operands)               # line 8
+                                   group=group, **operands)  # line 8
         kkt_t = torch.minimum(B, 1.0 - Phi).abs().max()     # line 9
         t0 = time.perf_counter()
         kkt = kkt_t.item()
@@ -179,7 +186,7 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
            factors: list[torch.Tensor] | None = None,
            lam: torch.Tensor | None = None,
            tune: str = "off", warm_start=None,
-           guard: bool = False) -> CpaprResult:
+           guard: bool = False, group=None) -> CpaprResult:
     """CP-APR MU driver (Alg. 2) on the tensor's device. ``pi_policy``:
     None (the plan's) | ``"pre"`` | ``"otf"``.
 
@@ -198,7 +205,9 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
     and the KKT violation are finite (`core.health`); on a violation the
     result is the state before that iteration and the solve stops
     (`CpaprResult.health`). On finite inputs it changes no bit.
-    """
+
+    Under a sharded plan Φ sums the ranks of ``group`` (default the world
+    group)."""
     resolve_device(at.device)
     p = params or CpaprParams()
     if pi_policy not in (None, "pre", "otf"):
@@ -264,7 +273,7 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
         for n in range(N):
             A, lam, phi_prev[n], conv, n_inner, kkt, wait = _mode_update(
                 plan, at, views.get(n), n, lam, factors, phi_prev[n],
-                first_outer=(outer == 1), pre_pi=pre_pi, p=p)
+                first_outer=(outer == 1), pre_pi=pre_pi, p=p, group=group)
             pd = faults.fire("cpapr.nan")
             if pd is not None:
                 A = A.clone()

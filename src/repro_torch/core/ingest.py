@@ -26,8 +26,8 @@ go through the K4 decode (`kernels.ops.delinearize`) and
 `grow_factors` backs ``warm_start=`` on `cpals.cp_als` and
 `cpapr.cp_apr`: the previous factors, with rows for the grown extents.
 
-The sharded ``delta_form="words"`` path of the JAX package (its
-`dist.cpd` ingest) is not ported; `append_linearized` is its local call.
+`dist.cpd.sharded_append_delta` linearizes a delta across the ranks of a
+process group and hands the gathered words to `append_linearized`.
 """
 from __future__ import annotations
 
@@ -167,11 +167,20 @@ def append_linearized(at: AltoTensor, delta_words, values,
                       compute_reuse: bool | None = None,
                       invalidate_stale: bool = True) -> AltoTensor:
     """`append_delta` for a delta already linearized under
-    ``make_encoding(dims)``: (D, W) uint32 words. ``dims`` is explicit
-    (words carry no extents) and must cover the resident dims."""
+    ``make_encoding(dims)``: (D, W) uint32 words, or the port's int32 word
+    tensor (`encoding.linearize`), taken to ``at``'s device as it is.
+    ``dims`` is explicit (words carry no extents) and must cover the
+    resident dims."""
     new_dims = alto.grown_dims(at.dims, np.empty((0, len(at.dims))), dims)
-    words = enc_mod.words_from_np(np.asarray(delta_words, np.uint32).reshape(
-        -1, make_encoding(new_dims).n_words)).to(at.device)
+    W = make_encoding(new_dims).n_words
+    if isinstance(delta_words, torch.Tensor):
+        if delta_words.dtype != torch.int32:
+            raise ValueError(f"word tensor of dtype {delta_words.dtype}, "
+                             f"expected torch.int32")
+        words = delta_words.reshape(-1, W).to(at.device)
+    else:
+        words = enc_mod.words_from_np(np.asarray(
+            delta_words, np.uint32).reshape(-1, W)).to(at.device)
     return _append(at, words, _values(at, values), new_dims, "words",
                    policy, n_partitions, compute_reuse, invalidate_stale)
 

@@ -177,16 +177,17 @@ def mttkrp_oriented(view: OrientedView, factors: Sequence[torch.Tensor]
 def mttkrp_adaptive(at: AltoTensor,
                     views: dict[int, OrientedView] | None,
                     factors: Sequence[torch.Tensor], mode: int,
-                    plan=None) -> torch.Tensor:
+                    plan=None, group=None) -> torch.Tensor:
     """Adaptive conflict resolution (paper §4.2).
 
     With a ``plan`` (`core.plan.make_plan`) its routing is used, kernels
-    included; without one the heuristic picks between the two plain
-    traversals above.
+    included (a sharded plan's over the ranks of ``group``); without one
+    the heuristic picks between the two plain traversals above.
     """
     if plan is not None:
         from repro_torch.core import plan as plan_mod
-        return plan_mod.execute_mttkrp(plan, at, views, factors, mode)
+        return plan_mod.execute_mttkrp(plan, at, views, factors, mode,
+                                       group=group)
     choice = heuristics.choose_traversal(at.meta, mode)
     if (choice is heuristics.Traversal.OUTPUT_ORIENTED and views
             and mode in views):

@@ -22,7 +22,13 @@ A plan answers, per mode:
     host-resident stream in chunks of `StreamPlan.chunk_m` elements
     (`kernels.ops.mttkrp_oriented_chunked`). The byte models below are
     the JAX package's, term for term, so both packages pick the same
-    chunks at equal ``block_m``.
+    chunks at equal ``block_m``;
+  * **shards** — ``make_plan(shards=D)`` makes a plan for D ranks of a
+    `torch.distributed` process group, each running the oriented kernels
+    on a contiguous row-range slice of the row-sorted stream
+    (`repro_torch.dist.cpd`): every mode oriented, ``block_m`` sized for a
+    slice. The group itself is passed at call time (``group=``, default
+    the world group); a sharded plan never streams.
 
 The Hopper model. Every kernel walks each slice of the stream (a
 ``block_m`` slice, or an ALTO partition for the recursive kernels) in
@@ -118,6 +124,10 @@ class ExecutionPlan:
     # Non-None routes every oriented mode through the chunked executors
     # (the plan forces the carry traversal then).
     streaming: StreamPlan | None = None
+    # Non-None: the number of ranks the row-sorted stream is cut into
+    # (`repro_torch.dist.cpd`); 1 is a sharded plan of one rank, which
+    # still goes through the collectives. None: one device.
+    shards: int | None = None
 
     def mode_plan(self, mode: int) -> ModePlan:
         return self.modes[mode]
@@ -146,13 +156,15 @@ def cta_threads(r_block: int) -> int:
     return r_block * max(1, THREADS_PER_CTA // r_block)
 
 
-def choose_block_m(meta: AltoMeta, r_block: int) -> int:
+def choose_block_m(meta: AltoMeta, r_block: int, shards: int = 1) -> int:
     """Largest power-of-two slice that leaves `TARGET_WAVES` waves of
-    slices on the card (`MIN_BLOCK_M` for short streams)."""
+    slices on the card (`MIN_BLOCK_M` for short streams). Under ``shards``
+    ranks each rank's card runs its own share of the stream, so the waves
+    are counted on ``stream_len / shards`` elements."""
     resident = SMS * (MAX_THREADS_PER_SM // r_block)
+    share = -(-heuristics.stream_len(meta) // shards)
     bm = MAX_BLOCK_M
-    while (bm > MIN_BLOCK_M
-           and heuristics.stream_len(meta) < TARGET_WAVES * resident * bm):
+    while bm > MIN_BLOCK_M and share < TARGET_WAVES * resident * bm:
         bm //= 2
     return bm
 
@@ -241,19 +253,26 @@ def default_device_bytes() -> int | None:
 
 
 def static_mode_plan(meta: AltoMeta, mode: int, rank: int, *,
-                     force_carry: bool = False) -> ModePlan:
+                     force_carry: bool = False,
+                     shards: int | None = None) -> ModePlan:
     """The analytic-model choice for one mode (float32 traffic: the
     kernels take float32 only). ``force_carry`` pins the carry traversal:
     streaming plans need it, the chunked executors being the carry
-    scan."""
-    traversal = (heuristics.Traversal.ORIENTED_CARRY if force_carry
-                 else heuristics.choose_traversal(meta, mode))
+    scan. ``shards`` (a sharded plan) forces the oriented family, carry
+    or one-hot still by `heuristics.choose_oriented_variant`, and sizes
+    ``block_m`` for one rank's slice."""
+    if force_carry:
+        traversal = heuristics.Traversal.ORIENTED_CARRY
+    elif shards is not None:
+        traversal = heuristics.Traversal.OUTPUT_ORIENTED
+    else:
+        traversal = heuristics.choose_traversal(meta, mode)
     if not force_carry and heuristics.is_oriented(traversal):
         traversal = heuristics.choose_oriented_variant(meta, mode, rank,
                                                        dtype_bytes=4)
     rb = choose_rank_block(rank)
     return ModePlan(mode=mode, traversal=traversal, r_block=rb,
-                    block_m=choose_block_m(meta, rb),
+                    block_m=choose_block_m(meta, rb, shards or 1),
                     temp_rows=meta.temp_rows[mode], threads=cta_threads(rb))
 
 
@@ -274,7 +293,8 @@ def recursive_fits(meta: AltoMeta, mode: int, rank: int, r_block: int,
 
 def candidate_mode_plans(meta: AltoMeta, mode: int, rank: int, *,
                          objective: str = "mttkrp",
-                         max_candidates: int | None = None
+                         max_candidates: int | None = None,
+                         shards: int | None = None
                          ) -> tuple[ModePlan, ...]:
     """The tiling space of one mode, the static choice FIRST (kept even
     where it is not feasible), then by traversal in
@@ -286,8 +306,10 @@ def candidate_mode_plans(meta: AltoMeta, mode: int, rank: int, *,
     and keeps the static value), which must pass `recursive_fits` for
     ``objective``. Both oriented variants are always candidates: no
     kernel here keeps its output resident. ``max_candidates`` caps the
-    list, the static choice included, through `cap_candidates`."""
-    static = static_mode_plan(meta, mode, rank)
+    list, the static choice included, through `cap_candidates`. Under
+    ``shards`` the static choice is the sharded plan's and only the
+    oriented traversals are candidates."""
+    static = static_mode_plan(meta, mode, rank, shards=shards)
     out = [static]
     seen = {(static.traversal, static.r_block, static.block_m,
              static.threads)}
@@ -302,6 +324,8 @@ def candidate_mode_plans(meta: AltoMeta, mode: int, rank: int, *,
 
     tiles = [rb for rb in divisors_desc(rank) if rb <= MAX_R_BLOCK]
     for traversal in heuristics.candidate_traversals(meta, mode):
+        if shards is not None and not heuristics.is_oriented(traversal):
+            continue
         for rb in tiles:
             if traversal is heuristics.Traversal.RECURSIVE:
                 if recursive_fits(meta, mode, rank, rb, objective):
@@ -351,7 +375,8 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
               search_budget: int | None = None,
               search_seconds: float | None = None,
               search_seed: int = 0, store_path=None,
-              oriented_only: bool = False) -> ExecutionPlan:
+              oriented_only: bool = False,
+              shards: int | None = None, group=None) -> ExecutionPlan:
     """Resolve heuristics + static meta into a concrete execution plan.
     ``backend`` defaults from ``device`` (`default_backend`).
 
@@ -378,7 +403,16 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
     is part of the store key. The device whose kind keys the store is
     ``at``'s, else ``device``. A store hit costs zero timing runs.
     ``oriented_only`` keeps the tuner to oriented candidates (the static
-    choice must be oriented too)."""
+    choice must be oriented too).
+
+    ``shards`` makes a sharded plan for that many ranks
+    (`repro_torch.dist.cpd`): every mode oriented (`static_mode_plan`),
+    ``block_m`` sized for one rank's share of the stream, and no
+    streaming (a budget the working set overflows raises). Its tuner
+    times the sharded executables on every rank of the group and keeps
+    rank 0's winner, in a store record of its own (`core.autotune`);
+    ``tune="search"`` takes that exhaustive tuner too. ``group`` is the
+    process group those timings run on (default the world group)."""
     backend = backend or default_backend(
         at.device if at is not None and device is None else device)
     if backend not in BACKENDS:
@@ -389,6 +423,13 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
         device_bytes = default_device_bytes()
     streaming_needed = (device_bytes is not None
                         and needs_streaming(meta, rank, device_bytes))
+    if shards is not None:
+        if isinstance(shards, bool) or int(shards) != shards or shards < 1:
+            raise ValueError(f"shards must be a positive int, got {shards!r}")
+        if streaming_needed:
+            raise ValueError("out-of-core streaming does not compose with a "
+                             "sharded plan: shard first, then size "
+                             "device_bytes for one rank")
     if tune != "off":
         from repro_torch.core import autotune
         tuned = autotune.tuned_plan(
@@ -399,11 +440,13 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
             device_bytes=device_bytes if streaming_needed else None,
             search_budget_runs=search_budget,
             search_budget_s=search_seconds, search_seed=search_seed,
-            store_path=store_path, oriented_only=oriented_only)
+            store_path=store_path, oriented_only=oriented_only,
+            shards=shards, group=group)
         if tuned is not None:
             return tuned
     modes = tuple(static_mode_plan(meta, n, rank,
-                                   force_carry=streaming_needed)
+                                   force_carry=streaming_needed,
+                                   shards=shards)
                   for n in range(meta.enc.ndim))
     streaming = None
     if streaming_needed:
@@ -415,7 +458,7 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
             stream_bytes=incore_working_set_bytes(meta, rank))
     return ExecutionPlan(meta=meta, rank=rank, backend=backend, modes=modes,
                          pi_policy=heuristics.choose_pi_policy(meta, rank),
-                         streaming=streaming)
+                         streaming=streaming, shards=shards)
 
 
 def plan_for(at: AltoTensor, rank: int, **kwargs) -> ExecutionPlan:
@@ -444,7 +487,8 @@ def make_class_plan(sc, **kwargs) -> ExecutionPlan:
 def build_views(at: AltoTensor, plan: ExecutionPlan) -> dict:
     """Cached oriented views for exactly the modes the plan routes
     output-oriented (either variant), through `core.views`; host streams
-    (`core.stream.HostStream`) in their place under a streaming plan."""
+    (`core.stream.HostStream`) in their place under a streaming plan; a
+    view of every mode under a sharded plan."""
     from repro_torch.core import views as views_mod
     return views_mod.build_views(at, plan)
 
@@ -455,12 +499,18 @@ def build_views(at: AltoTensor, plan: ExecutionPlan) -> dict:
 
 def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
                    views: dict[int, OrientedView] | None,
-                   factors, mode: int) -> torch.Tensor:
+                   factors, mode: int, group=None) -> torch.Tensor:
     """MTTKRP for one mode through the plan's kernel choice. A mode the
     plan routes oriented but without a view falls back to the recursive
     traversal (same contract as `mttkrp_adaptive`). A streaming plan runs
-    the chunked executor over the mode's host stream."""
+    the chunked executor over the mode's host stream. A sharded plan runs
+    this rank's slice and sums the ranks of ``group`` (default the world
+    group; `dist.cpd.sharded_mttkrp`)."""
     faults.inject("plan.dispatch")
+    if plan.shards is not None:
+        from repro_torch.dist import cpd
+        return cpd.sharded_mttkrp(plan, at, views, factors, mode,
+                                  group=group)
     mp = plan.modes[mode]
     oriented = (heuristics.is_oriented(mp.traversal)
                 and views is not None and mode in views)
@@ -489,7 +539,8 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
 def execute_phi(plan: ExecutionPlan, at: AltoTensor,
                 view: OrientedView | None, B: torch.Tensor, mode: int,
                 factors=None, pi: torch.Tensor | None = None,
-                eps: float = 1e-10, pre: bool | None = None) -> torch.Tensor:
+                eps: float = 1e-10, pre: bool | None = None,
+                group=None) -> torch.Tensor:
     """CP-APR Φ row reduction for one mode through the plan's kernel
     choice. Pass ``pi`` (Π rows in the view's order for an oriented mode,
     in ALTO order for a recursive one: ALTO-PRE) or ``factors``
@@ -500,10 +551,15 @@ def execute_phi(plan: ExecutionPlan, at: AltoTensor,
     full-stream Π is the array streaming avoids; the chunked executor
     builds each chunk's Π rows on the device under ALTO-PRE): ``pre``
     then names the policy, the plan's by default. In-core routes ignore
-    ``pre``."""
+    ``pre``. A sharded plan runs this rank's slice of the stream (and of
+    ``pi``) and sums the ranks of ``group`` (`dist.cpd.sharded_phi`)."""
     faults.inject("plan.dispatch")
     if (pi is None) == (factors is None):
         raise ValueError("pass exactly one of pi= / factors=")
+    if plan.shards is not None:
+        from repro_torch.dist import cpd
+        return cpd.sharded_phi(plan, at, view, B, mode, factors=factors,
+                               pi=pi, eps=eps, group=group)
     mp = plan.modes[mode]
     oriented = heuristics.is_oriented(mp.traversal) and view is not None
     if plan.streaming is not None and oriented:

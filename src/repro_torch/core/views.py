@@ -212,10 +212,12 @@ def get_pull_order(at: AltoTensor, mode: int) -> PullOrder:
 
 def build_views(at: AltoTensor, plan) -> dict:
     """Cached views for exactly the modes ``plan`` routes oriented; host
-    streams in their place when the plan streams."""
+    streams in their place when the plan streams; every mode's view under
+    a sharded plan, whose modes all cut the row-sorted stream."""
     get = get_stream if getattr(plan, "streaming", None) else get_view
-    return {m.mode: get(at, m.mode)
-            for m in plan.modes if heuristics.is_oriented(m.traversal)}
+    sharded = getattr(plan, "shards", None) is not None
+    return {m.mode: get(at, m.mode) for m in plan.modes
+            if sharded or heuristics.is_oriented(m.traversal)}
 
 
 def invalidate(at: AltoTensor, modes=None) -> int:

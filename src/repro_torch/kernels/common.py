@@ -87,11 +87,12 @@ def at_tenant(x, t: int):
 
 
 def check_phi_operands(enc, mode: int, M: int, B, factors, pi,
-                       r_block: int | None, lead: tuple = ()):
+                       r_block: int | None, lead: tuple = (),
+                       n_rows: int | None = None):
     """Checks shared by the Φ wrappers: exactly one of ``factors`` (OTF)
-    and ``pi`` (PRE), B ``(I_n, R)``, and no rank tiles; each with the
-    leading tenant axis ``lead`` of a bucket. Returns the factors as a
-    list (or None) and R."""
+    and ``pi`` (PRE), B ``(I_n, R)`` (``(n_rows, R)`` for a row window),
+    and no rank tiles; each with the leading tenant axis ``lead`` of a
+    bucket. Returns the factors as a list (or None) and R."""
     if (pi is None) == (factors is None):
         raise ValueError("pass exactly one of pi= / factors=")
     R = B.shape[-1]
@@ -100,7 +101,8 @@ def check_phi_operands(enc, mode: int, M: int, B, factors, pi,
                          f"{r_block} != R {R}")
     if R > 1024:
         raise ValueError(f"rank {R} exceeds one CTA's 1024 threads")
-    check_tensor(B, "B", torch.float32, lead + (enc.dims[mode], R))
+    check_tensor(B, "B", torch.float32,
+                 lead + (n_rows or enc.dims[mode], R))
     if pi is not None:
         check_tensor(pi, "pi", torch.float32, lead + (M, R))
         return None, R

@@ -47,6 +47,15 @@ a maximal stretch of equal rows inside one slice.
   carry_val)``: the run still open at the chunk's end, or (-1, zeros)
   after the ``final`` chunk. ``out`` is updated in place.
 
+A row window. `carry_runs`, `phi_carry_runs` and the K1 / K5 ops on them
+take ``n_rows``: the output (and Φ's B) is then the ``(n_rows, R)``
+window of rows ``[lo, lo + n_rows)`` of the mode, and the stream's rows
+are given relative to ``lo``. A slice of the stream whose rows span only
+part of the mode (`repro_torch.dist.cpd`) runs on its window: the runs
+pass stores the zeros of the rows it skips serially, one sub-warp per
+gap, so the gaps below and above a slice would otherwise be written row
+by row by a single sub-warp.
+
 The tenant axis. `carry_runs`, `carry_fixup`, `oriented_partials`,
 `segment_split`, `phi_carry_runs` and `phi_oriented_partials` (and the
 ops built on them) also take a bucket of T tenants of one shape class
@@ -189,12 +198,12 @@ def segment_split_plain(partials: torch.Tensor, rows: torch.Tensor,
 
 
 def carry_runs_plain(enc: AltoEncoding, mode: int, rows, words, values,
-                     factors, block_m: int):
+                     factors, block_m: int, n_rows: int | None = None):
     """Plain version of K1's first pass: (out, carry_row, carry_val)."""
     _build.count_plain("carry_runs", rows)
     sums = block_run_sums(contributions(enc, words, values, factors, mode),
                           rows, block_m)
-    return split_block_runs(sums, rows, enc.dims[mode])
+    return split_block_runs(sums, rows, n_rows or enc.dims[mode])
 
 
 def carry_fixup_plain(carry_row, carry_val, out):
@@ -267,13 +276,14 @@ def oriented_partials_plain(enc: AltoEncoding, mode: int, rows, words,
 
 def phi_carry_runs_plain(enc: AltoEncoding, mode: int, eps: float, rows,
                          words, values, B, factors=None, pi=None,
-                         block_m: int = DEFAULT_BLOCK_M):
+                         block_m: int = DEFAULT_BLOCK_M,
+                         n_rows: int | None = None):
     """Plain version of K5's first pass: (out, carry_row, carry_val)."""
     _build.count_plain("phi_carry_runs", rows)
     contrib = phi_contributions(enc, mode, words, values, rows, B,
                                 factors=factors, pi=pi, eps=eps)
     return split_block_runs(block_run_sums(contrib, rows, block_m), rows,
-                            enc.dims[mode])
+                            n_rows or enc.dims[mode])
 
 
 def phi_oriented_partials_plain(enc: AltoEncoding, mode: int, eps: float,
@@ -308,28 +318,42 @@ def _runs_into(plain, out):
     return (out,) + plain[1:]
 
 
+def _window(enc, mode, lead, n_rows) -> int:
+    """The output's rows: the mode's extent, or a row window's (one
+    tensor only: a bucket's strides are the extents')."""
+    if n_rows is None:
+        return enc.dims[mode]
+    if lead or not 0 < n_rows <= enc.dims[mode]:
+        raise ValueError(f"row window of {n_rows} rows for mode extent "
+                         f"{enc.dims[mode]}" + (" in a bucket" if lead
+                                                else ""))
+    return n_rows
+
+
 def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
                block_m: int = DEFAULT_BLOCK_M, r_block: int | None = None,
-               threads: int = DEFAULT_THREADS, out=None):
+               threads: int = DEFAULT_THREADS, out=None,
+               n_rows: int | None = None):
     """K1, first pass: (out with inner runs, carry_row, carry_val). On the
     card ``out`` (``torch.empty`` unless given) gets every row except the
-    carried pieces' rows, which `carry_fixup` stores."""
+    carried pieces' rows, which `carry_fixup` stores. ``n_rows``: a row
+    window (module docstring)."""
     factors = list(factors)
     rb = r_block or common.rank_tile(factors[0].shape[-1])
     M, R, lead = _check_stream(enc, rows, words, values, factors, block_m,
                                rb)
     lanes, cols = lane_map(rb)
+    I_out = _window(enc, mode, lead, n_rows)
     if out is not None:
-        common.check_tensor(out, "out", torch.float32,
-                            lead + (enc.dims[mode], R))
+        common.check_tensor(out, "out", torch.float32, lead + (I_out, R))
     if not common.on_cuda(rows, words, values, *factors,
                           *([] if out is None else [out])):
         return _runs_into(tenant_loop(
-            lambda *a: carry_runs_plain(enc, mode, *a, block_m), lead,
-            rows, words, values, factors), out)
+            lambda *a: carry_runs_plain(enc, mode, *a, block_m, n_rows),
+            lead, rows, words, values, factors), out)
     nb = M // block_m
     if out is None:
-        out = torch.empty(lead + (enc.dims[mode], R), dtype=torch.float32,
+        out = torch.empty(lead + (I_out, R), dtype=torch.float32,
                           device=rows.device)
     carry_row = torch.empty(lead + (nb, 2), dtype=torch.int32,
                             device=rows.device)
@@ -341,7 +365,7 @@ def carry_runs(enc: AltoEncoding, mode: int, rows, words, values, factors,
     status = lib.alto_carry_runs(
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb, rb,
-        lanes, cols, common.cta_threads(threads), enc.dims[mode],
+        lanes, cols, common.cta_threads(threads), I_out,
         out.data_ptr(), carry_row.data_ptr(), carry_val.data_ptr(),
         *tenants, common.stream_ptr(rows))
     del keep, strides
@@ -397,12 +421,14 @@ def mttkrp_oriented_carry(enc: AltoEncoding, mode: int, rows, words, values,
                           factors, block_m: int = DEFAULT_BLOCK_M,
                           r_block: int | None = None,
                           threads: int = DEFAULT_THREADS,
-                          out=None) -> torch.Tensor:
+                          out=None, n_rows: int | None = None
+                          ) -> torch.Tensor:
     """K1: sorted stream -> final (I_n, R) MTTKRP (both passes), into
-    ``out`` when given (every row is overwritten)."""
+    ``out`` when given (every row is overwritten); ``n_rows``: a row
+    window (module docstring)."""
     out, carry_row, carry_val = carry_runs(enc, mode, rows, words, values,
                                            factors, block_m, r_block,
-                                           threads, out)
+                                           threads, out, n_rows)
     return carry_fixup(carry_row, carry_val, out, threads=threads)
 
 
@@ -491,28 +517,30 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
                    values, B, factors=None, pi=None,
                    block_m: int = DEFAULT_BLOCK_M,
                    r_block: int | None = None,
-                   threads: int = DEFAULT_THREADS, out=None):
+                   threads: int = DEFAULT_THREADS, out=None,
+                   n_rows: int | None = None):
     """K5, first pass: (out with inner runs, carry_row, carry_val). Pass
     ``pi`` (the stream's Π rows, ALTO-PRE) or ``factors`` (ALTO-OTF). As
     K1's, the pass stores zeros to the rows the stream skips, so ``out``
     (``torch.empty`` unless given) gets every row except the carried
-    pieces' rows, which `carry_fixup` stores."""
+    pieces' rows, which `carry_fixup` stores. ``n_rows``: a row window
+    of out and B (module docstring)."""
     M, lead = _check_rows(enc, rows, words, values, block_m)
+    I_out = _window(enc, mode, lead, n_rows)
     factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
-                                           r_block, lead)
+                                           r_block, lead, I_out)
     if out is not None:
-        common.check_tensor(out, "out", torch.float32,
-                            lead + (enc.dims[mode], R))
+        common.check_tensor(out, "out", torch.float32, lead + (I_out, R))
     tensors = [rows, words, values, B] + (factors or [pi]) + (
         [] if out is None else [out])
     if not common.on_cuda(*tensors):
         return _runs_into(tenant_loop(
             lambda r, w, v, b, f, p: phi_carry_runs_plain(
-                enc, mode, eps, r, w, v, b, f, p, block_m),
+                enc, mode, eps, r, w, v, b, f, p, block_m, n_rows),
             lead, rows, words, values, B, factors, pi), out)
     nb = M // block_m
     if out is None:
-        out = torch.empty(lead + (enc.dims[mode], R), dtype=torch.float32,
+        out = torch.empty(lead + (I_out, R), dtype=torch.float32,
                           device=rows.device)
     carry_row = torch.empty(lead + (nb, 2), dtype=torch.int32,
                             device=rows.device)
@@ -525,7 +553,7 @@ def phi_carry_runs(enc: AltoEncoding, mode: int, eps: float, rows, words,
         *args, rows.data_ptr(), words.data_ptr(), values.data_ptr(),
         B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
         common.decode_table(enc, rows.device).data_ptr(), block_m, nb,
-        threads, enc.dims[mode], out.data_ptr(), carry_row.data_ptr(),
+        threads, I_out, out.data_ptr(), carry_row.data_ptr(),
         carry_val.data_ptr(), *tenants, common.stream_ptr(rows))
     del keep, strides
     _build.check(status, "alto_phi_carry_runs")
@@ -537,12 +565,13 @@ def phi_oriented_carry(enc: AltoEncoding, mode: int, eps: float, rows,
                        words, values, B, factors=None, pi=None,
                        block_m: int = DEFAULT_BLOCK_M,
                        threads: int = DEFAULT_THREADS,
-                       out=None) -> torch.Tensor:
+                       out=None, n_rows: int | None = None) -> torch.Tensor:
     """K5: sorted stream -> final (I_n, R) Φ (runs, then K1's fix-up),
-    into ``out`` when given (every row is overwritten)."""
+    into ``out`` when given (every row is overwritten); ``n_rows``: a row
+    window of out and B (module docstring)."""
     out, carry_row, carry_val = phi_carry_runs(
         enc, mode, eps, rows, words, values, B, factors, pi, block_m,
-        threads=threads, out=out)
+        threads=threads, out=out, n_rows=n_rows)
     return carry_fixup(carry_row, carry_val, out, threads=threads)
 
 
@@ -550,13 +579,16 @@ def phi_oriented_partials(enc: AltoEncoding, mode: int, eps: float, rows,
                           words, values, B, factors=None, pi=None,
                           block_m: int = DEFAULT_BLOCK_M,
                           r_block: int | None = None,
-                          threads: int = DEFAULT_THREADS) -> torch.Tensor:
+                          threads: int = DEFAULT_THREADS,
+                          n_rows: int | None = None) -> torch.Tensor:
     """K6: per-slice Φ run sums (n_blocks, block_m, R). On the card K5's
     runs pass (a sub-warp per slice) stores the slice's j-th run sum to
-    slot j and zeros to the unused slots; ``threads`` is the CTA size."""
+    slot j and zeros to the unused slots; ``threads`` is the CTA size.
+    ``n_rows``: B is a row window (module docstring)."""
     M, lead = _check_rows(enc, rows, words, values, block_m)
-    factors, R = common.check_phi_operands(enc, mode, M, B, factors, pi,
-                                           r_block, lead)
+    factors, R = common.check_phi_operands(
+        enc, mode, M, B, factors, pi, r_block, lead,
+        _window(enc, mode, lead, n_rows))
     tensors = [rows, words, values, B] + (factors or [pi])
     if not common.on_cuda(*tensors):
         return tenant_loop(

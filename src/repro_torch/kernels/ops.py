@@ -82,8 +82,8 @@ def pull_reduction(partials: torch.Tensor, part_start_mode: torch.Tensor,
 
 
 def segment_merge(partials: torch.Tensor, rows: torch.Tensor,
-                  out_dim: int,
-                  threads: int = _oriented.DEFAULT_THREADS) -> torch.Tensor:
+                  out_dim: int, threads: int = _oriented.DEFAULT_THREADS,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter per-slice run sums to global rows, merging boundary runs.
 
     `mttkrp_oriented.segment_split` stores the inner runs to their rows
@@ -91,10 +91,11 @@ def segment_merge(partials: torch.Tensor, rows: torch.Tensor,
     rows the stream skips; each slice's first and last runs go through
     K1's fix-up, which adds a row's pieces in block order and stores the
     row. No PyTorch scatter guarantees that order on the card, hence the
-    kernels; between them they write every row of the output once.
+    kernels; between them they write every row of the output once:
+    ``out`` (``(out_dim, R)``, new unless given) is the result.
     """
-    out, carry_row, carry_val = _oriented.segment_split(partials, rows,
-                                                        out_dim, threads)
+    out, carry_row, carry_val = _oriented.segment_split(
+        partials, rows, out_dim, threads, out=out)
     return _oriented.carry_fixup(carry_row, carry_val, out, threads=threads)
 
 
