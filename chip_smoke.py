@@ -139,7 +139,25 @@ sm_90a), then:
    card: each first-sweep MTTKRP bit for bit the in-process sum of the
    two slices, 3 CP-ALS iterations within 1e-4 of the one-rank run, the
    1 % DARPA delta through ``sharded_append_delta`` bit for bit
-   ``append_delta``, each rank's seconds and peak memory.
+   ``append_delta``, each rank's seconds and peak memory;
+15. runs the paper's format comparison (Fig. 9 and Fig. 12,
+   `phase_formats`, after step 14) on Chicago and DARPA at rank 16: the
+   host build seconds of HiCOO (7-bit blocks) and CSF-ALL (one tree per
+   mode) beside ALTO's ``build_device``; all-modes and per-mode MTTKRP ms
+   in COO, HiCOO and CSF-ALL (plain PyTorch, the JAX package's
+   formulations) and in ALTO through ``plan.execute_mttkrp`` (Chicago's
+   static plan, K3 and K1; DARPA's, K1, and the JAX package's routing, K2
+   + split + fix-up, equal to it bit for bit), each format within 1e-4
+   of ALTO relative to max|ALTO| on every mode; the storage bytes of
+   COO, ALTO, ALTO with its views (``plan.resident_bytes``), HiCOO and
+   CSF-ALL; then the three single-process examples at their default
+   sizes (``examples/torch_*.py``), the end-to-end one cut after its
+   first checkpoint and resumed, bit for bit the uninterrupted chain of
+   its ``cp_als(factors=)`` calls.
+
+Every kernel-vs-plain check takes its plain reference in index order
+(PyTorch's deterministic mode, `_index_order`) and records its error
+beside max|plain| (`CHECKS`).
 
 After the build, ``ptxas -v`` must show a 0-byte stack frame for every
 instantiation of the redesigned kernels (the runs pass that K1, K2 and K8
@@ -155,8 +173,11 @@ log-likelihoods must be finite and rise from the first outer iteration to
 the last, KKT violations finite, factors non-negative with column sums 1
 within 1e-3.
 
-Output: a ``{"dist": {...}}`` line (step 14's runs: seconds, fits,
-launches, per-rank peak memory and each bitwise verdict), the card's name
+Output: a line counting the kernel-vs-plain checks with the largest
+errors beside max|plain|, a ``{"dist": {...}}`` line (step 14's runs:
+seconds, fits, launches, per-rank peak memory and each bitwise verdict),
+a ``{"formats": {...}}`` line (step 15: ms, speedups over COO, agreement,
+build seconds, storage bytes and ratios), the card's name
 and power limit, a ``{"kernels": [...]}`` line
 (each kernel's main-path ``launches`` and ``elements``, the stream
 lengths summed over those launches, and under ``tenant_axis`` its
@@ -171,6 +192,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -223,9 +245,9 @@ def _imports():
     from repro_torch.kernels import ref
     from repro_torch.dist import cpd
     from repro_torch.launch import serve_cpd
-    from repro_torch.sparse import synthetic
-    return dict(alto=alto, autotune=autotune, cpals=cpals, cpapr=cpapr,
-                cpd=cpd,
+    from repro_torch.sparse import baselines, synthetic
+    return dict(alto=alto, autotune=autotune, baselines=baselines,
+                cpals=cpals, cpapr=cpapr, cpd=cpd,
                 batched=batched, ingest=ingest, shapeclass=shapeclass,
                 faults=faults, health=health, serve=serve_cpd,
                 heuristics=heuristics, mttkrp=mttkrp, plan=plan,
@@ -239,6 +261,9 @@ def _sync():
     torch.cuda.synchronize()
 
 
+CHECKS: list[dict] = []         # every _check_close: error beside max|plain|
+
+
 def _check_close(name: str, got, plain) -> float:
     got, plain = got.float(), plain.float()
     if got.shape != plain.shape:
@@ -247,6 +272,8 @@ def _check_close(name: str, got, plain) -> float:
         _fail(f"{name}: non-finite output")
     scale = float(plain.abs().max()) if plain.numel() else 0.0
     err = float((got - plain).abs().max()) if plain.numel() else 0.0
+    CHECKS.append({"check": name, "max_abs_err": err, "max_plain": scale,
+                   "bitwise": bool(torch.equal(got, plain))})
     if not torch.allclose(got, plain, rtol=RTOL, atol=ATOL_REL * scale):
         _fail(f"{name}: max_abs_err {err} beyond rtol={RTOL}, "
               f"atol={ATOL_REL}·{scale}")
@@ -259,12 +286,28 @@ def _index_order():
     the card `index_add_` adds with float atomics in no fixed order, so a
     row summed from thousands of pieces differs from run to run; in this
     mode it adds in index order, the order the plain versions state and
-    the kernels keep."""
+    the kernels keep. As a decorator (``@_index_order()``) it runs a
+    whole kernel-vs-plain check so; nested, it restores the outer mode."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(False)
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _checks_summary() -> str:
+    """One line: how many kernel-vs-plain checks held, how many bit for
+    bit, and the largest errors against max|plain|."""
+    def rel(c):
+        return c["max_abs_err"] / c["max_plain"] if c["max_plain"] else 0.0
+    worst = sorted(CHECKS, key=rel, reverse=True)[:8]
+    return (f"{len(CHECKS)} kernel-vs-plain checks held (plain references "
+            f"in index order), {sum(c['bitwise'] for c in CHECKS)} bit for "
+            f"bit; the largest max_abs_err against max|plain|: "
+            + "; ".join(f"{c['check']}: {c['max_abs_err']:.3g} of "
+                        f"{c['max_plain']:.3g}" for c in worst))
 
 
 def _check_equal(name: str, a, b) -> None:
@@ -286,6 +329,7 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 # Kernel checks against the plain versions
 # ---------------------------------------------------------------------------
 
+@_index_order()
 def check_segment_split(m, partials, rows, out_dim, threads,
                         label: str) -> float:
     """The split kernel against ``split_block_runs`` on the same slots:
@@ -318,6 +362,7 @@ def check_segment_split(m, partials, rows, out_dim, threads,
     return float((merged - plain).abs().max()) if merged.numel() else 0.0
 
 
+@_index_order()
 def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
                            label: str, cpu_copies: bool = False) -> dict:
     """K1 runs, carry fix-up (under two rank tiles, equal) and K2 against
@@ -400,6 +445,7 @@ def check_oriented_kernels(m, view, factors, block_m, r_block, threads,
     return errs
 
 
+@_index_order()
 def check_recursive_kernel(m, at, factors, mode, r_block, threads,
                            label: str, windows=(1, 3),
                            cpu_copies: bool = False) -> float:
@@ -552,6 +598,7 @@ def _phi_operands(m, enc, words, factors, mode, policy) -> dict:
     return {"factors": factors}
 
 
+@_index_order()
 def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
                                label: str, cpu_copies: bool = False) -> dict:
     """K5 runs and K6 against their plain versions on one oriented view;
@@ -630,6 +677,7 @@ def check_phi_oriented_kernels(m, view, B, operands, block_m, threads,
     return errs
 
 
+@_index_order()
 def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
                                label: str, windows=(1, 3),
                                cpu_copies: bool = False) -> dict:
@@ -671,6 +719,7 @@ def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
     return errs
 
 
+@_index_order()
 def check_delinearize(m, enc, words, label: str,
                       lengths=(None,)) -> None:
     """K4 equal to its plain version under each decode route, on the
@@ -814,6 +863,7 @@ def _chunk_layouts(block_m: int, rng) -> dict:
             "duplicates_heavy": heavy, "mixed": mixed}
 
 
+@_index_order()
 def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
                         label: str, r_block: int = 4,
                         threads: int = 64) -> dict:
@@ -952,6 +1002,30 @@ def als_kernels(m, p) -> set:
     return set().union(*(kernels_of[mp.traversal] for mp in p.modes))
 
 
+def apr_kernels(m, p) -> set:
+    """The kernels a CP-APR run under plan ``p`` launches."""
+    trav = m["heuristics"].Traversal
+    kernels_of = {trav.ORIENTED_CARRY: {"phi_carry_runs", "carry_fixup"},
+                  trav.OUTPUT_ORIENTED: {"phi_oriented_partials",
+                                         "segment_split", "carry_fixup"},
+                  trav.RECURSIVE: {"phi_partials", "carry_fixup"}}
+    if p.streaming is not None:
+        kernels_of[trav.ORIENTED_CARRY] = {"phi_carry_chunk"}
+    # K4: Π under PRE, the log-likelihood
+    return set().union(*(kernels_of[mp.traversal] for mp in p.modes),
+                       {"delinearize"})
+
+
+def jax_routing(m, p):
+    """``p`` with every mode on the one-hot partials (K2, the split, the
+    fix-up): the JAX package's routing of DARPA, whose TPU VMEM gate
+    sends every mode there. At equal tiles it gives the port's bits."""
+    trav = m["heuristics"].Traversal
+    return dataclasses.replace(p, modes=tuple(
+        dataclasses.replace(mp, traversal=trav.OUTPUT_ORIENTED)
+        for mp in p.modes))
+
+
 def run_cp_als(m, at, p, n_iters: int, label: str) -> dict:
     """One counted CP-ALS run through the user entry points."""
     b = m["build"]
@@ -1039,13 +1113,10 @@ def phase_darpa(m) -> dict:
     build_s = time.perf_counter() - t0
     p = m["plan"].plan_for(at, RANK)
     port = run_cp_als(m, at, p, 3, "darpa cp_als (port plan)")
-    # The JAX package routes every mode to the one-hot partials (K2) here;
-    # at equal tiles that routing must give the same fits bit for bit.
-    trav = m["heuristics"].Traversal
-    jax_like = dataclasses.replace(p, modes=tuple(
-        dataclasses.replace(mp, traversal=trav.OUTPUT_ORIENTED)
-        for mp in p.modes))
-    onehot = run_cp_als(m, at, jax_like, 3, "darpa cp_als (one-hot routing)")
+    # At equal tiles the JAX package's routing must give the same fits bit
+    # for bit.
+    onehot = run_cp_als(m, at, jax_routing(m, p), 3,
+                        "darpa cp_als (one-hot routing)")
     if port["fits"] != onehot["fits"]:
         _fail(f"darpa fits differ between carry and one-hot routing: "
               f"{port['fits']} vs {onehot['fits']}")
@@ -1057,15 +1128,7 @@ def phase_darpa(m) -> dict:
 def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
     """One counted CP-APR run through the user entry points."""
     b = m["build"]
-    trav = m["heuristics"].Traversal
-    kernels_of = {trav.ORIENTED_CARRY: {"phi_carry_runs", "carry_fixup"},
-                  trav.OUTPUT_ORIENTED: {"phi_oriented_partials",
-                                         "segment_split", "carry_fixup"},
-                  trav.RECURSIVE: {"phi_partials", "carry_fixup"}}
-    if p.streaming is not None:
-        kernels_of[trav.ORIENTED_CARRY] = {"phi_carry_chunk"}
-    expect = set().union(*(kernels_of[mp.traversal] for mp in p.modes))
-    expect.add("delinearize")              # Π under PRE, log-likelihood
+    expect = apr_kernels(m, p)
     _sync()
     b.reset_counts()
     t0 = time.perf_counter()
@@ -1145,11 +1208,7 @@ def phase_darpa_apr(m, darpa) -> dict:
     if p.pi_policy.value != "pre":
         _fail(f"darpa Π policy {p.pi_policy.value}, expected pre")
     port = run_cp_apr(m, at, p, 2, "darpa cp_apr (port plan)")
-    trav = m["heuristics"].Traversal
-    jax_like = dataclasses.replace(p, modes=tuple(
-        dataclasses.replace(mp, traversal=trav.OUTPUT_ORIENTED)
-        for mp in p.modes))
-    onehot = run_cp_apr(m, at, jax_like, 2,
+    onehot = run_cp_apr(m, at, jax_routing(m, p), 2,
                         "darpa cp_apr (one-hot routing)")
     if (port["log_likelihoods"] != onehot["log_likelihoods"]
             or port["kkt_violations"] != onehot["kkt_violations"]):
@@ -1759,6 +1818,7 @@ def _nan(shape):
     return torch.full(shape, float("nan"), device="cuda")
 
 
+@_index_order()
 def _check_hand_off(m, label, got, K, plain_t, solo_t) -> tuple:
     """A bucket's hand-off to the fix-up (a runs pass or the split), ``got
     = (out, carry_row, carry_val)`` run into a NaN-filled ``out``, tenant
@@ -1906,8 +1966,10 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
             else:                # the slots, then the split and the whole op
                 got = kern(*args)
                 _sync()
-                err = _check_close(f"{tag} stacked", got,
-                                   kori.tenant_loop(plain, (K,), *args))
+                with _index_order():
+                    want = kori.tenant_loop(plain, (K,), *args)
+                err = _check_close(f"{tag} stacked", got, want)
+                del want
                 _check_equal(f"{tag} vs {K} solo launches", got,
                              kori.tenant_loop(kern, (K,), *args))
                 split_err, whole = _check_hand_off(
@@ -3391,10 +3453,7 @@ def phase_dist(m, chicago, chicago_apr, darpa, darpa_apr) -> dict:
                   f"{aref['log_likelihoods']} {aref['kkt_violations']}")
         # The JAX routing (one-hot on every mode: K2 + split + fix-up, K6)
         # under the sharded plan: phase_darpa's fits, bit for bit.
-        trav = m["heuristics"].Traversal
-        onehot = dataclasses.replace(sp, modes=tuple(
-            dataclasses.replace(mp, traversal=trav.OUTPUT_ORIENTED)
-            for mp in sp.modes))
+        onehot = jax_routing(m, sp)
         fs = _factors(d_at.dims, seed=0)
         oh, oh_s, oh_c = _counted(
             m, "dist darpa cp_als (1 rank, one-hot routing)",
@@ -3471,6 +3530,222 @@ def phase_dist(m, chicago, chicago_apr, darpa, darpa_apr) -> dict:
           f"(collectives, ms: {collective_ms}); NCCL start {init_s:.2f} s, "
           f"one-rank runs {one_rank_s:.1f} s, slices {slices_s:.1f} s, two "
           f"ranks {ranks['wall_s']:.1f} s; phase {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The paper's format comparison (Fig. 9, Fig. 12) and the examples
+# ---------------------------------------------------------------------------
+
+HICOO_BLOCK_BITS = 7     # the block size of bench_storage.py and of
+                         # bench_format_generation.py
+FORMAT_AGREE = 1e-4      # max|out - ALTO| / max|ALTO| for every format
+E2E_CUT = 5              # the e2e example's first checkpoint, where it is cut
+
+
+def _rel_to_max(got, ref) -> float:
+    """max|got - ref| / max|ref|."""
+    return float((got - ref).abs().max()) / float(ref.abs().max())
+
+
+def format_comparison(m, label, x, at, plans, build_s) -> dict:
+    """All-modes MTTKRP, build seconds and storage of one tensor in COO
+    (`core.mttkrp.mttkrp_coo`), HiCOO (7-bit blocks), CSF-ALL (one tree
+    per mode) and ALTO under each of ``plans`` (`plan.execute_mttkrp`:
+    the hand-written kernels), at rank `RANK` on random factors. The
+    baselines are the JAX package's formulations in plain PyTorch, not
+    SPLATT's or HiCOO's own codes. Every format's output of every mode is
+    held within `FORMAT_AGREE` of ALTO's under the first plan (the
+    baselines' scatters in index order), and every other ALTO plan's
+    equal to it bit for bit. ms: CUDA events, median of 10 after 2
+    warm-ups. The ALTO runs are counted (``run``)."""
+    base, b = m["baselines"], m["build"]
+    N = x.ndim
+    fs = _factors(x.dims, seed=7)
+    t0 = time.perf_counter()
+    h = base.build_hicoo(x, block_bits=HICOO_BLOCK_BITS, device=DEVICE)
+    _sync()
+    hicoo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csf = base.CsfAll(x, device=DEVICE)
+    _sync()
+    csf_s = time.perf_counter() - t0
+    coords = torch.from_numpy(x.coords).to(DEVICE)
+    values = torch.from_numpy(x.values).to(DEVICE)
+    fns = {"coo": lambda n: m["mttkrp"].mttkrp_coo(coords, values, fs, n),
+           "hicoo": lambda n: base.mttkrp_hicoo(h, fs, n),
+           "csf_all": lambda n: csf.mttkrp(fs, n)}
+    views = {k: m["plan"].build_views(at, p) for k, p in plans.items()}
+    for k, p in plans.items():
+        fns[k] = (lambda n, p=p, v=views[k]:
+                  m["plan"].execute_mttkrp(p, at, v, fs, n))
+    alto = next(iter(plans))
+    _sync()
+    b.reset_counts()
+    ref = [fns[alto](n) for n in range(N)]
+    agree = {}
+    for k in fns:
+        if k in plans:
+            for n in range(N):
+                _check_equal(f"{label} {k} mode {n} vs {alto}",
+                             fns[k](n), ref[n])
+            continue
+        with _index_order():
+            agree[k] = [_rel_to_max(fns[k](n), ref[n]) for n in range(N)]
+        if not all(e < FORMAT_AGREE for e in agree[k]):
+            _fail(f"{label} {k}: max|out - alto| / max|alto| per mode "
+                  f"{agree[k]}, beyond {FORMAT_AGREE}")
+    del ref
+    per_mode = {k: [_ms(m, fn, n) for n in range(N)] for k, fn in fns.items()}
+    all_modes = {k: _ms(m, lambda fn=fn: [fn(n) for n in range(N)])
+                 for k, fn in fns.items()}
+    _sync()
+    counts = b.counts()
+    if any(counts["plain_on_cuda"].values()):
+        _fail(f"{label} formats: plain versions ran on CUDA tensors: "
+              f"{counts['plain_on_cuda']}")
+    for k, p in plans.items():
+        for kern in als_kernels(m, p):
+            if counts["launches"][kern] == 0:
+                _fail(f"{label} formats: {k}'s kernel {kern} never launched")
+    enc = at.meta.enc
+    coo_b = x.nnz * (enc.storage_bits_coo(32) // 8 + x.values.itemsize)
+    storage = {"coo": coo_b, "alto": at.storage_bytes(),
+               "alto_resident": m["plan"].resident_bytes(at, views[alto]),
+               "hicoo": h.storage_bytes(), "csf_all": csf.storage_bytes()}
+    out = {
+        "all_modes_ms": all_modes, "per_mode_ms": per_mode,
+        "speedup_over_coo": {k: all_modes["coo"] / v
+                             for k, v in all_modes.items()},
+        "agreement": agree,
+        "build_s": {"alto_build_device": build_s, "hicoo": hicoo_s,
+                    "csf_all": csf_s},
+        "storage_bytes": storage,
+        "storage_over_coo": {k: v / coo_b for k, v in storage.items()},
+        "hicoo_blocks": h.n_blocks,
+        "csf_level_nodes": [[len(f) for f in t.fids] for t in csf.trees],
+        "traversals": {k: p.traversals() for k, p in plans.items()},
+        "run": {"launches": counts["launches"],
+                "elements": counts["elements"]}}
+    print(f"chip_smoke: formats {label}: all-modes MTTKRP ms {all_modes}; "
+          f"speedup over COO {out['speedup_over_coo']}; per-mode ms "
+          f"{per_mode}; max|out - alto| / max|alto| {agree}; build s "
+          f"{out['build_s']}; storage bytes {storage}, over COO "
+          f"{out['storage_over_coo']}")
+    return out
+
+
+def _example(name: str):
+    """The example ``examples/<name>.py`` imported as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(m, label, mod, argv, expect) -> tuple:
+    """``mod.main(argv)`` counted; ``expect(result)`` names the kernels it
+    must have launched."""
+    b = m["build"]
+    _sync()
+    b.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = mod.main(argv)
+    except Exception as e:          # an example's failure fails the script
+        _fail(f"example {label}: {e!r}")
+    _sync()
+    seconds = time.perf_counter() - t0
+    counts = b.counts()
+    for k in expect(res):
+        if counts["launches"][k] == 0:
+            _fail(f"example {label}: kernel {k} was never launched")
+    if any(counts["plain_on_cuda"].values()):
+        _fail(f"example {label}: plain versions ran on CUDA tensors: "
+              f"{counts['plain_on_cuda']}")
+    return res, {"seconds": seconds, "launches": counts["launches"],
+                 "elements": counts["elements"]}
+
+
+def run_examples(m) -> dict:
+    """The three single-process CPD examples at their default sizes on the
+    card, in this process: quickstart, the CP-APR anomaly example (its
+    closing assert included) and the end-to-end example, cut after its
+    first checkpoint (``--iters`` `E2E_CUT`) and resumed to its default
+    30 iterations from that checkpoint. The resumed run's fits and
+    factors must equal, bit for bit, the chain of the same
+    ``cp_als(factors=)`` calls run here without a checkpoint."""
+    runs = {}
+    qs = _example("torch_quickstart")
+    res, runs["quickstart"] = _run_example(
+        m, "torch_quickstart", qs, [], lambda r: als_kernels(m, r.plan))
+    if not all(math.isfinite(f) for f in res.fits):
+        _fail(f"example torch_quickstart: fits {res.fits}")
+    runs["quickstart"]["fits"] = res.fits
+    anomaly = _example("torch_cp_apr_anomaly")
+    res, runs["cp_apr_anomaly"] = _run_example(
+        m, "torch_cp_apr_anomaly", anomaly, [],
+        lambda r: apr_kernels(m, r.plan))
+    runs["cp_apr_anomaly"]["log_likelihoods"] = res.log_likelihoods
+    e2e = _example("torch_decompose_e2e")
+    ckpt = ROOT / "build" / "chip_smoke_e2e"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def e2e_kernels(r):
+        return als_kernels(m, m["plan"].plan_for(r["at"], RANK))
+    args = ["--ckpt-dir", str(ckpt)]
+    cut, runs["e2e_cut"] = _run_example(
+        m, "torch_decompose_e2e (cut)", e2e,
+        args + ["--iters", str(E2E_CUT)], e2e_kernels)
+    got, runs["e2e_resumed"] = _run_example(
+        m, "torch_decompose_e2e (resumed)", e2e, args, e2e_kernels)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if cut["start"] != 0 or got["start"] != E2E_CUT:
+        _fail(f"example torch_decompose_e2e: started at {cut['start']}, "
+              f"resumed at {got['start']}, expected 0 and {E2E_CUT}")
+    factors, fits = None, []
+    for _ in range(len(got["fits"]) // e2e.CHUNK):
+        r = m["cpals"].cp_als(got["at"], RANK, n_iters=e2e.CHUNK, tol=0,
+                              seed=0, factors=factors)
+        factors = r.factors
+        fits += r.fits
+    if got["fits"] != fits or len(fits) != 30:
+        _fail(f"example torch_decompose_e2e: resumed fits {got['fits']} "
+              f"against the uninterrupted chain's {fits}")
+    for n, (a, c) in enumerate(zip(got["factors"], factors)):
+        _check_equal(f"example torch_decompose_e2e factor {n} after the "
+                     f"resume", a, c)
+    runs["e2e_resumed"]["fits"] = got["fits"]
+    print(f"chip_smoke: examples: "
+          f"{ {k: round(v['seconds'], 3) for k, v in runs.items()} } s; "
+          f"the e2e run resumed at iteration {E2E_CUT} equals the "
+          f"uninterrupted chain bit for bit (fits, factors)")
+    return runs
+
+
+def phase_formats(m, chicago, darpa) -> dict:
+    """The paper's Fig. 9 and Fig. 12 on the card (`format_comparison`):
+    Chicago under its static plan (K3 on mode 0, K1 on 1-3), DARPA under
+    the port's plan (K1) and the JAX package's routing (K2 + the split +
+    the fix-up); then the examples (`run_examples`)."""
+    t0 = time.perf_counter()
+    out = {"chicago": format_comparison(
+               m, "chicago", chicago["x"], chicago["at"],
+               {"alto": chicago["plan"]}, chicago["build_s"]),
+           "darpa": format_comparison(
+               m, "darpa", darpa["x"], darpa["at"],
+               {"alto": darpa["plan"],
+                "alto_jax_routing": jax_routing(m, darpa["plan"])},
+               darpa["build_s"])}
+    formats_s = time.perf_counter() - t0
+    examples = run_examples(m)
+    out.update(examples=examples, formats_s=formats_s,
+               seconds=time.perf_counter() - t0,
+               runs=[out["chicago"]["run"], out["darpa"]["run"],
+                     *examples.values()])
+    print(f"chip_smoke: phase_formats {out['seconds']:.1f} s (formats "
+          f"{formats_s:.1f} s)")
     return out
 
 
@@ -3809,8 +4084,9 @@ def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
     k8_args = (enc, mode, rows, words, values, fs)
     got = kori.carry_chunk(*k8_args, out.clone(), crow, cval, bm,
                            mp.r_block, th, final=False)
-    want = kori.carry_chunk_plain(*k8_args, out.clone(), crow, cval, bm,
-                                  False)
+    with _index_order():
+        want = kori.carry_chunk_plain(*k8_args, out.clone(), crow, cval, bm,
+                                      False)
     _check_equal("darpa chunk K8 carry_row", got[1], want[1])
     k8_err = max(_check_close("darpa chunk K8 out", got[0], want[0]),
                  _check_close("darpa chunk K8 carry_val", got[2], want[2]))
@@ -3833,8 +4109,9 @@ def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
     out = torch.zeros((I_n, R), device=DEVICE)
     got = kori.phi_carry_chunk(*k9_args, out.clone(), crow, cval, pi=pi,
                                block_m=bm, threads=th, final=False)
-    want = kori.phi_carry_chunk_plain(*k9_args, out.clone(), crow, cval,
-                                      pi=pi, block_m=bm, final=False)
+    with _index_order():
+        want = kori.phi_carry_chunk_plain(*k9_args, out.clone(), crow, cval,
+                                          pi=pi, block_m=bm, final=False)
     _check_equal("darpa chunk K9 carry_row", got[1], want[1])
     k9_err = max(_check_close("darpa chunk K9 out", got[0], want[0]),
                  _check_close("darpa chunk K9 carry_val", got[2], want[2]))
@@ -3969,7 +4246,8 @@ def main() -> int:
     darpa = phase_darpa(m)
     darpa_apr = phase_darpa_apr(m, darpa)
     sharded = phase_dist(m, chicago, chicago_apr, darpa, darpa_apr)
-    del darpa["x"]          # the COO the ranks of phase_dist built from
+    formats = phase_formats(m, chicago, darpa)
+    del darpa["x"]     # the COO of phase_dist's ranks and phase_formats
     d_str = phase_darpa_streamed(m, darpa, darpa_apr)
     c_str = phase_chicago_streamed(m, chicago)
     buckets = phase_batched(m)
@@ -3986,7 +4264,8 @@ def main() -> int:
             chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
             c_str["run"], *buckets["A"]["runs"], *buckets["B"]["runs"],
-            *ingested["runs"], *served["runs"], *sharded["runs"]]
+            *ingested["runs"], *served["runs"], *sharded["runs"],
+            *formats["runs"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
     launches["elements"] = {k: sum(r["elements"][k] for r in runs)
@@ -4093,7 +4372,9 @@ def main() -> int:
         "overlap_efficiency": overlap, "tuning": tuning,
         "batched": buckets, "ingest": ingested, "serve": served,
         "dist": {k: v for k, v in sharded.items() if k != "runs"},
-        "kernels": kernels, "seconds_after_build": elapsed,
+        "formats": {k: v for k, v in formats.items() if k != "runs"},
+        "kernels": kernels, "checks": CHECKS,
+        "seconds_after_build": elapsed,
         "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4101,7 +4382,14 @@ def main() -> int:
     print(f"chip_smoke: per-mode MTTKRP ms {per_mode}; "
           f"{elapsed:.1f} s after the build; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    print(f"chip_smoke: {_checks_summary()}")
     print(json.dumps({"dist": detail["dist"]}))
+    print(json.dumps({"formats": {
+        t: {k: formats[t][k] for k in ("all_modes_ms", "speedup_over_coo",
+                                       "per_mode_ms", "agreement",
+                                       "build_s", "storage_bytes",
+                                       "storage_over_coo")}
+        for t in ("chicago", "darpa")} | {"seconds": formats["seconds"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,8 @@ from repro_torch.core.heuristics import Traversal
 # core modules; they load on first use, so a kernel module imported first
 # meets no half-built package.
 _LAZY = {"ExecutionPlan": "plan", "ModePlan": "plan", "make_plan": "plan",
-         "make_class_plan": "plan", "cpals": "cpals", "cpapr": "cpapr",
+         "make_class_plan": "plan", "resident_bytes": "plan",
+         "cpals": "cpals", "cpapr": "cpapr",
          "batched": "batched", "ingest": "ingest",
          "shapeclass": "shapeclass"}
 

@@ -82,6 +82,12 @@ class AltoTensor:
     def coords(self) -> torch.Tensor:
         return enc_mod.delinearize(self.meta.enc, self.words)
 
+    def storage_bytes(self) -> int:
+        """Index + value storage (paper Fig. 12 accounting, real nnz)."""
+        idx = self.meta.nnz * self.meta.enc.runtime_index_bits() // 8
+        val = self.meta.nnz * self.values.element_size()
+        return idx + val
+
 
 @dataclasses.dataclass
 class OrientedView:

@@ -98,6 +98,20 @@ class AltoEncoding:
                 b % WORD_BITS)
         return masks.astype(np.uint32)
 
+    # ---- storage accounting (paper Eqs. 1-2) ----
+    def storage_bits_alto(self, word_bits: int = WORD_BITS) -> int:
+        """Index bits per nonzero in ALTO (Eq. 1), word-rounded (Eq. 2)."""
+        return max(1, -(-self.total_bits // word_bits)) * word_bits
+
+    def runtime_index_bits(self) -> int:
+        """Bits per nonzero of the in-memory multi-word representation."""
+        return self.n_words * WORD_BITS
+
+    def storage_bits_coo(self, word_bits: int = WORD_BITS) -> int:
+        """Index bits per nonzero in COO on word-addressed hardware (Eq. 2)."""
+        return sum(max(1, -(-_bits_for(I) // word_bits)) * word_bits
+                   for I in self.dims)
+
 
 def make_encoding(dims: Sequence[int]) -> AltoEncoding:
     """Build the adaptive bit assignment for a tensor shape."""

@@ -484,13 +484,43 @@ def make_class_plan(sc, **kwargs) -> ExecutionPlan:
                      oriented_only=True, **kwargs)
 
 
-def build_views(at: AltoTensor, plan: ExecutionPlan) -> dict:
+def build_views(at: AltoTensor, plan: ExecutionPlan,
+                route: str | None = None) -> dict:
     """Cached oriented views for exactly the modes the plan routes
     output-oriented (either variant), through `core.views`; host streams
     (`core.stream.HostStream`) in their place under a streaming plan; a
-    view of every mode under a sharded plan."""
+    view of every mode under a sharded plan. ``route`` picks the builder
+    of a miss, ``"device"`` (`alto.oriented_view_device`) or ``"host"``
+    (`alto.oriented_view`), default `views.default_route`; the two are
+    bit-identical, so the cache ignores the route."""
     from repro_torch.core import views as views_mod
-    return views_mod.build_views(at, plan)
+    return views_mod.build_views(at, plan, route=route)
+
+
+def resident_bytes(at: AltoTensor,
+                   views: dict[int, OrientedView] | None = None) -> int:
+    """Device-resident bytes a decomposition holds: the padded words and
+    values, the partition boxes, and each device view's rows, words,
+    values and perm. A `core.stream.HostStream` lives in host memory and
+    is skipped.
+
+    `AltoTensor.storage_bytes` is the paper's Fig. 12 accounting (index
+    and value words per real nonzero); this is the working set. The port
+    stores words as int32 where the JAX package stores uint32: the same
+    bytes, so the two counts are equal for the same tensor and plan."""
+    from repro_torch.core.stream import HostStream
+
+    def nbytes(t: torch.Tensor) -> int:
+        return t.numel() * t.element_size()
+
+    total = (nbytes(at.words) + nbytes(at.values)
+             + nbytes(at.part_start) + nbytes(at.part_end))
+    for v in (views or {}).values():
+        if isinstance(v, HostStream):
+            continue
+        total += (nbytes(v.rows) + nbytes(v.words) + nbytes(v.values)
+                  + nbytes(v.perm))
+    return total
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ import torch
 
 from repro_torch.core import alto, faults
 from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
+from repro_torch.device import resolve_device
 
 # One alignment for every host stream: a multiple of every legal oriented
 # block_m (powers of two up to plan.MAX_BLOCK_M). Must equal
@@ -282,6 +283,20 @@ def load_or_rebuild(directory, at: AltoTensor, mode: int) -> HostStream:
     except (StreamIntegrityError, OSError):
         _integrity_bump("rebuilds")
         return _respill(host_stream(at, mode), pathlib.Path(directory))
+
+
+def put_chunk(hs: HostStream, start: int, stop: int, device=None):
+    """One chunk of ``hs`` on ``device`` (default ``cuda``):
+    ``(rows, words, values)`` of ``[start, stop)``. Fires the
+    ``stream.chunk_io`` fault site once. On the CPU the chunk is the
+    zero-copy slice itself; to the card a pinned stream copies without
+    blocking the host. The in-core double buffer (`kernels.ops._chunks`)
+    copies through its own buffers on a copy stream instead."""
+    dev = resolve_device(device)
+    faults.inject("stream.chunk_io")
+    async_copy = dev.type == "cuda" and hs.pinned
+    return tuple(t.to(dev, non_blocking=async_copy)
+                 for t in hs.chunk(start, stop))
 
 
 def append_stream(hs: HostStream, at_new: AltoTensor) -> HostStream:

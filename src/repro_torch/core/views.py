@@ -5,9 +5,12 @@ of the stream per (tensor, mode). This is the single materialization
 point: views are built once per (tensor content, mode) per process and
 every caller shares the cached tensors (`plan.build_views` routes here).
 
-* **Build** — a miss builds with `alto.oriented_view_device` (torch sort
-  on the tensor's device), so views of a card-resident tensor never leave
-  the card.
+* **Route** — a miss builds with `alto.oriented_view_device` (torch
+  sort on the tensor's device, ``route="device"``, the default), so
+  views of a card-resident tensor never leave the card, or with the host
+  numpy `alto.oriented_view` (``route="host"``). The two are
+  bit-identical, so the cache never keys on the route. The process
+  default comes from ``$REPRO_INGEST`` ("device" | "host").
 * **Fingerprint** — the key is content-based: the hashable `AltoMeta`
   plus two order-sensitive 32-bit checksums over the words and over the
   values' bits (native width), reduced on the device and memoized on the
@@ -55,6 +58,14 @@ _PENDING: dict[tuple, threading.Event] = {}
 
 _FP_ATTR = "_ingest_fingerprint"
 _MASK32 = 0xFFFFFFFF
+
+
+def default_route() -> str:
+    """Process-wide view build route: ``$REPRO_INGEST`` or "device"."""
+    route = os.environ.get("REPRO_INGEST", "device")
+    if route not in ("device", "host"):
+        raise ValueError(f"REPRO_INGEST={route!r}: expected device|host")
+    return route
 
 
 def _limits() -> tuple[int, int]:
@@ -168,15 +179,19 @@ def _get_or_build(key: tuple, build):
         return view
 
 
-def get_view(at: AltoTensor, mode: int) -> OrientedView:
-    """The oriented view for ``(at, mode)``: cached, built on a miss
-    (the ``views.build`` fault site fails the build: the latch releases
-    its waiters and the next caller builds)."""
+def get_view(at: AltoTensor, mode: int,
+             route: str | None = None) -> OrientedView:
+    """The oriented view for ``(at, mode)``: cached, built on a miss by
+    ``route`` (default `default_route`; the ``views.build`` fault site
+    fails the build: the latch releases its waiters and the next caller
+    builds)."""
     key = ("view", *mode_fingerprint(at, mode))
 
     def build():
         faults.inject("views.build")
-        return alto.oriented_view_device(at, mode)
+        route_ = route or default_route()
+        return (alto.oriented_view_device(at, mode) if route_ == "device"
+                else alto.oriented_view(at, mode))
 
     return _rebind_meta(key, _get_or_build(key, build), at)
 
@@ -210,14 +225,17 @@ def get_pull_order(at: AltoTensor, mode: int) -> PullOrder:
     return _get_or_build(key, build)
 
 
-def build_views(at: AltoTensor, plan) -> dict:
-    """Cached views for exactly the modes ``plan`` routes oriented; host
-    streams in their place when the plan streams; every mode's view under
-    a sharded plan, whose modes all cut the row-sorted stream."""
-    get = get_stream if getattr(plan, "streaming", None) else get_view
+def build_views(at: AltoTensor, plan, route: str | None = None) -> dict:
+    """Cached views for exactly the modes ``plan`` routes oriented, built
+    on a miss by ``route`` (`get_view`); host streams in their place when
+    the plan streams; every mode's view under a sharded plan, whose modes
+    all cut the row-sorted stream."""
     sharded = getattr(plan, "shards", None) is not None
-    return {m.mode: get(at, m.mode) for m in plan.modes
-            if sharded or heuristics.is_oriented(m.traversal)}
+    modes = [m.mode for m in plan.modes
+             if sharded or heuristics.is_oriented(m.traversal)]
+    if getattr(plan, "streaming", None):
+        return {m: get_stream(at, m) for m in modes}
+    return {m: get_view(at, m, route=route) for m in modes}
 
 
 def invalidate(at: AltoTensor, modes=None) -> int:

@@ -307,8 +307,7 @@ def _chunks(hs: _stream.HostStream, bounds, device: torch.device):
     _bump("prefetches", len(bounds) - 1)
     if device.type != "cuda":
         for s, e in bounds:
-            faults.inject("stream.chunk_io")
-            yield hs.chunk(s, e)
+            yield _stream.put_chunk(hs, s, e, device)
         return
     compute = torch.cuda.current_stream(device)
     copy = _copy_stream(device)

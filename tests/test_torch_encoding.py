@@ -128,6 +128,7 @@ def test_synthetic_generators_identical():
 
 def _port_sources():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        sorted((ROOT / "examples").glob("torch_*.py")) + \
         [ROOT / "chip_smoke.py"]
 
 
@@ -141,7 +142,8 @@ def test_port_imports_neither_jax_nor_reference():
             elif isinstance(node, ast.ImportFrom) and node.module:
                 names = [node.module]
             bad += [f"{path.name}: {n}" for n in names
-                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro",
+                                           "ml_dtypes")]
     assert bad == []
 
 
