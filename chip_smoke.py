@@ -92,7 +92,21 @@ sm_90a), then:
    solo runs, each tenant-axis launch within tolerance of its plain
    version and bit for bit its T solo launches; capacity 16 and 64 launch
    alike; the class's plan-store key is every tenant's, and a second make
-   of the class plan under ``tune="auto"`` takes no timing run;
+   of the class plan under ``tune="auto"`` takes no timing run; class A
+   again with mode 0 recursive (1 sweep, 1 outer iteration: its 4,096
+   Temp rows span several K7 windows on the tenant axis), bit for bit
+   solo. Then recursive modes in buckets (`run_class_c`): class C, 16
+   crime tenants at Chicago's proportions in the class (8192, 32, 128,
+   32) with 262,144 nonzeros, under three class plans, (a) mode 0 carry
+   and modes 1-3 recursive, (b) every mode recursive (mode 0's 8,192
+   Temp rows span K7 windows), (c) the tuned class plan (``tune="auto"``
+   on a temporary store): 5 CP-ALS sweeps and 3 CP-APR outer iterations
+   under ALTO-OTF and ALTO-PRE, every tenant bit for bit its solo run,
+   K3 and K7 launched once a mode a sweep (inner step) at capacity 16
+   and 32 alike, the stacked K3, K7 (both policies) and pull within
+   tolerance of their plain versions and bit for bit their T solo
+   launches, against the all-oriented class plan's times; then class C
+   through a tuned ``CpdService`` (capacity 16), bit for bit solo;
 12. appends to the Chicago tensor (1 % under "sum" and "last", and a
    delta that grows mode 0 past 8192) against the host rebuild
    ``alto.merge_reference``, and to the DARPA tensor (1 %, then mode 2
@@ -1725,19 +1739,30 @@ BUCKET_CLASSES = {
     "B": dict(tenants=16, dims=((16385, 32768), (16385, 32768),
                                 (2097153, 4194304)),
               nnz=(32769, 65536), seed=202),
+    # Crime tenants at Chicago's proportions (days × hours × community
+    # areas × crime types, one tensor per district): short modes of high
+    # fiber reuse, the recursive traversal's regime, from the seeded
+    # `blocked_tensor` recipe of phase_chicago. Mode 0 starts past 4096
+    # and nnz past 131072 and the duplicates the recipe drops, so every
+    # tenant falls into the class (8192, 32, 128, 32) with 262,144.
+    "C": dict(tenants=16, dims=((4097, 6186), (24, 24), (77, 77), (32, 32)),
+              nnz=(135169, 262144), seed=303, generator="blocked_tensor",
+              recipe=dict(block=16, n_blocks=64)),
 }
+CLASS_C_CAPACITIES = (16, 32)
 SOLO_RTOL, SOLO_ATOL, SOLO_FIT, SOLO_LAM = 2e-4, 2e-5, 1e-6, 2e-4
 DARPA_MODE2_GROWTH = 34_000_000    # past 2**25: the encoding gains a bit
 
 
 def _bucket_tensors(m, spec) -> list:
     rng = np.random.default_rng(spec["seed"])
+    make = getattr(m["synthetic"], spec.get("generator", "uniform_tensor"))
     xs = []
     for i in range(spec["tenants"]):
         dims = tuple(int(rng.integers(lo, hi + 1)) for lo, hi in spec["dims"])
         nnz = int(rng.integers(spec["nnz"][0], spec["nnz"][1] + 1))
-        xs.append(m["synthetic"].uniform_tensor(
-            dims, nnz, seed=spec["seed"] * 1000 + i, count_data=True))
+        xs.append(make(dims, nnz, seed=spec["seed"] * 1000 + i,
+                       count_data=True, **spec.get("recipe", {})))
     return xs
 
 
@@ -1759,7 +1784,10 @@ def _bucket_kernels(m, p, apr: bool) -> dict:
     trav = m["heuristics"].Traversal
     per = {}
     for mp in p.modes:
-        if mp.traversal is trav.ORIENTED_CARRY:
+        if mp.traversal is trav.RECURSIVE:        # K3 / K7, then the pull
+            ks = ["phi_partials" if apr else "recursive_partials",
+                  "carry_fixup"]
+        elif mp.traversal is trav.ORIENTED_CARRY:
             ks = ["phi_carry_runs" if apr else "carry_runs", "carry_fixup"]
         else:
             ks = ["phi_oriented_partials" if apr else "oriented_partials",
@@ -1867,7 +1895,8 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
     against its plain version (tenant by tenant, on the card) within
     tolerance and against T solo launches bit for bit: the slots of K2 and
     K6 whole; the runs passes of K1 and K5 and the split of K2's and K6's
-    slots by `_check_hand_off`, with the fix-up after them (the whole op).
+    slots by `_check_hand_off`, with the fix-up after them (the whole op);
+    a recursive mode's K3, K7 and pull by `check_tenant_recursive`.
     Times of the stacked launch, the T solo launches, the plain version,
     the bound. A fix-up entry's ``max_abs_err`` is the whole op's, runs
     pass and fix-up against their plain versions."""
@@ -1883,9 +1912,13 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
          for r in res_apr.results])
     lam = torch.stack([r.lam for r in res_apr.results])
     enc, R = p.meta.enc, p.rank
-    out = []
+    out, rec = [], []
     for mp in p.modes:
         n = mp.mode
+        if mp.traversal is trav.RECURSIVE:
+            rec += check_tenant_recursive(m, p, ats, n, res_als, res_apr,
+                                          label)
+            continue
         vb = batched.stack_tenants([views[i][n] for i in range(K)])
         bm, th = mp.block_m, mp.threads
         rows, words, values, _ = ops.pad_sorted_stream(vb.rows, vb.words,
@@ -2022,21 +2055,240 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
             del got
         del vb, rows, words, values, B, phi_op
     for e in out:
-        print(f"chip_smoke: {label} tenant axis {e['kernel']} mode "
-              f"{e['mode']}: {e['ms']:.3f} ms for {e['tenants']} tenants "
-              f"against {e['solo_ms']:.3f} ms in {e['tenants']} solo "
-              f"launches (plain {e['plain_ms']:.2f}, bound "
-              f"{e['bound_ms']:.4f}), max_abs_err {e['max_abs_err']}")
+        _print_axis(label, e)
+    return out + rec
+
+
+def _print_axis(label, e) -> None:
+    print(f"chip_smoke: {label} tenant axis {e.get('op') or e['kernel']} "
+          f"mode {e['mode']}{' ' + e['policy'] if 'policy' in e else ''}: "
+          f"{e['ms']:.3f} ms for {e['tenants']} tenants against "
+          f"{e['solo_ms']:.3f} ms in {e['tenants']} solo launches (plain "
+          f"{e['plain_ms']:.2f}, bound {e['bound_ms']:.4f}), max_abs_err "
+          f"{e['max_abs_err']}")
+
+
+@_index_order()
+def check_tenant_recursive(m, p, ats, n, res_als, res_apr, label) -> list:
+    """The tenant-axis launches of a recursive mode ``n`` on the bucket's
+    final state: K3 (the CP-ALS factors), K7 under ALTO-OTF and ALTO-PRE
+    (the CP-APR model's B and Π in ALTO order) and the pull of K7's Temp,
+    each against its plain version tenant by tenant within tolerance and
+    against its T solo launches bit for bit (the pull's solo launches in
+    each member's cached order); times of the stacked launch, the T solo
+    launches, the plain version and the bound. K7's windows: Temp rows
+    over `common.window_rows` with B rows."""
+    k3, k7, ops, batched = m["k3"], m["k7"], m["ops"], m["batched"]
+    loop = m["kori"].tenant_loop
+    K = len(ats)
+    meta, R, mp = p.meta, p.rank, p.modes[n]
+    enc, L = meta.enc, meta.n_partitions
+    T_rows, I_n = meta.temp_rows[n], meta.dims[n]
+    W, N = enc.n_words, enc.ndim
+    at_b = batched.stack_tenants(ats)
+    Mp = at_b.values.shape[1]
+    fac = batched.stack_tenants([batched.embed_factors(r.factors, meta.dims)
+                                 for r in res_als.results])
+    apr_fac = batched.stack_tenants([
+        batched.embed_factors(r.factors, meta.dims)
+        for r in res_apr.results])
+    lam = torch.stack([r.lam for r in res_apr.results])
+    B = (apr_fac[n] * lam[:, None, :]).contiguous()
+    pi = batched.pi_rows(enc, at_b.words, apr_fac, n)
+    coords = ops.delinearize(enc, at_b.words.reshape(-1, W)).reshape(
+        K, Mp, N)
+    touched = [sum(int(torch.unique(coords[t, :, k]).numel())
+                   for t in range(K)) for k in range(N)]
+    del coords
+    stream = K * (Mp * (4 * W + 4) + L * N * 4)
+    fbytes = sum(touched[k] for k in range(N) if k != n) * R * 4
+    temp_b = K * L * T_rows * R * 4
+    window = m["common"].window_rows(
+        T_rows, R, m["common"].smem_limit(at_b.words.device), True)
+    windows = -(-T_rows // window)
+    th = mp.threads
+    cases = [("recursive_partials", None,
+              lambda w, v, s_, f: k3.recursive_partials(
+                  enc, n, T_rows, w, v, s_, f, mp.r_block, th),
+              lambda w, v, s_, f: k3.recursive_partials_plain(
+                  enc, n, T_rows, w, v, s_, f),
+              (at_b.words, at_b.values, at_b.part_start, fac),
+              stream + fbytes + temp_b, K * Mp * R * N)]
+    for policy, key, op in (("otf", "factors", apr_fac), ("pre", "pi", pi)):
+        cases.append((
+            "phi_partials", policy,
+            lambda w, v, s_, b, o, key=key: k7.phi_partials(
+                enc, n, T_rows, 1e-10, w, v, s_, b, threads=th,
+                **{key: o}),
+            lambda w, v, s_, b, o, key=key: k7.phi_partials_plain(
+                enc, n, T_rows, 1e-10, w, v, s_, b, **{key: o}),
+            (at_b.words, at_b.values, at_b.part_start, B, op),
+            stream + touched[n] * R * 4 + temp_b
+            + (K * Mp * R * 4 if policy == "pre" else fbytes),
+            K * Mp * R * (N + 2)))
+    out, temp = [], None
+    for name, policy, kern, plain, args, nbytes, nops in cases:
+        tag = f"{label} {name} mode {n}" + (f" {policy}" if policy else "")
+        got = kern(*args)
+        _sync()
+        want = loop(plain, (K,), *args)
+        err = _check_close(f"{tag} stacked", got, want)
+        del want
+        _check_equal(f"{tag} vs {K} solo launches", got,
+                     loop(kern, (K,), *args))
+        e = {"kernel": name, "class": label, "mode": n, "tenants": K,
+             "elements": K * Mp, "max_abs_err": err,
+             "ms": _ms(m, kern, *args, iters=5),
+             "solo_ms": _ms(m, lambda: loop(kern, (K,), *args), iters=3),
+             "plain_ms": _ms(m, lambda: loop(plain, (K,), *args), iters=1),
+             "temp_rows": T_rows}
+        e["bound_ms"], e["bound_by"] = _bound(nbytes, nops)
+        if policy:
+            e.update(policy=policy, k7_window_rows=window,
+                     k7_windows=windows)
+        out.append(e)
+        if policy == "otf":
+            temp = got
+        del got
+    # The pull of K7's Temp: each tenant's pieces in its own order.
+    starts = at_b.part_start[..., n]
+    orders = [m["views"].get_pull_order(a, n) for a in ats]
+    order = m["views"].stack_pull_orders(orders)
+
+    def pull():
+        return ops.pull_reduction(temp, starts, I_n, th, order)
+
+    def pull_solo():
+        return torch.stack([ops.pull_reduction(temp[t], starts[t], I_n, th,
+                                               orders[t]) for t in range(K)])
+
+    def pull_plain():
+        return torch.stack([m["mttkrp"].pull_rows(temp[t], starts[t], I_n)
+                            for t in range(K)])
+    got = pull()
+    err = _check_close(f"{label} pull mode {n} stacked", got, pull_plain())
+    _check_equal(f"{label} pull mode {n} vs {K} solo launches", got,
+                 pull_solo())
+    e = {"kernel": "carry_fixup", "op": "pull_reduction", "class": label,
+         "mode": n, "tenants": K, "elements": K * L * T_rows,
+         "max_abs_err": err, "ms": _ms(m, pull, iters=5),
+         "solo_ms": _ms(m, pull_solo, iters=3),
+         "plain_ms": _ms(m, pull_plain, iters=1)}
+    e["bound_ms"], e["bound_by"] = _bound(
+        temp_b + K * L * T_rows * 12 + K * I_n * R * 4, 0.0)
+    out.append(e)
+    del temp, got, at_b, pi, B
+    for e in out:
+        _print_axis(label, e)
     return out
 
 
-def run_bucket(m, name, spec, seeds_offset=0) -> dict:
-    """One shape class: its tenants, the class plan, batched CP-ALS (5
-    sweeps) and CP-APR (3 outer iterations) counted, every tenant against
-    its solo run on the padded tensor bit for bit, four against their
-    unpadded solo runs, and the tenant-axis launches."""
-    shc, cpals, cpapr, batched = (m["shapeclass"], m["cpals"], m["cpapr"],
-                                  m["batched"])
+def _route(m, plan, traversals: dict):
+    """``plan`` with mode n routed ``traversals[n]``, its tiles kept: the
+    forced class plans of the recursive buckets."""
+    return dataclasses.replace(plan, modes=tuple(
+        dataclasses.replace(mp, traversal=traversals.get(mp.mode,
+                                                         mp.traversal))
+        for mp in plan.modes))
+
+
+PHI_KERNELS = {"recursive": "phi_partials",
+               "oriented_carry": "phi_carry_runs",
+               "oriented": "phi_oriented_partials"}
+
+
+@contextlib.contextmanager
+def _phi_calls(m, calls: dict):
+    """Counts a bucket's Φ evaluations (`batched._phi`) by the traversal
+    of their mode: each launches that traversal's Φ kernel once
+    (`PHI_KERNELS`), whatever the bucket holds."""
+    bat = m["batched"]
+    orig = bat._phi
+
+    def counted(plan, at_b, pull, view_b, B, mode, *args, **kw):
+        t = plan.modes[mode].traversal.value
+        calls[t] = calls.get(t, 0) + 1
+        return orig(plan, at_b, pull, view_b, B, mode, *args, **kw)
+    bat._phi = counted
+    try:
+        yield calls
+    finally:
+        bat._phi = orig
+
+
+def bucket_als(m, label, p, ats, views, dims, seeds, n_sweeps, cap,
+               solo=True):
+    """Batched CP-ALS counted (each kernel of the plan launched once a
+    mode a sweep), then, with ``solo``, every tenant against its solo run
+    on its padded tensor, bit for bit. Returns (result, seconds, counts,
+    solo seconds summed)."""
+    cpals, batched = m["cpals"], m["batched"]
+    per = _bucket_kernels(m, p, apr=False)
+    res, seconds, c = _counted(
+        m, f"{label} batched cp_als", lambda: batched.batched_cp_als(
+            ats, views, dims, RANK, plan=p, n_iters=n_sweeps, tol=0.0,
+            seeds=seeds, capacity=cap), set(per))
+    for k, n in per.items():
+        if c["launches"][k] != n * res.n_sweeps:
+            _fail(f"{label}: {k} launched {c['launches'][k]} times in "
+                  f"{res.n_sweeps} sweeps, expected {n} a sweep")
+    solo_s = 0.0
+    for i in range(len(ats) if solo else 0):
+        init = cpals.init_factors(dims[i], RANK, seed=seeds[i])
+        _sync()
+        t0 = time.perf_counter()
+        one = cpals.cp_als(ats[i], RANK, n_iters=n_sweeps, tol=0.0, plan=p,
+                           views=views[i],
+                           factors=batched.embed_factors(init, p.meta.dims))
+        _sync()
+        solo_s += time.perf_counter() - t0
+        _same_bits(f"{label} tenant {i} cp_als", res.results[i], one,
+                   ("fits",))
+    return res, seconds, c, solo_s
+
+
+def bucket_apr(m, label, p, ats, views, dims, seeds, params, cap,
+               solo=True):
+    """Batched CP-APR counted under the plan's Π policy (each Φ
+    evaluation launching its mode's Φ kernel once, `_phi_calls`), then,
+    with ``solo``, every tenant against its solo run, bit for bit.
+    Returns (result, seconds, counts, solo seconds, Φ evaluations)."""
+    cpapr, batched = m["cpapr"], m["batched"]
+    expect = set(_bucket_kernels(m, p, apr=True)) | (
+        {"delinearize"} if p.pi_policy.value == "pre" else set())
+    with _phi_calls(m, {}) as calls:
+        res, seconds, c = _counted(
+            m, f"{label} batched cp_apr", lambda: batched.batched_cp_apr(
+                ats, views, dims, RANK, plan=p, params=params, seeds=seeds,
+                capacity=cap), expect)
+    for trav, k in PHI_KERNELS.items():
+        if c["launches"][k] != calls.get(trav, 0):
+            _fail(f"{label}: {k} launched {c['launches'][k]} times in "
+                  f"{calls.get(trav, 0)} Φ evaluations of its modes")
+    solo_s = 0.0
+    for i in range(len(ats) if solo else 0):
+        lam0, f0 = cpapr.init_factors(dims[i], RANK, seed=seeds[i],
+                                      total=float(ats[i].values.sum()))
+        _sync()
+        t0 = time.perf_counter()
+        one = cpapr.cp_apr(ats[i], RANK, params, plan=p, views=views[i],
+                           factors=batched.embed_factors(f0, p.meta.dims),
+                           lam=lam0)
+        _sync()
+        solo_s += time.perf_counter() - t0
+        _same_bits(f"{label} tenant {i} cp_apr", res.results[i], one,
+                   ("kkt_violations", "n_outer", "n_inner_total"))
+    return res, seconds, c, solo_s, dict(calls)
+
+
+def run_bucket(m, name, spec, seeds_offset=0, plan_fn=None,
+               policies=None) -> dict:
+    """One shape class: its tenants, the class plan (or ``plan_fn(sc)``),
+    batched CP-ALS (5 sweeps) and CP-APR (3 outer iterations, under each
+    Π policy of ``policies``, default the plan's) counted, every tenant
+    against its solo run on the padded tensor bit for bit, four against
+    their unpadded solo runs, and the tenant-axis launches."""
+    shc, cpals, cpapr = m["shapeclass"], m["cpals"], m["cpapr"]
     t0 = time.perf_counter()
     xs = _bucket_tensors(m, spec)
     gen_s = time.perf_counter() - t0
@@ -2044,62 +2296,30 @@ def run_bucket(m, name, spec, seeds_offset=0) -> dict:
     if len(scs) != 1:
         _fail(f"class {name}: tenants fall into {len(scs)} classes")
     (sc,) = scs
-    p = m["plan"].make_class_plan(sc)
+    p = (plan_fn or m["plan"].make_class_plan)(sc)
     t0 = time.perf_counter()
     ats, views = _members(m, xs, sc, p)
     _sync()
     build_s = time.perf_counter() - t0
     K, dims = len(xs), [x.dims for x in xs]
     seeds = [seeds_offset + i for i in range(K)]
-    als_kernels = _bucket_kernels(m, p, apr=False)
-    apr_kernels = _bucket_kernels(m, p, apr=True)
-    apr_expect = set(apr_kernels) | ({"delinearize"}
-                                     if p.pi_policy.value == "pre" else set())
     n_sweeps, k_max = 5, 3
     params = cpapr.CpaprParams(k_max=k_max, l_max=10)
-    res_als, als_s, als_c = _counted(
-        m, f"class {name} batched cp_als", lambda: batched.batched_cp_als(
-            ats, views, dims, RANK, plan=p, n_iters=n_sweeps, tol=0.0,
-            seeds=seeds, capacity=K), set(als_kernels))
-    for k, per in als_kernels.items():
-        if als_c["launches"][k] != per * res_als.n_sweeps:
-            _fail(f"class {name}: {k} launched {als_c['launches'][k]} "
-                  f"times in {res_als.n_sweeps} sweeps, expected {per} a "
-                  f"sweep")
-    res_apr, apr_s, apr_c = _counted(
-        m, f"class {name} batched cp_apr", lambda: batched.batched_cp_apr(
-            ats, views, dims, RANK, plan=p, params=params, seeds=seeds,
-            capacity=K), apr_expect)
-    # Every tenant against its solo run on the padded tensor, bit for bit.
-    solo_als_s = solo_apr_s = 0.0
-    for i in range(K):
-        init = cpals.init_factors(dims[i], RANK, seed=seeds[i])
-        _sync()
-        t0 = time.perf_counter()
-        solo = cpals.cp_als(ats[i], RANK, n_iters=n_sweeps, tol=0.0,
-                            plan=p, views=views[i],
-                            factors=batched.embed_factors(init, sc.dims))
-        _sync()
-        solo_als_s += time.perf_counter() - t0
-        _same_bits(f"class {name} tenant {i} cp_als", res_als.results[i],
-                   solo, ("fits",))
-        lam0, f0 = cpapr.init_factors(dims[i], RANK, seed=seeds[i],
-                                      total=float(ats[i].values.sum()))
-        _sync()
-        t0 = time.perf_counter()
-        solo = cpapr.cp_apr(ats[i], RANK, params, plan=p, views=views[i],
-                            factors=batched.embed_factors(f0, sc.dims),
-                            lam=lam0)
-        _sync()
-        solo_apr_s += time.perf_counter() - t0
-        _same_bits(f"class {name} tenant {i} cp_apr", res_apr.results[i],
-                   solo, ("kkt_violations", "n_outer", "n_inner_total"))
+    res_als, als_s, als_c, solo_als_s = bucket_als(
+        m, f"class {name}", p, ats, views, dims, seeds, n_sweeps, K)
+    policies = policies or (p.pi_policy.value,)
+    apr_plans = {pol: dataclasses.replace(
+        p, pi_policy=m["heuristics"].PiPolicy(pol)) for pol in policies}
+    aprs = {pol: bucket_apr(m, f"class {name} {pol}", pp, ats, views, dims,
+                            seeds, params, K)
+            for pol, pp in apr_plans.items()}
+    res_apr = aprs[policies[0]][0]
     # Four tenants against their own unpadded solo runs, under the class
     # plan's routing and tiles.
     unpadded = []
     for i in range(4):
         raw = m["alto"].build_device(xs[i], n_partitions=sc.n_partitions)
-        rp = dataclasses.replace(p, meta=raw.meta)
+        rp = dataclasses.replace(apr_plans[policies[0]], meta=raw.meta)
         r = cpals.cp_als(raw, RANK, n_iters=n_sweeps, tol=0.0, plan=rp,
                          factors=cpals.init_factors(dims[i], RANK,
                                                     seed=seeds[i]))
@@ -2117,11 +2337,22 @@ def run_bucket(m, name, spec, seeds_offset=0) -> dict:
                          "fit_diff": g.fits[-1] - r.fits[-1],
                          "als_max_abs": e_als, "apr_max_abs": e_apr})
         del raw
-    kernels = check_tenant_kernels(m, p, ats, views, res_als, res_apr, name)
+    kernels = check_tenant_kernels(m, apr_plans[policies[0]], ats, views,
+                                   res_als, res_apr, name)
+
+    def apr_info(pol):
+        res, secs, c, solo_s, calls = aprs[pol]
+        return {"seconds": secs, "n_outer": res.n_outer,
+                "outer_ms": secs / res.n_outer * 1e3,
+                "solo_outer_ms_sum": solo_s / k_max * 1e3,
+                "tenants_per_s": K / secs, "solo_tenants_per_s": K / solo_s,
+                "kkt_violations": [r.kkt_violations for r in res.results],
+                "n_inner_total": [r.n_inner_total for r in res.results],
+                "phi_evaluations": calls, "launches": c["launches"]}
     info = {
         "class": {"dims": sc.dims, "nnz": sc.nnz, "tenants": K,
                   "n_partitions": sc.n_partitions},
-        "traversals": p.traversals(), "pi_policy": p.pi_policy.value,
+        "traversals": p.traversals(), "pi_policy": policies[0],
         "tiles": [(mp.r_block, mp.block_m, mp.threads) for mp in p.modes],
         "gen_s": gen_s, "build_s": build_s,
         "tenant_nnz": [x.nnz for x in xs],
@@ -2131,40 +2362,223 @@ def run_bucket(m, name, spec, seeds_offset=0) -> dict:
                    "solo_tenants_per_s": K / solo_als_s,
                    "fits": [r.fits for r in res_als.results],
                    "launches": als_c["launches"]},
-        "cp_apr": {"seconds": apr_s, "n_outer": res_apr.n_outer,
-                   "outer_ms": apr_s / res_apr.n_outer * 1e3,
-                   "solo_outer_ms_sum": solo_apr_s / k_max * 1e3,
-                   "tenants_per_s": K / apr_s,
-                   "solo_tenants_per_s": K / solo_apr_s,
-                   "kkt_violations": [r.kkt_violations
-                                      for r in res_apr.results],
-                   "n_inner_total": [r.n_inner_total
-                                     for r in res_apr.results],
-                   "launches": apr_c["launches"]},
+        "cp_apr": apr_info(policies[0]),
+        "cp_apr_policies": {pol: apr_info(pol) for pol in policies},
         "unpadded": unpadded, "tenant_axis": kernels,
-        "runs": [{"launches": als_c["launches"],
-                  "elements": als_c["elements"]},
-                 {"launches": apr_c["launches"],
-                  "elements": apr_c["elements"]}]}
+        "runs": [{"launches": c["launches"], "elements": c["elements"]}
+                 for c in [als_c] + [aprs[pol][2] for pol in policies]]}
     print(f"chip_smoke: class {name} {sc.dims} nnz {sc.nnz}, {K} tenants, "
-          f"{p.traversals()} {p.pi_policy.value}: batched CP-ALS sweep "
+          f"{p.traversals()}: batched CP-ALS sweep "
           f"{info['cp_als']['sweep_ms']:.2f} ms against "
           f"{info['cp_als']['solo_sweep_ms_sum']:.2f} ms of {K} solo "
           f"sweeps ({info['cp_als']['tenants_per_s']:.1f} against "
           f"{info['cp_als']['solo_tenants_per_s']:.1f} tenants/s); "
-          f"CP-APR outer iteration {info['cp_apr']['outer_ms']:.1f} ms "
-          f"against {info['cp_apr']['solo_outer_ms_sum']:.1f} ms solo; "
-          f"every tenant equal to its solo run bit for bit; unpadded "
+          + "; ".join(
+              f"CP-APR {pol} outer iteration {a['outer_ms']:.1f} ms against "
+              f"{a['solo_outer_ms_sum']:.1f} ms solo"
+              for pol, a in info["cp_apr_policies"].items())
+          + f"; every tenant equal to its solo run bit for bit; unpadded "
           f"{unpadded}; launches {als_c['launches']} / "
-          f"{apr_c['launches']}")
+          f"{[aprs[pol][2]['launches'] for pol in policies]}")
     return {**info, "sc": sc, "plan": p, "ats": ats, "views": views,
             "xs": xs}
 
 
+def class_a_recursive(m, a) -> dict:
+    """Class A with mode 0 routed recursive: 1 sweep and 1 outer
+    iteration, every tenant bit for bit its solo run; its Temp of 4,096
+    rows spans several K7 windows on the tenant axis."""
+    trav = m["heuristics"].Traversal
+    p = _route(m, a["plan"], {0: trav.RECURSIVE})
+    ats, K = a["ats"], len(a["ats"])
+    views = [m["plan"].build_views(at, p) for at in ats]
+    dims, seeds = [x.dims for x in a["xs"]], list(range(K))
+    res_als, als_s, als_c, _ = bucket_als(
+        m, "class A mode 0 recursive", p, ats, views, dims, seeds, 1, K)
+    res_apr, apr_s, apr_c, _, calls = bucket_apr(
+        m, "class A mode 0 recursive", p, ats, views, dims, seeds,
+        m["cpapr"].CpaprParams(k_max=1, l_max=10), K)
+    axis = check_tenant_recursive(m, p, ats, 0, res_als, res_apr,
+                                  "A mode 0 recursive")
+    k7 = next(e for e in axis if e.get("policy") == "otf")
+    if k7["k7_windows"] < 2:
+        _fail(f"class A mode 0: {k7['temp_rows']} Temp rows fit one K7 "
+              f"window")
+    print(f"chip_smoke: class A, mode 0 recursive: sweep "
+          f"{als_s * 1e3:.2f} ms, outer iteration {apr_s * 1e3:.1f} ms, "
+          f"{k7['temp_rows']} Temp rows in {k7['k7_windows']} K7 windows of "
+          f"{k7['k7_window_rows']}; every tenant equal to its solo run")
+    return {"traversals": p.traversals(), "sweep_ms": als_s * 1e3,
+            "outer_ms": apr_s * 1e3, "phi_evaluations": calls,
+            "temp_rows": k7["temp_rows"], "k7_windows": k7["k7_windows"],
+            "k7_window_rows": k7["k7_window_rows"], "tenant_axis": axis,
+            "runs": [{"launches": c["launches"], "elements": c["elements"]}
+                     for c in (als_c, apr_c)]}
+
+
+def run_class_c(m) -> dict:
+    """Recursive modes in buckets: class C (`BUCKET_CLASSES`) under the
+    forced plan (a) (mode 0 carry, modes 1-3 recursive) through
+    `run_bucket`, under ALTO-OTF and ALTO-PRE; then (b) every mode
+    recursive and (c) the tuned class plan (``tune="auto"`` on a
+    temporary store), bit for bit solo, and the all-oriented static plan
+    for its times; capacities 16 and 32 launch alike; then the class
+    through a tuned `CpdService` (capacity 16) on (c)'s store, bit for
+    bit solo."""
+    import tempfile
+    trav, Pi = m["heuristics"].Traversal, m["heuristics"].PiPolicy
+    t_start = time.perf_counter()
+
+    def forced(sc):
+        return _route(m, m["plan"].make_class_plan(sc),
+                      {0: trav.ORIENTED_CARRY, 1: trav.RECURSIVE,
+                       2: trav.RECURSIVE, 3: trav.RECURSIVE})
+    c = run_bucket(m, "C", BUCKET_CLASSES["C"], seeds_offset=3000,
+                   plan_fn=forced, policies=("otf", "pre"))
+    sc, ats, views, xs = c["sc"], c["ats"], c["views"], c["xs"]
+    K, dims = len(xs), [x.dims for x in xs]
+    seeds = [3000 + i for i in range(K)]
+    params = m["cpapr"].CpaprParams(k_max=3, l_max=10)
+    out = {k: v for k, v in c.items()
+           if k not in ("sc", "plan", "ats", "views", "xs")}
+    runs, axis = list(c["runs"]), list(c["tenant_axis"])
+    # Capacities 16 and 32: the same launches a sweep and an outer
+    # iteration.
+    bat, cap = m["batched"], {}
+    for n in CLASS_C_CAPACITIES:
+        _, _, ca = _counted(
+            m, f"class C capacity {n}", lambda: bat.batched_cp_als(
+                ats, views, dims, RANK, plan=c["plan"], n_iters=1, tol=0.0,
+                seeds=seeds, capacity=n), {"recursive_partials"})
+        _, _, cp = _counted(
+            m, f"class C capacity {n} cp_apr", lambda: bat.batched_cp_apr(
+                ats, views, dims, RANK, plan=c["plan"], seeds=seeds,
+                params=m["cpapr"].CpaprParams(k_max=1, l_max=10),
+                capacity=n), {"phi_partials"})
+        cap[n] = (ca["launches"], cp["launches"])
+    if len({json.dumps(v, sort_keys=True) for v in cap.values()}) != 1:
+        _fail(f"class C: capacities launch differently: {cap}")
+    out["capacity_launches"] = cap
+    static = m["plan"].make_class_plan(sc)
+    env = m["autotune"].PLAN_CACHE_ENV
+    saved = os.environ.get(env)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_class_c_") as d:
+        os.environ[env] = str(pathlib.Path(d) / "plans.json")
+        try:
+            r0, t0 = m["ops"].timing_runs(), time.perf_counter()
+            tuned = m["plan"].make_class_plan(sc, tune="auto", at=ats[0])
+            out["tune"] = {"timing_runs": m["ops"].timing_runs() - r0,
+                           "seconds": time.perf_counter() - t0}
+            plans = {"all_recursive": _route(
+                         m, static, {n: trav.RECURSIVE for n in range(4)}),
+                     "tuned": tuned, "all_oriented": static}
+            out["plans"] = {}
+            for label, p in plans.items():
+                solo = label != "all_oriented"
+                vs = [m["plan"].build_views(a, p) for a in ats]
+                res_als, als_s, c_als, solo_als = bucket_als(
+                    m, f"class C {label}", p, ats, vs, dims, seeds, 5, K,
+                    solo=solo)
+                runs.append(c_als)
+                e = {"traversals": p.traversals(),
+                     "tiles": [(mp.r_block, mp.block_m, mp.threads)
+                               for mp in p.modes],
+                     "sweep_ms": als_s / 5 * 1e3,
+                     "solo_sweep_ms_sum": solo_als / 5 * 1e3 if solo
+                     else None, "launches": c_als["launches"]}
+                for pol in ("otf", "pre"):
+                    res, secs, c_apr, solo_s, calls = bucket_apr(
+                        m, f"class C {label} {pol}",
+                        dataclasses.replace(p, pi_policy=Pi(pol)), ats, vs,
+                        dims, seeds, params, K, solo=solo)
+                    runs.append(c_apr)
+                    e[f"cp_apr_{pol}"] = {
+                        "outer_ms": secs / res.n_outer * 1e3,
+                        "solo_outer_ms_sum": solo_s / res.n_outer * 1e3
+                        if solo else None, "phi_evaluations": calls,
+                        "launches": c_apr["launches"]}
+                    if label == "all_recursive" and pol == "otf":
+                        # Mode 0's 8,192 Temp rows over several K7 windows.
+                        rec0 = check_tenant_recursive(
+                            m, p, ats, 0, res_als, res, "C all recursive")
+                        axis += rec0
+                        k7 = next(x for x in rec0
+                                  if x.get("policy") == "otf")
+                        if k7["k7_windows"] < 2:
+                            _fail("class C mode 0: Temp fits one K7 window")
+                        e["mode0_k7_windows"] = k7["k7_windows"]
+                out["plans"][label] = e
+            # The service on (c)'s store: a hit, the tuned plan, every
+            # tenant bit for bit its solo run.
+            svc = m["serve"].CpdService(RANK, "cp_als", capacity=16,
+                                        n_iters=5, tol=0.0, tune="auto")
+            r0 = m["ops"].timing_runs()
+            served, wall, c_srv = _served(m, "serve class C", svc, xs, seeds,
+                                          threads=False)
+            if (m["ops"].timing_runs() != r0
+                    or svc._class_plan(sc) != tuned):
+                _fail("serve class C: the service measured, or took "
+                      "another plan than the tuned class plan")
+            _serve_stats_zero("serve class C", svc.stats())
+            _solo_equal(m, "serve class C", svc, xs, seeds, served, 5,
+                        apr=False)
+            runs.append(c_srv)
+            out["serve"] = {"wall_s": wall, "tenants": K, "capacity": 16,
+                            "buckets_run": svc.stats()["buckets_run"],
+                            "launches": c_srv["launches"]}
+            # Plan (a) stored as the class's plan: a second service serves
+            # its recursive modes, every tenant bit for bit solo.
+            ac = m["autotune"]
+            ac.save_store({ac.class_plan_key(sc, "cuda", device=ats[0].device):
+                           ac.serialize_plan(c["plan"])})
+            svc = m["serve"].CpdService(RANK, "cp_als", capacity=16,
+                                        n_iters=5, tol=0.0, tune="auto")
+            served, wall, c_srv = _served(m, "serve class C plan (a)", svc,
+                                          xs, seeds, threads=False)
+            if svc._class_plan(sc) != c["plan"]:
+                _fail("serve class C: the stored plan (a) was not served")
+            for k in ("recursive_partials", "carry_runs"):
+                if c_srv["launches"][k] != 5 * (3 if k[0] == "r" else 1):
+                    _fail(f"serve class C plan (a): {k} launched "
+                          f"{c_srv['launches'][k]} times in 5 sweeps")
+            _serve_stats_zero("serve class C plan (a)", svc.stats())
+            _solo_equal(m, "serve class C plan (a)", svc, xs, seeds, served,
+                        5, apr=False)
+            runs.append(c_srv)
+            out["serve_forced"] = {"wall_s": wall,
+                                   "launches": c_srv["launches"]}
+        finally:
+            if saved is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = saved
+    out["tenant_axis"] = axis
+    out["runs"] = [{"launches": r["launches"], "elements": r["elements"]}
+                   for r in runs]
+    out["seconds"] = time.perf_counter() - t_start
+    pl = out["plans"]
+    print(f"chip_smoke: class C plans: forced {c['traversals']}, tuned "
+          f"{pl['tuned']['traversals']} ({out['tune']['timing_runs']} "
+          f"timing runs): CP-ALS sweep ms forced "
+          f"{c['cp_als']['sweep_ms']:.2f}, all recursive "
+          f"{pl['all_recursive']['sweep_ms']:.2f}, tuned "
+          f"{pl['tuned']['sweep_ms']:.2f}, all oriented "
+          f"{pl['all_oriented']['sweep_ms']:.2f}; CP-APR OTF outer ms "
+          f"forced {c['cp_apr']['outer_ms']:.1f}, all recursive "
+          f"{pl['all_recursive']['cp_apr_otf']['outer_ms']:.1f}, tuned "
+          f"{pl['tuned']['cp_apr_otf']['outer_ms']:.1f}, all oriented "
+          f"{pl['all_oriented']['cp_apr_otf']['outer_ms']:.1f}; capacities "
+          f"{CLASS_C_CAPACITIES} launch alike; the service served "
+          f"{K} tenants bit for bit solo under (c) and (a); "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 def phase_batched(m) -> dict:
     """Classes A and B (`BUCKET_CLASSES`), then the capacity check (16 and
-    64 tenants of class A launch the same kernels a sweep) and the class
-    plan's store key and warm store."""
+    64 tenants of class A launch the same kernels a sweep), the class
+    plan's store key and warm store, class A with mode 0 recursive, and
+    class C's recursive buckets (`run_class_c`)."""
     import tempfile
     t_start = time.perf_counter()
     out = {}
@@ -2207,12 +2621,20 @@ def phase_batched(m) -> dict:
                     tune_timing_runs=first, tune_s=tune_s,
                     second_make_timing_runs=second,
                     tuned=[(mp.traversal.value, mp.block_m)
-                           for mp in tuned.modes])
+                           for mp in tuned.modes],
+                    mode0_recursive=class_a_recursive(m, a))
     del a
     b = run_bucket(m, "B", BUCKET_CLASSES["B"], seeds_offset=1000)
     out["B"] = {k: v for k, v in b.items()
                 if k not in ("sc", "plan", "ats", "views", "xs")}
     del b
+    out["C"] = run_class_c(m)
+    rec = out["A"]["mode0_recursive"]
+    out["runs"] = (out["A"]["runs"] + rec["runs"] + out["B"]["runs"]
+                   + out["C"]["runs"])
+    out["tenant_axis"] = (out["A"]["tenant_axis"] + rec["tenant_axis"]
+                          + out["B"]["tenant_axis"]
+                          + out["C"]["tenant_axis"])
     out["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: batched phase {out['seconds']:.1f} s; class A "
           f"capacity 16 and 64 launch {launches[16]}; class A store key "
@@ -4263,7 +4685,7 @@ def main() -> int:
     runs = [chicago["run"], darpa["run"], darpa["onehot_run"],
             chicago_apr["run"], darpa_apr["run"], darpa_apr["onehot_run"],
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
-            c_str["run"], *buckets["A"]["runs"], *buckets["B"]["runs"],
+            c_str["run"], *buckets["runs"],
             *ingested["runs"], *served["runs"], *sharded["runs"],
             *formats["runs"]]
     launches = {k: sum(r["launches"][k] for r in runs)
@@ -4292,7 +4714,7 @@ def main() -> int:
                            d_str["apr_run"]["res"], launches)
     kernels.sort(key=lambda e: m["build"].KERNELS.index(e["name"]))
     for e in kernels:       # the bucketed path's launches on the tenant axis
-        axis = [t for c in ("A", "B") for t in buckets[c]["tenant_axis"]
+        axis = [t for t in buckets["tenant_axis"]
                 if t["kernel"] == e["name"]]
         if axis:
             e["tenant_axis"] = axis

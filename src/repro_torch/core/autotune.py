@@ -438,7 +438,7 @@ def dedupe(cands, backend: str, objective: str, streaming: bool = False):
 def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
               objective: str = "mttkrp", max_candidates: int | None = None,
               persist: bool = True, store_path=None,
-              oriented_only: bool = False, shards: int | None = None,
+              shards: int | None = None,
               group=None) -> tuple[plan_mod.ExecutionPlan, TuneReport]:
     """Time every candidate of every mode and return the winning plan.
 
@@ -448,8 +448,7 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     cap_candidates`. Factors are seeded (seed 0), so the timings depend
     only on what the store key fingerprints. Returns ``(plan, report)``;
     each mode's winner is its report's `ModeReport.best`: the static
-    candidate unless another `beats` it. ``oriented_only`` drops the
-    recursive candidates (a shape class's plan, `plan.make_class_plan`).
+    candidate unless another `beats` it.
 
     ``shards`` tunes a sharded plan on the ranks of ``group`` (every rank
     calls it with the same tensor): the candidates are the sharded plan's
@@ -477,8 +476,6 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
         cands = plan_mod.candidate_mode_plans(meta, n, rank,
                                               objective=objective,
                                               shards=shards)
-        if oriented_only:
-            cands = [c for c in cands if heuristics.is_oriented(c.traversal)]
         cands = plan_mod.cap_candidates(dedupe(cands, backend, objective),
                                         max_candidates)
         oriented = any(heuristics.is_oriented(c.traversal) for c in cands)
@@ -562,8 +559,7 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
                device_bytes: int | None = None,
                search_budget_runs: int | None = None,
                search_budget_s: float | None = None, search_seed: int = 0,
-               store_path=None, oriented_only: bool = False,
-               shards: int | None = None,
+               store_path=None, shards: int | None = None,
                group=None) -> plan_mod.ExecutionPlan | None:
     """A store hit, else a measurement on ``at``; None tells `make_plan`
     to fall back to the static plan (no data, ``require`` False).
@@ -572,7 +568,7 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
     (`core.search`) instead of the exhaustive tuner. ``device_bytes``
     marks a streaming plan: those always go through the search
     (``chunk_m`` is one of its genes) and are stored under a key of that
-    budget. ``oriented_only`` measures oriented candidates only.
+    budget.
 
     ``shards`` (a sharded plan) looks up and tunes on the ranks of
     ``group``, rank 0's store hit or winner holding on every rank, and
@@ -599,11 +595,10 @@ def tuned_plan(meta: AltoMeta, rank: int, *, backend: str, device,
                 at, rank, backend=backend, objective=objective,
                 device_bytes=device_bytes, budget_runs=search_budget_runs,
                 budget_s=search_budget_s, seed=search_seed,
-                store_path=store_path, oriented_only=oriented_only)
+                store_path=store_path)
             return plan
         plan, _ = tune_plan(at, rank, backend=backend, objective=objective,
-                            store_path=store_path,
-                            oriented_only=oriented_only, shards=shards,
+                            store_path=store_path, shards=shards,
                             group=group)
         return plan
     if require:

@@ -1,13 +1,16 @@
 """Batched CP-ALS / CP-APR: a bucket of same-class tenants per launch.
 
 Tenants that `shapeclass.classify` buckets together share an encoding, a
-padded stream length and the canonical `AltoMeta`, so their streams,
+padded stream length and the canonical `AltoMeta`, so their ALTO streams,
 oriented views and factors stack along a leading tenant axis
 (`stack_tenants`). The JAX package runs its single-tensor sweeps under
-``vmap``; the port writes the batch dimension out: the oriented kernels
-take the tenant axis (`kernels.mttkrp_oriented`), so one launch per kernel
-and mode serves the whole bucket, whatever its size, and each tenant gets
-the bits of its solo launch.
+``vmap``; the port writes the batch dimension out: every in-core kernel
+takes the tenant axis, the oriented ones (`kernels.mttkrp_oriented`) and
+the recursive ones with their pull (`kernels.mttkrp`, `kernels.
+cpapr_phi`, `ops.pull_reduction`), so one launch per kernel and mode
+serves the whole bucket, whatever its size and whatever the class plan
+routes, and each tenant gets the bits of its solo launch. A streaming
+plan is refused: a bucket runs in core.
 
 The dense algebra is not batched: a batched GEMM or pseudo-inverse is not
 promised the bits of the unbatched call, so the Gram matrices, the pinv
@@ -58,6 +61,7 @@ import torch
 from repro_torch.core import cpals, cpapr, faults, heuristics
 from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
+from repro_torch.core import views as views_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.kernels import ops
 
@@ -138,6 +142,12 @@ def _tenant_view(view: OrientedView, t: int) -> OrientedView:
                                values=view.values[t], perm=view.perm[t])
 
 
+def _tenant_at(at: AltoTensor, t: int) -> AltoTensor:
+    return dataclasses.replace(at, words=at.words[t], values=at.values[t],
+                               part_start=at.part_start[t],
+                               part_end=at.part_end[t])
+
+
 def _check_bucket(ats, views, real_dims, plan, capacity) -> int:
     """Validate a bucket; returns its capacity."""
     K = len(ats)
@@ -148,10 +158,10 @@ def _check_bucket(ats, views, real_dims, plan, capacity) -> int:
             raise ValueError("tenant meta differs from plan meta — "
                              "canonicalize (shapeclass.canonicalize_tensor) "
                              "before batching")
-    if plan.streaming is not None or not all(
-            heuristics.is_oriented(m.traversal) for m in plan.modes):
-        raise ValueError("a bucket needs an in-core plan routing every mode "
-                         "output-oriented (plan.make_class_plan)")
+    if plan.streaming is not None:
+        raise ValueError("a bucket runs in core: a streaming plan cannot "
+                         "be batched (plan.make_class_plan without a "
+                         "device byte budget the class overflows)")
     cap = K if capacity is None else int(capacity)
     if cap < K:
         raise ValueError(f"capacity {cap} < bucket size {K}")
@@ -163,26 +173,51 @@ def _fill(items: list, cap: int) -> list:
     return items + [items[0]] * (cap - len(items))
 
 
-def _mttkrp(plan, views_b, factors_b, mode: int) -> torch.Tensor:
-    """The bucket's ``(T, I_n, R)`` MTTKRP: one launch per kernel on the
+def _streams(plan, ats, views_b, cap):
+    """The bucket's stacked ALTO streams and, on the kernel backend, its
+    members' pull orders stacked by mode, for the modes it runs recursive
+    (routed so, or without a view: `plan.execute_mttkrp`); ``(None, {})``
+    when it runs none."""
+    rec = [mp.mode for mp in plan.modes
+           if not (heuristics.is_oriented(mp.traversal)
+                   and mp.mode in views_b)]
+    if not rec:
+        return None, {}
+    members = _fill(list(ats), cap)
+    pulls = {n: views_mod.stack_pull_orders(
+        [views_mod.get_pull_order(at, n) for at in members])
+        for n in rec} if plan.backend == "cuda" else {}
+    return stack_tenants(members), pulls
+
+
+def _mttkrp(plan, at_b, pulls, views_b, factors_b, mode: int):
+    """The bucket's ``(T, I_n, R)`` MTTKRP through the plan's route for
+    ``mode`` (the stacked view of an oriented mode, the stacked tensor
+    and pull orders of a recursive one): one launch per kernel on the
     kernel backend, the reference traversal tenant by tenant else."""
     if plan.backend == "cuda":
-        return plan_mod.execute_mttkrp(plan, None, views_b, factors_b, mode)
-    view = views_b[mode]
+        return plan_mod.execute_mttkrp(plan, at_b, views_b, factors_b, mode,
+                                       pull=pulls.get(mode))
+    view = views_b.get(mode)
     return torch.stack([
-        plan_mod.execute_mttkrp(plan, None, {mode: _tenant_view(view, t)},
-                                [A[t] for A in factors_b], mode)
-        for t in range(view.rows.shape[0])])
+        plan_mod.execute_mttkrp(
+            plan, None if at_b is None else _tenant_at(at_b, t),
+            {} if view is None else {mode: _tenant_view(view, t)},
+            [A[t] for A in factors_b], mode)
+        for t in range(factors_b[0].shape[0])])
 
 
-def _phi(plan, view_b, B, mode: int, eps: float, factors=None, pi=None):
+def _phi(plan, at_b, pull, view_b, B, mode: int, eps: float,
+         factors=None, pi=None):
     """The bucket's ``(T, I_n, R)`` Φ, as `_mttkrp`."""
     if plan.backend == "cuda":
-        return plan_mod.execute_phi(plan, None, view_b, B, mode,
-                                    factors=factors, pi=pi, eps=eps)
+        return plan_mod.execute_phi(plan, at_b, view_b, B, mode,
+                                    factors=factors, pi=pi, eps=eps,
+                                    pull=pull)
     return torch.stack([
         plan_mod.execute_phi(
-            plan, None, _tenant_view(view_b, t), B[t], mode,
+            plan, None if at_b is None else _tenant_at(at_b, t),
+            None if view_b is None else _tenant_view(view_b, t), B[t], mode,
             factors=None if factors is None else [A[t] for A in factors],
             pi=None if pi is None else pi[t], eps=eps)
         for t in range(B.shape[0])])
@@ -211,7 +246,7 @@ def pi_rows(enc, words_b: torch.Tensor, factors_b, mode: int):
 # Batched CP-ALS
 # ---------------------------------------------------------------------------
 
-def _als_sweep(plan, views_b, factors_b, lam_b, active):
+def _als_sweep(plan, at_b, pulls, views_b, factors_b, lam_b, active):
     """One CP-ALS sweep of every slot: `cpals._sweep` with the MTTKRP of
     the whole bucket and the dense algebra slot by slot, skipped for the
     slots not ``active`` (converged, quarantined or fill: their factors
@@ -223,7 +258,7 @@ def _als_sweep(plan, views_b, factors_b, lam_b, active):
     grams = [[A.T @ A for A in F.unbind(0)] for F in factors_b]
     lams, M = [], None
     for n in range(N):
-        M = _mttkrp(plan, views_b, factors_b, n)
+        M = _mttkrp(plan, at_b, pulls, views_b, factors_b, n)
         new, lams = [], []
         for t in range(T):
             if not active[t]:
@@ -313,6 +348,7 @@ def batched_cp_als(ats: Sequence[AltoTensor],
                                 for f in fs], plan.meta.dims)
                  for fs in init_factors]
     views_b = stack_tenants(_fill(list(views), cap))
+    at_b, pulls = _streams(plan, ats, views_b, cap)
     factors_b = stack_tenants(_fill(factors_k, cap))
     lam_b = torch.ones((cap, rank), dtype=dtype, device=dev)
     normX2 = [float((at.values.detach().double() ** 2).sum()) for at in ats]
@@ -325,8 +361,8 @@ def batched_cp_als(ats: Sequence[AltoTensor],
     for _ in range(n_iters):
         faults.inject("batched.sweep")
         good_f, good_l = factors_b, lam_b
-        new_f, new_lam, M_last = _als_sweep(plan, views_b, factors_b, lam_b,
-                                            active)
+        new_f, new_lam, M_last = _als_sweep(plan, at_b, pulls, views_b,
+                                            factors_b, lam_b, active)
         factors_b = [_freeze(active, nf, f) for nf, f in zip(new_f, factors_b)]
         lam_b = _freeze(active, new_lam, lam_b)
         n_sweeps += 1
@@ -371,9 +407,9 @@ def batched_cp_als(ats: Sequence[AltoTensor],
 # Batched CP-APR
 # ---------------------------------------------------------------------------
 
-def _apr_mode_update(plan, view_b, mode: int, lam_b, factors_b, phi_prev,
-                     active, first_outer: bool, pre_pi: bool,
-                     p: cpapr.CpaprParams):
+def _apr_mode_update(plan, at_b, pull, view_b, mode: int, lam_b,
+                     factors_b, phi_prev, active, first_outer: bool,
+                     pre_pi: bool, p: cpapr.CpaprParams):
     """One Alg. 2 mode update of every slot (`cpapr._mode_update`), the Φ
     of the whole bucket per inner step. Returns (A, λ, Φ of the final B,
     converged, inner steps, KKT of the first step), the last three as
@@ -387,8 +423,12 @@ def _apr_mode_update(plan, view_b, mode: int, lam_b, factors_b, phi_prev,
                         A.new_tensor(p.kappa), A.new_tensor(0.0))
     B = (A + S) * lam_b[:, None, :]
     if pre_pi:
-        operands = dict(pi=pi_rows(plan.meta.enc, view_b.words, factors_b,
-                                   mode))
+        # Π in the element order the mode's traversal consumes: the
+        # view's for an oriented mode, ALTO order for a recursive one.
+        oriented = (view_b is not None
+                    and heuristics.is_oriented(plan.modes[mode].traversal))
+        words = view_b.words if oriented else at_b.words
+        operands = dict(pi=pi_rows(plan.meta.enc, words, factors_b, mode))
     else:
         operands = dict(factors=factors_b)
     tau = float(np.float32(p.tau))
@@ -399,7 +439,8 @@ def _apr_mode_update(plan, view_b, mode: int, lam_b, factors_b, phi_prev,
     for step in range(p.l_max):
         if step and not (active & ~done).any():
             break                  # every active slot froze
-        Phi = _phi(plan, view_b, B, mode, p.eps_div, **operands)
+        Phi = _phi(plan, at_b, pull, view_b, B, mode, p.eps_div,
+                   **operands)
         kkt = torch.minimum(B, 1.0 - Phi).abs().amax(dim=(1, 2))
         kkt = kkt.cpu().numpy().astype(np.float64)  # one copy a step
         if step == 0:
@@ -471,6 +512,7 @@ def batched_cp_apr(ats: Sequence[AltoTensor],
     factors_k = [embed_factors([f.to(device=dev, dtype=dtype) for f in fs],
                                plan.meta.dims) for _, fs in init_factors]
     views_b = stack_tenants(_fill(list(views), cap))
+    at_b, pulls = _streams(plan, ats, views_b, cap)
     factors_b = stack_tenants(_fill(factors_k, cap))
     lam_b = stack_tenants(_fill(lam_k, cap))
     phi_b = [torch.zeros_like(A) for A in factors_b]
@@ -491,8 +533,8 @@ def batched_cp_apr(ats: Sequence[AltoTensor],
         for n in range(N):
             _note_sweep(("apr", plan, n, outer == 1, pre_pi, p))
             A, lam_new, Phi, conv, n_inner, kkt = _apr_mode_update(
-                plan, views_b[n], n, lam_b, factors_b, phi_b[n], active,
-                outer == 1, pre_pi, p)
+                plan, at_b, pulls.get(n), views_b.get(n), n, lam_b,
+                factors_b, phi_b[n], active, outer == 1, pre_pi, p)
             factors_b = list(factors_b)
             factors_b[n] = _freeze(active, A, factors_b[n])
             lam_b = _freeze(active, lam_new, lam_b)

@@ -375,7 +375,6 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
               search_budget: int | None = None,
               search_seconds: float | None = None,
               search_seed: int = 0, store_path=None,
-              oriented_only: bool = False,
               shards: int | None = None, group=None) -> ExecutionPlan:
     """Resolve heuristics + static meta into a concrete execution plan.
     ``backend`` defaults from ``device`` (`default_backend`).
@@ -402,8 +401,6 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
     names what is timed: ``"mttkrp"`` (CP-ALS) or ``"phi"`` (CP-APR); it
     is part of the store key. The device whose kind keys the store is
     ``at``'s, else ``device``. A store hit costs zero timing runs.
-    ``oriented_only`` keeps the tuner to oriented candidates (the static
-    choice must be oriented too).
 
     ``shards`` makes a sharded plan for that many ranks
     (`repro_torch.dist.cpd`): every mode oriented (`static_mode_plan`),
@@ -440,8 +437,7 @@ def make_plan(meta: AltoMeta, rank: int, *, backend: str | None = None,
             device_bytes=device_bytes if streaming_needed else None,
             search_budget_runs=search_budget,
             search_budget_s=search_seconds, search_seed=search_seed,
-            store_path=store_path, oriented_only=oriented_only,
-            shards=shards, group=group)
+            store_path=store_path, shards=shards, group=group)
         if tuned is not None:
             return tuned
     modes = tuple(static_mode_plan(meta, n, rank,
@@ -473,15 +469,16 @@ def make_class_plan(sc, **kwargs) -> ExecutionPlan:
     """`make_plan` over a shape class's canonical meta
     (`core.shapeclass`): one plan, and under ``tune=`` one plan-store
     entry (`autotune.class_plan_key`), for every tenant the class admits.
-    Every mode routes output-oriented (the canonical ``fiber_reuse`` is
-    1.0), carry or one-hot by `heuristics.choose_oriented_variant`, and
-    under ``tune=`` the tuner measures oriented candidates only: the
-    batched drivers (`core.batched`) take oriented modes alone. A tensor
-    given as ``at=`` must carry the canonical meta
+    The static plan routes every mode output-oriented (the canonical
+    ``fiber_reuse`` is 1.0), carry or one-hot by `heuristics.
+    choose_oriented_variant`; under ``tune=`` the tuner measures every
+    candidate, the recursive ones where `recursive_fits` admits the
+    class's Temp (the class dims), and may route a mode recursive. The
+    batched drivers (`core.batched`) run either traversal on the tenant
+    axis. A tensor given as ``at=`` must carry the canonical meta
     (`shapeclass.canonicalize_tensor`)."""
     from repro_torch.core import shapeclass
-    return make_plan(shapeclass.canonical_meta(sc), sc.rank,
-                     oriented_only=True, **kwargs)
+    return make_plan(shapeclass.canonical_meta(sc), sc.rank, **kwargs)
 
 
 def build_views(at: AltoTensor, plan: ExecutionPlan,
@@ -529,10 +526,12 @@ def resident_bytes(at: AltoTensor,
 
 def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
                    views: dict[int, OrientedView] | None,
-                   factors, mode: int, group=None) -> torch.Tensor:
+                   factors, mode: int, group=None,
+                   pull=None) -> torch.Tensor:
     """MTTKRP for one mode through the plan's kernel choice. A mode the
     plan routes oriented but without a view falls back to the recursive
-    traversal (same contract as `mttkrp_adaptive`). A streaming plan runs
+    traversal (same contract as `mttkrp_adaptive`), whose pull order is
+    ``pull`` when given (a bucket's, `core.batched`). A streaming plan runs
     the chunked executor over the mode's host stream. A sharded plan runs
     this rank's slice and sums the ranks of ``group`` (default the world
     group; `dist.cpd.sharded_mttkrp`)."""
@@ -554,7 +553,7 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
     if plan.backend == "cuda":
         kw = dict(r_block=mp.r_block, threads=mp.threads)
         if not oriented:
-            return ops.mttkrp(at, factors, mode, **kw)
+            return ops.mttkrp(at, factors, mode, order=pull, **kw)
         if mp.traversal is heuristics.Traversal.ORIENTED_CARRY:
             return ops.mttkrp_oriented_carry(views[mode], factors,
                                              block_m=mp.block_m, **kw)
@@ -570,12 +569,12 @@ def execute_phi(plan: ExecutionPlan, at: AltoTensor,
                 view: OrientedView | None, B: torch.Tensor, mode: int,
                 factors=None, pi: torch.Tensor | None = None,
                 eps: float = 1e-10, pre: bool | None = None,
-                group=None) -> torch.Tensor:
+                group=None, pull=None) -> torch.Tensor:
     """CP-APR Φ row reduction for one mode through the plan's kernel
     choice. Pass ``pi`` (Π rows in the view's order for an oriented mode,
     in ALTO order for a recursive one: ALTO-PRE) or ``factors``
     (ALTO-OTF), exactly one. A mode routed oriented without a view runs
-    recursive, as in `execute_mttkrp`.
+    recursive, as in `execute_mttkrp` (``pull`` too).
 
     A streaming plan takes ``factors`` under both Π policies (a
     full-stream Π is the array streaming avoids; the chunked executor
@@ -610,7 +609,7 @@ def execute_phi(plan: ExecutionPlan, at: AltoTensor,
     if plan.backend == "cuda":
         if not oriented:
             return ops.cpapr_phi(at, B, mode, factors=factors, pi=pi,
-                                 eps=eps, threads=mp.threads)
+                                 eps=eps, threads=mp.threads, order=pull)
         fn = (ops.cpapr_phi_oriented_carry
               if mp.traversal is heuristics.Traversal.ORIENTED_CARRY
               else ops.cpapr_phi_oriented)

@@ -391,19 +391,15 @@ def store_neighbors(plans: dict, meta: AltoMeta, rank: int, *,
 # ---------------------------------------------------------------------------
 
 def mode_pool(meta: AltoMeta, mode: int, rank: int, *, backend: str,
-              objective: str = "mttkrp", streaming: bool = False,
-              oriented_only: bool = False
+              objective: str = "mttkrp", streaming: bool = False
               ) -> tuple[plan_mod.ModePlan, ...]:
     """The feasible genes of one mode, the static gene FIRST: the repair
-    domain. In core `plan.candidate_mode_plans` (uncapped; its oriented
-    genes alone under ``oriented_only``); streaming, the carry traversal
-    at every rank tile and ``block_m``, its static gene first. Deduped as
-    the exhaustive tuner does (`autotune.dedupe`)."""
+    domain. In core `plan.candidate_mode_plans` (uncapped); streaming, the
+    carry traversal at every rank tile and ``block_m``, its static gene
+    first. Deduped as the exhaustive tuner does (`autotune.dedupe`)."""
     if not streaming:
         pool = plan_mod.candidate_mode_plans(meta, mode, rank,
                                              objective=objective)
-        if oriented_only:
-            pool = [g for g in pool if heuristics.is_oriented(g.traversal)]
         return autotune.dedupe(pool, backend, objective)
     static = plan_mod.static_mode_plan(meta, mode, rank, force_carry=True)
     pool = [static]
@@ -603,8 +599,7 @@ def search_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
                 device_bytes: int | None = None,
                 budget_runs: int | None = None,
                 budget_s: float | None = None, seed: int = 0,
-                persist: bool = True, store_path=None,
-                oriented_only: bool = False
+                persist: bool = True, store_path=None
                 ) -> tuple[plan_mod.ExecutionPlan, SearchReport]:
     """Budgeted GA + cost-model search; returns ``(plan, report)``.
 
@@ -612,8 +607,7 @@ def search_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     genome streaming: the pools pin the carry traversal and ``chunk_m``
     is searched over `chunk_ladder` on the slowest mode once the tiling
     genes are chosen. Without a budget the search takes a quarter of the
-    pool sizes, at least two runs per mode. ``oriented_only`` keeps the
-    pools to oriented genes (`mode_pool`).
+    pool sizes, at least two runs per mode.
 
     The same (seed, store, tensor, budget) measures the same candidates
     in the same order; only which candidate times fastest can differ.
@@ -634,7 +628,7 @@ def search_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
     kind = autotune.device_kind(at.device)
 
     pools = [mode_pool(meta, n, rank, backend=backend, objective=objective,
-                       streaming=streaming, oriented_only=oriented_only)
+                       streaming=streaming)
              for n in range(ndim)]
     if budget_runs is None and budget_s is None:
         budget_runs = max(2 * ndim, -(-sum(len(p) for p in pools) // 4))

@@ -17,7 +17,9 @@ bucket. A :class:`ShapeClass` removes the three sources of divergence:
 * **meta** is canonical: `canonical_meta` is the one `AltoMeta` every
   member shares, ``temp_rows`` the padded class dims (the only bound that
   holds for every member) and ``fiber_reuse`` 1.0, which routes every mode
-  output-oriented: the traversal whose kernels take a tenant axis.
+  of the static class plan output-oriented. A tuned class plan may route
+  a mode recursive where its Temp fits (`plan.recursive_fits`); the
+  kernels of both traversals take a tenant axis (`core.batched`).
 
 The canonical meta is a function of the class alone, so a plan made from
 it (`plan.make_class_plan`) and its plan-store key (`autotune.

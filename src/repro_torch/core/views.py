@@ -30,6 +30,9 @@ every caller shares the cached tensors (`plan.build_views` routes here).
   (`kernels.ops.pull_reduction`) sorts the same ``L·T`` Temp rows for
   every call on a (tensor, mode); `get_pull_order` keeps that order under
   keys tagged ``"pull"``, which also carry the partitioning (`AltoMeta`).
+  A bucket's driver (`core.batched`) stacks its members' cached orders
+  (`stack_pull_orders`); `invalidate` drops a member's orders with its
+  views.
 """
 from __future__ import annotations
 
@@ -211,18 +214,36 @@ def get_stream(at: AltoTensor, mode: int) -> HostStream:
     return _rebind_meta(key, _get_or_build(key, build), at)
 
 
+def pull_order(part_start_mode: torch.Tensor, temp_rows: int,
+               out_dim: int) -> PullOrder:
+    """The pull order of one tensor's ``(L,)`` partition starts of a mode
+    (`core.mttkrp.pull_pieces`), uncached; of a bucket's ``(T, L)``
+    tenant by tenant, stacked."""
+    if part_start_mode.dim() == 2:
+        return stack_pull_orders([pull_order(s, temp_rows, out_dim)
+                                  for s in part_start_mode])
+    rows, order = mttkrp_mod.pull_pieces(part_start_mode, temp_rows, out_dim)
+    return PullOrder(rows.to(torch.int32)[:, None].contiguous(), order)
+
+
+def stack_pull_orders(orders) -> PullOrder:
+    """Tenants' pull orders along a leading tenant axis: rows ``(T, L·T,
+    1)``, order ``(T, L·T)``."""
+    return PullOrder(torch.stack([o.rows for o in orders]),
+                     torch.stack([o.order for o in orders]))
+
+
 def get_pull_order(at: AltoTensor, mode: int) -> PullOrder:
     """The pull order of ``(at, mode)``: cached, sorted on a miss. The key
     adds the tensor's `AltoMeta` to the mode's content key, since the
-    order follows the partition boxes and ``temp_rows``."""
+    order follows the partition boxes and ``temp_rows``. One tensor's: a
+    bucket stacks its members' (`stack_pull_orders`)."""
+    if at.words.dim() != 2:
+        raise ValueError("get_pull_order takes one tensor: stack a "
+                         "bucket's member orders with stack_pull_orders")
     key = ("pull", *mode_fingerprint(at, mode), at.meta)
-
-    def build():
-        rows, order = mttkrp_mod.pull_pieces(
-            at.part_start[:, mode], at.meta.temp_rows[mode],
-            at.meta.dims[mode])
-        return PullOrder(rows.to(torch.int32)[:, None].contiguous(), order)
-    return _get_or_build(key, build)
+    return _get_or_build(key, lambda: pull_order(
+        at.part_start[:, mode], at.meta.temp_rows[mode], at.meta.dims[mode]))
 
 
 def build_views(at: AltoTensor, plan, route: str | None = None) -> dict:

@@ -54,7 +54,8 @@ SIGNATURES = {
     },
     "mttkrp": {
         "alto_recursive_partials": _ALTO + [_P, _P, _P, _P, _L, _L, _L, _I,
-                                            _I, _I, _I, _I, _I, _P, _P],
+                                            _I, _I, _I, _I, _I, _P]
+        + _TENANTS + [_P],
     },
     "delinearize": {
         "alto_delinearize": [_I, _I, _P, _P, _L, _I, _I, _P, _P],
@@ -69,7 +70,7 @@ SIGNATURES = {
     },
     "cpapr_phi": {
         "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [
-            _P, _L, _L, _L, _I, _I, _I, _I, _P, _P],
+            _P, _L, _L, _L, _I, _I, _I, _I, _P] + _TENANTS + [_P],
         "alto_phi_smem_limit": [_P],
     },
 }

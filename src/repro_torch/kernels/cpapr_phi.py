@@ -14,6 +14,12 @@ time (`common.window_rows` with B rows, from the card's shared memory per
 CTA): a Temp taller than one window is covered in several passes over the
 partition, and any window height gives the same bits
 (`phi_partials_windowed`).
+
+The tenant axis, as K3's (`kernels.mttkrp`): a bucket's stacked words,
+values, part_start, B ``(T, I_n, R)`` and Π ``(T, Mp, R)`` or factors
+``(T, I_m, R)`` go in one launch whose grid holds the tenants, each
+tenant with the bits of its solo launch; Temp is ``(T, L, temp_rows,
+R)``. The plain version loops over the tenants.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from repro_torch.core.encoding import AltoEncoding, extract_mode
 from repro_torch.core.mttkrp import phi_contributions
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.mttkrp import DEFAULT_THREADS
+from repro_torch.kernels.mttkrp_oriented import tenant_loop
 
 
 def phi_partials_plain(enc: AltoEncoding, mode: int, temp_rows: int,
@@ -47,12 +54,14 @@ def phi_partials_plain(enc: AltoEncoding, mode: int, temp_rows: int,
 def phi_partials(enc: AltoEncoding, mode: int, temp_rows: int, eps: float,
                  words, values, part_start, B, factors=None, pi=None,
                  r_block: int | None = None,
-                 threads: int = DEFAULT_THREADS) -> torch.Tensor:
-    """K7: per-partition Φ Temp buffers (L, temp_rows, R). Pass ``pi``
-    (Π rows in ALTO order, ALTO-PRE) or ``factors`` (ALTO-OTF)."""
+                 threads: int = DEFAULT_THREADS,
+                 window: int | None = None) -> torch.Tensor:
+    """K7: per-partition Φ Temp buffers (L, temp_rows, R), or a bucket's
+    (T, L, temp_rows, R). Pass ``pi`` (Π rows in ALTO order, ALTO-PRE) or
+    ``factors`` (ALTO-OTF); ``window`` as `phi_partials_windowed`."""
     return phi_partials_windowed(enc, mode, temp_rows, eps, words, values,
                                  part_start, B, factors, pi, r_block,
-                                 threads, window=None)
+                                 threads, window=window)
 
 
 def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
@@ -63,39 +72,44 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
     """K7 with its Temp window height given (``None``: `common.
     window_rows` of the card's shared memory). On the CPU the window
     changes nothing."""
-    L = part_start.shape[0]
-    Mp = words.shape[0]
+    lead = common.tenant_lead(values)
+    L = part_start.shape[-2]
+    Mp = values.shape[-1]
     if Mp % L:
         raise ValueError(f"stream length {Mp} not a multiple of the "
                          f"{L} partitions")
-    common.check_tensor(words, "words", torch.int32, (Mp, enc.n_words))
-    common.check_tensor(values, "values", torch.float32, (Mp,))
+    common.check_tensor(words, "words", torch.int32,
+                        lead + (Mp, enc.n_words))
+    common.check_tensor(values, "values", torch.float32, lead + (Mp,))
     common.check_tensor(part_start, "part_start", torch.int32,
-                        (L, enc.ndim))
+                        lead + (L, enc.ndim))
     factors, R = common.check_phi_operands(enc, mode, Mp, B, factors, pi,
-                                           r_block)
+                                           r_block, lead)
     if window is not None and window < 1:
         raise ValueError(f"window {window} < 1")
     tensors = [words, values, part_start, B] + (factors or [pi])
     if not common.on_cuda(*tensors):
-        return phi_partials_plain(enc, mode, temp_rows, eps, words, values,
-                                  part_start, B, factors, pi)
+        return tenant_loop(
+            lambda w, v, p, b, f, pi_: phi_partials_plain(
+                enc, mode, temp_rows, eps, w, v, p, b, f, pi_),
+            lead, words, values, part_start, B, factors, pi)
     tile = common.tile_nnz(R)
     if window is None:
         window = common.window_rows(temp_rows, R,
                                     common.smem_limit(words.device), True)
     window = min(window, temp_rows)
-    temp = torch.empty((L, temp_rows, R), dtype=torch.float32,
+    temp = torch.empty(lead + (L, temp_rows, R), dtype=torch.float32,
                        device=words.device)
     keep, args = common.alto_args(enc, mode, factors, R)
+    strides, tenants = common.tenant_args(enc, mode, R, lead)
     lib = _build.library("cpapr_phi")
     status = lib.alto_phi_partials(
         *args, words.data_ptr(), values.data_ptr(), part_start.data_ptr(),
         B.data_ptr(), None if pi is None else pi.data_ptr(), eps,
         common.decode_table(enc, words.device).data_ptr(), L,
         Mp // L, temp_rows, enc.dims[mode], window, tile, threads,
-        temp.data_ptr(), common.stream_ptr(words))
-    del keep
+        temp.data_ptr(), *tenants, common.stream_ptr(words))
+    del keep, strides
     _build.check(status, "alto_phi_partials")
-    _build.count_launch("phi_partials", Mp)
+    _build.count_launch("phi_partials", values.numel())
     return temp

@@ -38,7 +38,8 @@
 // per partition and rank tile, the Temp window in shared memory; the
 // sub-warps form the terms of a staging tile of nonzeros in parallel with
 // K1's lanes and loads, then each Temp row adds its tile terms in stream
-// order. Every Temp entry is stored once, at the end of its window.
+// order. Every Temp entry is stored once, at the end of its window. A
+// bucket's tenants are its grid's z axis, as K1's.
 //
 // Summation order, shared by all: a run or a Temp entry sums its terms in
 // stream order, from 0.0, with __fadd_rn; a term is the other modes'
@@ -60,12 +61,14 @@ namespace {
 // (tools/torch_mttkrp_lane_maps.py).
 constexpr int K1_UNROLL = 2;
 
-// The tenant axis (blockIdx.z) of the runs passes, the fix-up and the
-// split: one launch over `count` tenants of one shape class, whose
-// operands are stacked, each tenant's contiguous. A block finds its
-// tenant from blockIdx.z and its operands from the strides: the factors'
-// from factor[m], out's and B's from rows (I_n·R elements), the stream's,
-// the carries' and the slots' from n_blocks and block_m. Inside a tenant
+// The tenant axis (blockIdx.z) of the runs passes, the fix-up, the split
+// and the recursive kernels (K3, K7): one launch over `count` tenants of
+// one shape class, whose operands are stacked, each tenant's contiguous.
+// A block finds its tenant from blockIdx.z and its operands from the
+// strides: the factors' from factor[m], out's and B's from rows (I_n·R
+// elements), the stream's, the carries' and the slots' from n_blocks and
+// block_m, the recursive kernels' stream, part_start, Π and Temp from the
+// partitions (gridDim.x), chunk and temp_rows. Inside a tenant
 // the tiling, the lanes and the order of every sum are the solo launch's,
 // so a bucket's launch gives each tenant the bits of its solo launch. A
 // solo launch is one tenant with zero strides.
@@ -374,12 +377,20 @@ __device__ __forceinline__ void smem_add_cols(float* row, const float* t,
 // rows, which it adds in slot (stream) order. So each Temp entry receives
 // its terms in stream order from 0.0 whatever the window height, the tile
 // size or the lane map: the bits of recursive_partials_plain.
-template <int W, int COLS, int U>
+//
+// With BUCKET, tenant blockIdx.z of a bucket (Tenants) walks its own
+// partitions: its words, values and part_start at gridDim.x partitions
+// of `chunk` nonzeros a tenant, its factors at tn.factor, its Temp at
+// gridDim.x · temp_rows rows. Inside a tenant the CTA's work is the solo
+// launch's. A solo launch runs the instantiation without BUCKET, whose
+// tenant offsets are constant zeros.
+template <int W, int COLS, int U, bool BUCKET>
 __global__ void mttkrp_partials_smem_kernel(
-    const __grid_constant__ AltoArgs a, const uint32_t* __restrict__ words,
-    const float* __restrict__ values, const int* __restrict__ part_start,
-    int64_t chunk, int64_t temp_rows, int r_block, int window, int tile,
-    bool vec4, float* __restrict__ temp) {
+    const __grid_constant__ AltoArgs a, const __grid_constant__ Tenants tn,
+    const uint32_t* __restrict__ words, const float* __restrict__ values,
+    const int* __restrict__ part_start, int64_t chunk, int64_t temp_rows,
+    int r_block, int window, int tile, bool vec4,
+    float* __restrict__ temp) {
   extern __shared__ __align__(16) float k3_smem[];
   const int R = a.rank;
   const int rb = r_block;
@@ -395,11 +406,16 @@ __global__ void mttkrp_partials_smem_kernel(
   const int nsub = nthreads / W;
   const int wl = tid & 31;                 // lane in the warp
   const int warp_sub = (tid - wl) / W;     // the warp's first sub-warp
+  const int64_t z = BUCKET ? blockIdx.z : 0;   // the tenant
+  const int64_t L = gridDim.x;
+  int64_t foff[ALTO_MAX_MODES];
+  tenant_factor_offsets(tn, z, foff);
+  words += z * L * chunk * a.nwords;
+  values += z * L * chunk;
+  part_start += z * L * a.ndim;
+  temp += z * L * temp_rows * R;
   const int start = __ldg(part_start + l * a.ndim + a.mode);
   const int64_t s = l * chunk;
-  int64_t foff[ALTO_MAX_MODES];        // one tenant
-#pragma unroll
-  for (int m = 0; m < ALTO_MAX_MODES; ++m) foff[m] = 0;
   for (int64_t w0 = 0; w0 < temp_rows; w0 += window) {
     const int h = static_cast<int>(
         temp_rows - w0 < window ? temp_rows - w0 : window);

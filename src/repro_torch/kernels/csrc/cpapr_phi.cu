@@ -21,7 +21,8 @@
 // through byte tables (alto_coord_table); the factors of the other modes
 // are gathered through L1, not staged in shared memory. The pull into (I_n, R)
 // is ops.pull_reduction, a fixed-order sum over the partitions covering
-// each row (sort + carry_fixup), so the route is bit-repeatable.
+// each row (sort + carry_fixup), so the route is bit-repeatable. A bucket
+// of shape-class tenants (core/batched.py) is the grid's z axis, as K3's.
 #include "phi_scan.cuh"
 
 namespace {
@@ -39,14 +40,17 @@ struct PhiPartialsLaunch {
           static_cast<int>(smem));
       if (st != cudaSuccess) return static_cast<int>(st);
     }
-    kernel<<<static_cast<unsigned>(p.n_parts), p.threads, smem, p.stream>>>(
-        p.a, p.B, p.pi, p.eps, p.words, p.values, p.part_start, p.chunk,
+    const dim3 grid(static_cast<unsigned>(p.n_parts), 1,
+                    static_cast<unsigned>(p.tn.count));
+    kernel<<<grid, p.threads, smem, p.stream>>>(
+        p.a, p.tn, p.B, p.pi, p.eps, p.words, p.values, p.part_start, p.chunk,
         p.temp_rows, p.out_rows, p.window, p.tile, p.temp);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-int launch_phi_partials_smem(const AltoArgs& a, const void* B,
+int launch_phi_partials_smem(const AltoArgs& a, const Tenants& tn,
+                             const void* B,
                              const void* pi, float eps, const void* words,
                              const void* values, const void* part_start,
                              long long n_parts, long long chunk,
@@ -57,6 +61,7 @@ int launch_phi_partials_smem(const AltoArgs& a, const void* B,
       out_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   PhiArgs p = phi_args(a, B, pi, eps, words, values, threads, stream);
+  p.tn = tn;
   p.part_start = static_cast<const int*>(part_start);
   p.n_parts = n_parts;
   p.chunk = chunk;
@@ -83,8 +88,12 @@ int alto_phi_smem_limit(int* bytes) {
 }
 
 // temp is (n_parts, temp_rows, rank); every entry is written. pi is null
-// under ALTO-OTF; dtab: the byte decode tables. out_rows: the rows of B. window: Temp rows per pass,
-// tile: nonzeros per staging tile, threads: CTA size (whole warps).
+// under ALTO-OTF; dtab: the byte decode tables. out_rows: the rows of B.
+// window: Temp rows per pass, tile: nonzeros per staging tile, threads:
+// CTA size (whole warps). n_tenants stacked tenants (Tenants in
+// alto_scan.cuh): tenant_strides holds the elements between two tenants'
+// factor m (ndim entries), then between two tenants' B; null for one.
+// Each tenant's stream, Π, part_start and temp follow the previous one's.
 int alto_phi_partials(const int64_t* factor_ptrs, const int* runs,
                       int n_runs, int ndim, int nwords, int mode, int rank,
                       const void* words, const void* values,
@@ -92,13 +101,17 @@ int alto_phi_partials(const int64_t* factor_ptrs, const int* runs,
                       float eps, const void* dtab, long long n_parts,
                       long long chunk, long long temp_rows, int out_rows,
                       int window, int tile, int threads, void* temp,
+                      int n_tenants, const int64_t* tenant_strides,
                       void* stream) {
   AltoArgs a;
+  Tenants tn;
   if (!alto_make_args(&a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || dtab == nullptr)
+                      rank) || dtab == nullptr ||
+      !tenants_make(&tn, n_tenants, tenant_strides, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dtab = static_cast<const uint32_t*>(dtab);
-  return launch_phi_partials_smem(a, B, pi, eps, words, values, part_start,
+  return launch_phi_partials_smem(a, tn, B, pi, eps, words, values,
+                                  part_start,
                                   n_parts, chunk, temp_rows, out_rows,
                                   window, tile, threads, temp, stream);
 }

@@ -12,6 +12,9 @@
 // and a read-modify-write of Temp in device memory per nonzero, behind a
 // memset) ran at 750 times that bound.
 //
+// A bucket of shape-class tenants (core/batched.py) is the grid's z axis:
+// one launch for all of them, each tenant's CTAs the solo launch's.
+//
 // Design (mttkrp_partials_smem_kernel, alto_scan.cuh): K7's form over the
 // MTTKRP term. One CTA per partition and rank tile, its Temp window in
 // shared memory (no B rows, so a window holds twice K7's rows); the
@@ -31,6 +34,7 @@ namespace {
 
 struct RecursiveArgs {     // the operands of K3
   AltoArgs a;              // a.dtab: the byte decode tables
+  Tenants tn;              // the tenant axis (tenants_make)
   const uint32_t* words;
   const float* values;
   const int* part_start;
@@ -55,7 +59,9 @@ struct MttkrpPartialsLaunch {
   static int run(const RecursiveArgs& p) {
     const size_t smem =
         partials_smem_bytes(p.r_block, p.window, p.tile, false);
-    auto kernel = mttkrp_partials_smem_kernel<W, COLS, K1_UNROLL>;
+    auto kernel = p.tn.count > 1
+                      ? mttkrp_partials_smem_kernel<W, COLS, K1_UNROLL, true>
+                      : mttkrp_partials_smem_kernel<W, COLS, K1_UNROLL, false>;
     if (smem > 48 * 1024) {
       const cudaError_t st = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -63,9 +69,10 @@ struct MttkrpPartialsLaunch {
       if (st != cudaSuccess) return static_cast<int>(st);
     }
     const dim3 grid(static_cast<unsigned>(p.n_parts),
-                    static_cast<unsigned>(p.a.rank / p.r_block));
+                    static_cast<unsigned>(p.a.rank / p.r_block),
+                    static_cast<unsigned>(p.tn.count));
     kernel<<<grid, p.threads, smem, p.stream>>>(
-        p.a, p.words, p.values, p.part_start, p.chunk, p.temp_rows,
+        p.a, p.tn, p.words, p.values, p.part_start, p.chunk, p.temp_rows,
         p.r_block, p.window, p.tile, aligned4(p), p.temp);
     return static_cast<int>(cudaGetLastError());
   }
@@ -78,7 +85,10 @@ extern "C" {
 // temp is (n_parts, temp_rows, rank); every entry is written. dtab: the
 // byte decode tables; (lanes, cols): K1's lane map of r_block; window:
 // Temp rows per pass, tile: nonzeros per staging tile, threads: CTA size
-// (whole warps).
+// (whole warps). n_tenants stacked tenants (Tenants in alto_scan.cuh):
+// tenant_strides holds the elements between two tenants' factor m (ndim
+// entries), then one more entry (unused here); null for one. Each
+// tenant's stream, part_start and temp follow the previous one's.
 int alto_recursive_partials(const int64_t* factor_ptrs, const int* runs,
                             int n_runs, int ndim, int nwords, int mode,
                             int rank, const void* words, const void* values,
@@ -86,10 +96,13 @@ int alto_recursive_partials(const int64_t* factor_ptrs, const int* runs,
                             long long n_parts, long long chunk,
                             long long temp_rows, int r_block, int lanes,
                             int cols, int window, int tile, int threads,
-                            void* temp, void* stream) {
+                            void* temp, int n_tenants,
+                            const int64_t* tenant_strides, void* stream) {
   RecursiveArgs p{};
   if (!alto_make_args(&p.a, factor_ptrs, runs, n_runs, ndim, nwords, mode,
-                      rank) || dtab == nullptr || r_block < 1 ||
+                      rank) ||
+      !tenants_make(&p.tn, n_tenants, tenant_strides, ndim) ||
+      dtab == nullptr || r_block < 1 ||
       rank % r_block != 0 || lanes * cols < r_block || threads < 32 ||
       threads > 1024 || threads % 32 != 0 || chunk < 0 || temp_rows < 1 ||
       window < 1 || tile < 1 || n_parts < 0)

@@ -315,10 +315,15 @@ __global__ void phi_carry_runs_kernel(
 // K7: one CTA per partition l, Temp_l (temp_rows, R) built in shared
 // memory window by window and written once. Shared memory: the Temp
 // window and the window's B rows (window x R each), the staging tile
-// (tile x R terms) and its local rows (tile ints).
+// (tile x R terms) and its local rows (tile ints). Tenant blockIdx.z of
+// a bucket (Tenants, alto_scan.cuh) walks its own partitions (gridDim.x
+// of `chunk` nonzeros a tenant) with its own B (tn.rows), Π or factors
+// into its own Temp; inside a tenant every CTA does the solo launch's
+// work. A solo launch is one tenant with zero strides.
 template <int W, int COLS, int U>
 __global__ void phi_partials_smem_kernel(
-    const __grid_constant__ AltoArgs a, const float* __restrict__ B,
+    const __grid_constant__ AltoArgs a, const __grid_constant__ Tenants tn,
+    const float* __restrict__ B,
     const float* __restrict__ pi, float eps,
     const uint32_t* __restrict__ words, const float* __restrict__ values,
     const int* __restrict__ part_start, int64_t chunk, int64_t temp_rows,
@@ -338,11 +343,19 @@ __global__ void phi_partials_smem_kernel(
   const unsigned mask = subwarp_mask<W>();
   const int wl = tid & 31;                 // lane in the warp
   const int warp_sub = (tid - wl) / W;     // the warp's first sub-warp
+  const int64_t z = blockIdx.z;            // the tenant
+  const int64_t L = gridDim.x;
+  const int64_t Mt = L * chunk;
+  int64_t foff[ALTO_MAX_MODES];
+  tenant_factor_offsets(tn, z, foff);
+  B += z * tn.rows;
+  if (pi != nullptr) pi += z * Mt * R;
+  words += z * Mt * a.nwords;
+  values += z * Mt;
+  part_start += z * L * a.ndim;
+  temp += z * L * temp_rows * R;
   const int start = __ldg(part_start + l * a.ndim + a.mode);
   const int64_t s = l * chunk;
-  int64_t foff[ALTO_MAX_MODES];        // one tenant
-#pragma unroll
-  for (int m = 0; m < ALTO_MAX_MODES; ++m) foff[m] = 0;
   for (int64_t w0 = 0; w0 < temp_rows; w0 += window) {
     const int h = static_cast<int>(
         temp_rows - w0 < window ? temp_rows - w0 : window);
@@ -459,7 +472,7 @@ int phi_dispatch(int R, const Args& args) {
 
 struct PhiArgs {           // the operands of both Φ launches
   AltoArgs a;
-  Tenants tn;              // the runs pass's tenant axis (tenants_make)
+  Tenants tn;              // the tenant axis (tenants_make)
   const float* B;
   const float* pi;         // Π rows (ALTO-PRE) or nullptr (ALTO-OTF)
   float eps;

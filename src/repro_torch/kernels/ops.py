@@ -15,13 +15,17 @@ The chunked entries (`mttkrp_oriented_chunked`,
 stream (`core.stream.HostStream`) flows through the card in chunks, K8 /
 K9 carrying the open run from one chunk to the next.
 
-The oriented entries (`mttkrp_oriented`, `mttkrp_oriented_carry`,
-`cpapr_phi_oriented`, `cpapr_phi_oriented_carry`, `segment_merge`) also
-take a bucket of same-class tenants (`core.batched.stack_tenants`): a
-stacked view (rows ``(T, M)``, words ``(T, M, W)``, values ``(T, M)``),
-stacked factors ``(T, I_m, R)``, B and Π; each kernel then launches once
-for the whole bucket along its tenant axis (`kernels.mttkrp_oriented`)
-and returns ``(T, I_n, R)``.
+The in-core entries (`mttkrp`, `mttkrp_oriented`, `mttkrp_oriented_carry`,
+`cpapr_phi`, `cpapr_phi_oriented`, `cpapr_phi_oriented_carry`,
+`segment_merge`, `pull_reduction`) also take a bucket of same-class
+tenants (`core.batched.stack_tenants`): a stacked view (rows ``(T, M)``,
+words ``(T, M, W)``, values ``(T, M)``) or a stacked `AltoTensor` (words
+``(T, Mp, W)``, values ``(T, Mp)``, part_start ``(T, L, N)``), stacked
+factors ``(T, I_m, R)``, B and Π, and for `mttkrp` and `cpapr_phi` the
+members' pull orders stacked (``order=``, `core.views.stack_pull_orders`);
+each kernel then launches once for the whole bucket along its tenant axis
+(`kernels.mttkrp_oriented`, `kernels.mttkrp`, `kernels.cpapr_phi`) and
+returns ``(T, I_n, R)``.
 
 `timing_stats` is the measurement primitive: CUDA events on the card, the
 host clock on the CPU, one bump of `timing_runs` per call.
@@ -71,14 +75,21 @@ def pull_reduction(partials: torch.Tensor, part_start_mode: torch.Tensor,
     piece; it walks each row's pieces in sorted order. No float atomics.
     ``order`` is that sort when the caller has it (`core.views.
     get_pull_order`, cached per tensor and mode); else it is sorted here.
+
+    A bucket's ``(T, L, T_rows, R)`` partials with ``(T, L)`` starts pull
+    each tenant in its own order (stacked: rows ``(T, L·T_rows, 1)``,
+    order ``(T, L·T_rows)``) through the fix-up's tenant axis, each with
+    the bits of its solo pull, into ``(T, out_dim, R)``.
     """
-    L, T, R = partials.shape
+    lead = tuple(partials.shape[:-3])
+    L, T, R = partials.shape[-3:]
     if order is None:
-        rows, perm = core_mttkrp.pull_pieces(part_start_mode, T, out_dim)
-        order = _views.PullOrder(rows.to(torch.int32)[:, None], perm)
+        order = _views.pull_order(part_start_mode, T, out_dim)
+    pieces = torch.take_along_dim(partials.reshape(lead + (L * T, R)),
+                                  order.order[..., None], dim=-2)
     return _oriented.carry_fixup(
-        order.rows, partials.reshape(L * T, R)[order.order][:, None],
-        partials.new_zeros((out_dim, R)), threads=threads)
+        order.rows, pieces[..., None, :],
+        partials.new_zeros(lead + (out_dim, R)), threads=threads)
 
 
 def segment_merge(partials: torch.Tensor, rows: torch.Tensor,
@@ -145,15 +156,21 @@ def delinearize(enc: AltoEncoding, words: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def mttkrp(at: AltoTensor, factors, mode: int, r_block: int | None = None,
-           threads: int = _mttkrp.DEFAULT_THREADS) -> torch.Tensor:
-    """Recursive-traversal MTTKRP: K3 partials + pull reduction."""
+           threads: int = _mttkrp.DEFAULT_THREADS,
+           order: _views.PullOrder | None = None) -> torch.Tensor:
+    """Recursive-traversal MTTKRP: K3 partials + pull reduction.
+    ``order``: the pull order (`core.views.get_pull_order` of ``at`` by
+    default; a bucket's stacked tensor passes its members' orders,
+    `core.views.stack_pull_orders`)."""
     faults.inject("ops.exec")
     meta = at.meta
     partials = _mttkrp.recursive_partials(
         meta.enc, mode, meta.temp_rows[mode], at.words, at.values,
         at.part_start, factors, r_block=r_block, threads=threads)
-    return pull_reduction(partials, at.part_start[:, mode], meta.dims[mode],
-                          order=_views.get_pull_order(at, mode))
+    if order is None:
+        order = _views.get_pull_order(at, mode)
+    return pull_reduction(partials, at.part_start[..., mode],
+                          meta.dims[mode], order=order)
 
 
 def mttkrp_oriented(view: OrientedView, factors,
@@ -193,16 +210,20 @@ def mttkrp_oriented_carry(view: OrientedView, factors,
 
 def cpapr_phi(at: AltoTensor, B: torch.Tensor, mode: int, factors=None,
               pi: torch.Tensor | None = None, eps: float = 1e-10,
-              threads: int = _mttkrp.DEFAULT_THREADS) -> torch.Tensor:
+              threads: int = _mttkrp.DEFAULT_THREADS,
+              order: _views.PullOrder | None = None) -> torch.Tensor:
     """Recursive-traversal Φ: K7 partials + pull reduction. ``pi`` holds
-    the Π rows of the ALTO-ordered (padded) stream."""
+    the Π rows of the ALTO-ordered (padded) stream; ``order`` as in
+    `mttkrp`."""
     faults.inject("ops.exec")
     meta = at.meta
     partials = _phi.phi_partials(
         meta.enc, mode, meta.temp_rows[mode], eps, at.words, at.values,
         at.part_start, B, factors=factors, pi=pi, threads=threads)
-    return pull_reduction(partials, at.part_start[:, mode], meta.dims[mode],
-                          threads, _views.get_pull_order(at, mode))
+    if order is None:
+        order = _views.get_pull_order(at, mode)
+    return pull_reduction(partials, at.part_start[..., mode],
+                          meta.dims[mode], threads, order)
 
 
 def cpapr_phi_oriented(view: OrientedView, B: torch.Tensor, factors=None,

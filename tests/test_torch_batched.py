@@ -16,6 +16,11 @@ of the oriented kernels.
   K5/K6, the fix-up, the split) equals its per-tenant calls, with tenant
   t's last row equal to tenant t + 1's first; the same carries walked as
   one concatenated stream would join those two runs.
+* Recursive modes in a bucket: class plans with modes forced recursive
+  (`_route`) against the JAX package's `batched` under the same plan
+  (the tolerances above), bit for bit each member's solo run on its
+  padded tensor, a freeze and a quarantine inside such a bucket; the
+  stacked K3, K7 (OTF and PRE) and pull equal their per-tenant calls.
 """
 import dataclasses
 
@@ -33,6 +38,7 @@ from repro.sparse import synthetic as jsyn
 from repro.sparse.tensor import SparseTensor as JSparse
 from repro_torch.core import alto as talto
 from repro_torch.core import batched as tbatched
+from repro_torch.core import faults as tfaults
 from repro_torch.core import cpals as tcpals
 from repro_torch.core import cpapr as tcpapr
 from repro_torch.core import encoding as tenc
@@ -40,6 +46,9 @@ from repro_torch.core import heuristics as theur
 from repro_torch.core import mttkrp as tmttkrp
 from repro_torch.core import plan as tplan
 from repro_torch.core import shapeclass as tsc
+from repro_torch.core import views as tviews
+from repro_torch.kernels import cpapr_phi as tk7
+from repro_torch.kernels import mttkrp as tk3
 from repro_torch.kernels import mttkrp_oriented as kori
 from repro_torch.kernels import ops as tops
 from repro_torch.sparse.tensor import SparseTensor as TSparse
@@ -461,3 +470,315 @@ def test_pi_rows_of_a_bucket_equal_the_solo_rows(stacked):
             tops.delinearize(enc, words[t]), [f[t] for f in facs], mode)
             for t in range(T)])
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Recursive modes in a bucket (K3, K7 and the pull on the tenant axis)
+# ---------------------------------------------------------------------------
+
+def _route(plan, modes):
+    """``plan`` (either package's) with ``modes`` routed recursive, their
+    tiles kept: the forced class plan of a bucket with recursive modes."""
+    return dataclasses.replace(plan, modes=tuple(
+        dataclasses.replace(m, traversal=type(m.traversal).RECURSIVE)
+        if m.mode in modes else m for m in plan.modes))
+
+
+RECURSIVE = [(0,), (1, 2), (0, 1, 2)]
+
+
+@pytest.mark.parametrize("modes", RECURSIVE)
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_recursive_bucket_cp_als_matches_the_jax_package(backend, modes):
+    xs = _bucket(ALS_BUCKET)
+    sc_j, sc_t = _classes(xs)
+    jp = _route(jplan.make_class_plan(sc_j, backend="reference"), modes)
+    tp = _route(tplan.make_class_plan(sc_t, backend=backend), modes)
+    inits = _als_inits(xs, 21)
+    ref = jbatched.batched_cp_als(
+        *_jax_members(xs, sc_j, jp), [x.dims for x in xs], RANK, plan=jp,
+        n_iters=4, tol=0.0, capacity=3,
+        init_factors=[[jnp.asarray(f) for f in fs] for fs in inits])
+    ats, views = _port_members(xs, sc_t, tp)
+    assert all(set(v) == set(range(3)) - set(modes) for v in views)
+    got = tbatched.batched_cp_als(
+        ats, views, [x.dims for x in xs], RANK, plan=tp, n_iters=4,
+        tol=0.0, capacity=3,
+        init_factors=[[torch.from_numpy(f) for f in fs] for fs in inits])
+    assert got.n_sweeps == ref.n_sweeps == 4
+    for g, r in zip(got.results, ref.results):
+        np.testing.assert_allclose(g.fits, r.fits, rtol=1e-4, atol=0)
+        for a, b in zip(g.factors, r.factors):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-3)
+
+
+@pytest.mark.parametrize("policy", ["otf", "pre"])
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_recursive_bucket_cp_apr_matches_the_jax_package(backend, policy,
+                                                         monkeypatch):
+    xs = _bucket(APR_BUCKET, count_data=True)
+    sc_j, sc_t = _classes(xs)
+    modes = (0, 2)
+    jp = _route(jplan.make_class_plan(sc_j, backend="reference"), modes)
+    jp = dataclasses.replace(jp, pi_policy=type(jp.pi_policy)(policy))
+    tp = dataclasses.replace(
+        _route(tplan.make_class_plan(sc_t, backend=backend), modes),
+        pi_policy=theur.PiPolicy(policy))
+    inits = _apr_inits(xs, 22)
+    by_dims = {tuple(x.dims): init for x, init in zip(xs, inits)}
+
+    def jax_init(dims, rank, seed=0, total=1.0, dtype=jnp.float32):
+        lam, fs = by_dims[tuple(dims)]
+        return jnp.asarray(lam), [jnp.asarray(f) for f in fs]
+    monkeypatch.setattr(jcpapr, "init_factors", jax_init)
+    ref = jbatched.batched_cp_apr(
+        *_jax_members(xs, sc_j, jp), [x.dims for x in xs], RANK, plan=jp,
+        params=jcpapr.CpaprParams(k_max=4), capacity=3)
+    got = tbatched.batched_cp_apr(
+        *_port_members(xs, sc_t, tp), [x.dims for x in xs], RANK, plan=tp,
+        params=tcpapr.CpaprParams(k_max=4), capacity=3,
+        init_factors=[(torch.from_numpy(lam),
+                       [torch.from_numpy(f) for f in fs])
+                      for lam, fs in inits])
+    for x, g, r in zip(xs, got.results, ref.results):
+        assert (g.n_outer, g.n_inner_total) == (r.n_outer, r.n_inner_total)
+        assert g.traversals == list(tp.traversals())
+        np.testing.assert_allclose(g.kkt_violations, r.kkt_violations,
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g.lam.numpy(), np.asarray(r.lam),
+                                   rtol=1e-5, atol=0)
+        for a, b in zip(g.factors, r.factors):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                       atol=1e-4)
+        ll_t = tcpapr.log_likelihood(
+            talto.build(_port(x), device="cpu"), g.lam, g.factors)
+        ll_j = jcpapr.log_likelihood(jalto.build(x), r.lam, r.factors)
+        np.testing.assert_allclose(float(ll_t), float(ll_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("algorithm", ["als", "otf", "pre"])
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_recursive_bucket_equals_solo_on_padded_bitwise(backend, algorithm):
+    apr = algorithm != "als"
+    xs = _bucket(APR_BUCKET if apr else ALS_BUCKET, count_data=apr)
+    _, sc = _classes(xs)
+    plan = _route(tplan.make_class_plan(sc, backend=backend), (0, 2))
+    if apr:
+        plan = dataclasses.replace(plan,
+                                   pi_policy=theur.PiPolicy(algorithm))
+    ats, views = _port_members(xs, sc, plan)
+    dims = [x.dims for x in xs]
+    if apr:
+        p = tcpapr.CpaprParams(k_max=4, tau=0.05)
+        res = tbatched.batched_cp_apr(ats, views, dims, RANK, plan=plan,
+                                      params=p, seeds=[3, 4], capacity=3)
+    else:
+        res = tbatched.batched_cp_als(ats, views, dims, RANK, plan=plan,
+                                      n_iters=4, tol=0.0, seeds=[3, 4],
+                                      capacity=3)
+    for i, x in enumerate(xs):
+        if apr:
+            lam, fs = tcpapr.init_factors(x.dims, RANK, seed=3 + i,
+                                          total=float(ats[i].values.sum()),
+                                          device="cpu")
+            solo = tcpapr.cp_apr(ats[i], RANK, p, plan=plan, views=views[i],
+                                 factors=tbatched.embed_factors(fs, sc.dims),
+                                 lam=lam)
+            assert res.results[i].kkt_violations == solo.kkt_violations
+            assert (res.results[i].n_inner_total, res.results[i].n_outer) \
+                == (solo.n_inner_total, solo.n_outer)
+        else:
+            fs = tcpals.init_factors(x.dims, RANK, seed=3 + i, device="cpu")
+            solo = tcpals.cp_als(ats[i], RANK, n_iters=4, tol=0.0,
+                                 plan=plan, views=views[i],
+                                 factors=tbatched.embed_factors(fs, sc.dims))
+            assert res.results[i].fits == solo.fits
+        _assert_solo_bits(res.results[i], solo, x.dims)
+
+
+def test_recursive_bucket_freezes_a_converged_tenant():
+    """`test_convergence_freezes_a_converged_tenant` with every mode
+    recursive: the frozen tenant equals its solo early-stopped run."""
+    rng = np.random.default_rng(0)
+    u, v, w = (rng.random(9) + 0.5, rng.random(7) + 0.5, rng.random(5) + 0.5)
+    dense = np.einsum("i,j,k->ijk", u, v, w).astype(np.float32)
+    coords = np.argwhere(rng.random(dense.shape) < 0.4).astype(np.int32)[:100]
+    easy = TSparse((9, 7, 5), coords, dense[tuple(coords.T)])
+    hard = _port(jsyn.uniform_tensor((12, 6, 8), 128, seed=7))
+    sc = tsc.ShapeClass(dims=(16, 8, 8), nnz=128, n_partitions=8, rank=1)
+    plan = _route(tplan.make_class_plan(sc, backend="cuda"), (0, 1, 2))
+    ats, views = [], []
+    for x in (easy, hard):
+        at = tsc.canonicalize_tensor(talto.build_device(
+            tsc.pad_to_class(x, sc), n_partitions=8, compute_reuse=False,
+            device="cpu"), sc)
+        ats.append(at)
+        views.append(tplan.build_views(at, plan))
+    assert views == [{}, {}]
+    res = tbatched.batched_cp_als(ats, views, [easy.dims, hard.dims], 1,
+                                  plan=plan, n_iters=20, tol=1e-4,
+                                  capacity=2)
+    easy_r, hard_r = res.results
+    assert easy_r.n_iters < hard_r.n_iters == res.n_sweeps
+    init = tcpals.init_factors(easy.dims, 1, seed=0, device="cpu")
+    solo = tcpals.cp_als(ats[0], 1, n_iters=20, tol=1e-4, plan=plan,
+                         views=views[0],
+                         factors=tbatched.embed_factors(init, sc.dims))
+    assert easy_r.fits == solo.fits and easy_r.n_iters == solo.n_iters
+    _assert_solo_bits(easy_r, solo, easy.dims)
+
+
+@pytest.mark.parametrize("algorithm", ["als", "apr"])
+def test_recursive_bucket_quarantines_a_poisoned_slot(algorithm):
+    """A poisoned slot of a bucket with recursive modes rolls back and
+    freezes; its mates keep the clean bucket's bits."""
+    apr = algorithm == "apr"
+    xs = _bucket(APR_BUCKET if apr else ALS_BUCKET, count_data=apr)
+    _, sc = _classes(xs)
+    plan = _route(tplan.make_class_plan(sc, backend="cuda"), (0, 2))
+    ats, views = _port_members(xs, sc, plan)
+    dims = [x.dims for x in xs]
+
+    def run():
+        if apr:
+            return tbatched.batched_cp_apr(
+                ats, views, dims, RANK, plan=plan, seeds=[1, 2],
+                params=tcpapr.CpaprParams(k_max=3), capacity=3, guard=True)
+        return tbatched.batched_cp_als(ats, views, dims, RANK, plan=plan,
+                                       n_iters=4, tol=0.0, seeds=[1, 2],
+                                       capacity=3, guard=True)
+    tfaults.reset()
+    clean = run()
+    tfaults.arm("batched.nan", data={"tenant": 1}, after=1)
+    try:
+        got = run()
+    finally:
+        tfaults.reset()
+    assert clean.quarantined == [False, False]
+    assert got.quarantined == [False, True]
+    a, c = got.results[0], clean.results[0]
+    assert all(torch.equal(x, y) for x, y in zip(a.factors, c.factors))
+    assert torch.equal(a.lam, c.lam)
+    bad = got.results[1]
+    assert all(torch.isfinite(f).all() for f in bad.factors)
+    if apr:                 # rolled back to before its first outer iteration
+        assert bad.kkt_violations == []
+    else:                   # rolled back to its first sweep
+        assert bad.fits == clean.results[1].fits[:1]
+
+
+def test_a_bucket_refuses_a_streaming_plan():
+    xs = _bucket(ALS_BUCKET)
+    _, sc = _classes(xs)
+    plan = tplan.make_class_plan(sc, backend="cuda")
+    ats, views = _port_members(xs, sc, plan)
+    streamed = dataclasses.replace(plan, streaming=tplan.StreamPlan(
+        chunk_m=64, n_chunks=2, device_bytes=1, stream_bytes=2))
+    with pytest.raises(ValueError, match="streaming plan"):
+        tbatched.batched_cp_als(ats, views, [x.dims for x in xs], RANK,
+                                plan=streamed)
+
+
+@pytest.mark.parametrize("modes", [()] + RECURSIVE)
+@pytest.mark.parametrize("backend", ["cuda", "reference"])
+def test_a_bucket_stacks_streams_only_for_recursive_modes(backend, modes):
+    """The ALTO streams are stacked only when some mode runs recursive,
+    and the members' pull orders (kernel backend) only for those modes,
+    each its members' cached orders stacked."""
+    xs = _bucket(ALS_BUCKET)
+    _, sc = _classes(xs)
+    plan = _route(tplan.make_class_plan(sc, backend=backend), modes)
+    ats, views = _port_members(xs, sc, plan)
+    views_b = tbatched.stack_tenants(tbatched._fill(views, 4))
+    at_b, pulls = tbatched._streams(plan, ats, views_b, 4)
+    if not modes:
+        assert at_b is None and pulls == {}
+        return
+    members = tbatched._fill(ats, 4)
+    assert torch.equal(at_b.words, torch.stack([a.words for a in members]))
+    assert sorted(pulls) == (sorted(modes) if backend == "cuda" else [])
+    for n, order in pulls.items():
+        for t, at in enumerate(members):
+            solo = tviews.get_pull_order(at, n)
+            assert torch.equal(order.rows[t], solo.rows)
+            assert torch.equal(order.order[t], solo.order)
+
+
+@pytest.fixture(scope="module")
+def rec_bucket():
+    """Three members of one class (the APR bucket and a third), stacked,
+    with stacked factors, B and Π in ALTO order."""
+    xs = _bucket(APR_BUCKET + [("uniform_tensor", (14, 8, 7), 120, 9)],
+                 count_data=True)
+    _, sc = _classes(xs)
+    plan = tplan.make_class_plan(sc, backend="cuda")
+    ats, _ = _port_members(xs, sc, plan)
+    at_b = tbatched.stack_tenants(ats)
+    g = torch.Generator().manual_seed(3)
+    facs = [torch.rand((len(ats), I, 8), generator=g) + 0.1
+            for I in sc.dims]
+    B = [torch.rand((len(ats), I, 8), generator=g) + 0.1 for I in sc.dims]
+    return ats, at_b, facs, B
+
+
+def _stacked_and_solo(kind, ats, at_b, facs, B, mode):
+    """The stacked call of ``kind`` and its per-tenant calls, stacked."""
+    enc, T_rows = at_b.meta.enc, at_b.meta.temp_rows[mode]
+
+    def call(at, f, b):
+        if kind == "k3":
+            return tk3.recursive_partials(enc, mode, T_rows, at.words,
+                                          at.values, at.part_start, f,
+                                          r_block=4)
+        operand = (dict(factors=f) if kind == "k7-otf" else
+                   dict(pi=tbatched.pi_rows(enc, at.words, f, mode)
+                        if at.words.dim() == 3 else tmttkrp.krp_rows(
+                            tops.delinearize(enc, at.words), f, mode)))
+        if kind == "pull":
+            order = None if at is not at_b else tviews.stack_pull_orders(
+                [tviews.get_pull_order(a, mode) for a in ats])
+            return tops.cpapr_phi(at, b[mode], mode, eps=1e-10,
+                                  order=order, **operand)
+        return tk7.phi_partials(enc, mode, T_rows, 1e-10, at.words,
+                                at.values, at.part_start, b[mode],
+                                **operand)
+    got = call(at_b, facs, B)
+    want = torch.stack([call(at, [f[t] for f in facs], [b[t] for b in B])
+                        for t, at in enumerate(ats)])
+    return got, want
+
+
+@pytest.mark.parametrize("mode", range(3))
+@pytest.mark.parametrize("kind", ["k3", "k7-otf", "k7-pre", "pull"])
+def test_stacked_recursive_kernels_equal_per_tenant(rec_bucket, kind, mode):
+    ats, at_b, facs, B = rec_bucket
+    got, want = _stacked_and_solo(kind, ats, at_b, facs, B, mode)
+    assert got.shape[0] == len(ats)
+    assert torch.equal(got, want)
+
+
+def test_stacked_mttkrp_and_pull_equal_per_tenant(rec_bucket):
+    """`ops.mttkrp` on the stacked tensor: K3 on the tenant axis, then the
+    pull of each tenant in its member's cached order (stacked by the
+    caller, `views.stack_pull_orders`), each the bits of its solo call.
+    The stacked tensor has no cached order of its own."""
+    ats, at_b, facs, _ = rec_bucket
+    for mode in range(3):
+        order = tviews.stack_pull_orders(
+            [tviews.get_pull_order(at, mode) for at in ats])
+        got = tops.mttkrp(at_b, facs, mode, order=order)
+        want = torch.stack([tops.mttkrp(at, [f[t] for f in facs], mode)
+                            for t, at in enumerate(ats)])
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="stack_pull_orders"):
+            tviews.get_pull_order(at_b, mode)
+        for t, at in enumerate(ats):
+            solo = tviews.get_pull_order(at, mode)
+            assert torch.equal(order.rows[t], solo.rows)
+            assert torch.equal(order.order[t], solo.order)
+        temp = tk3.recursive_partials(
+            at_b.meta.enc, mode, at_b.meta.temp_rows[mode], at_b.words,
+            at_b.values, at_b.part_start, facs)
+        assert torch.equal(
+            tops.pull_reduction(temp, at_b.part_start[..., mode],
+                                at_b.meta.dims[mode]), got)

@@ -14,6 +14,7 @@
   stress. Every wait, join and shutdown has a timeout and the worker is a
   daemon.
 """
+import dataclasses
 import threading
 
 import numpy as np
@@ -260,10 +261,14 @@ def test_zero_warmup_second_service():
 
 
 @pytest.mark.parametrize("tune", ["auto", "search"])
-def test_tuned_class_plan_stays_oriented(monkeypatch, tmp_path, tune):
-    """The batched drivers take oriented modes only, so a class plan's
-    tuner measures oriented candidates alone, even where a recursive one
-    would time fastest; a solo plan's candidate space keeps them."""
+def test_tuned_class_plan_may_route_recursive(monkeypatch, tmp_path, tune):
+    """The class tuner measures the recursive candidates too, as the JAX
+    package's does: under a timer on which recursive wins, the exhaustive
+    tuner routes recursive every mode whose Temp `plan.recursive_fits`;
+    the budgeted search holds those genes in its pools and, warm-started
+    from a stored neighbour class (rank 2), routes recursive where they
+    fit. The service serves the tuned class bit for bit each tenant's
+    solo run on its padded tensor under that plan."""
     from repro_torch.core import autotune, heuristics, search
 
     def fake(cand_plan, at, views, factors, mode):
@@ -272,32 +277,74 @@ def test_tuned_class_plan_stays_oriented(monkeypatch, tmp_path, tune):
         return (1e-6 if recursive else 1e-3), 0.0
     monkeypatch.setattr(autotune, "_time_mttkrp", fake)
     monkeypatch.setattr(search, "_time_mttkrp", fake)
-    x = _port(uniform_tensor((9, 7, 5), 90, seed=3))
-    sc = shapeclass.classify(x, RANK)
+    xs = [_port(uniform_tensor((9, 7, 5), 90, seed=3)),
+          _port(uniform_tensor((12, 6, 8), 100, seed=4))]
+    sc = shapeclass.classify(xs[1], RANK)
+    assert sc.admits(xs[0])
     at = shapeclass.canonicalize_tensor(alto.build_device(
-        shapeclass.pad_to_class(x, sc), n_partitions=sc.n_partitions,
+        shapeclass.pad_to_class(xs[0], sc), n_partitions=sc.n_partitions,
         compute_reuse=False, device="cpu"), sc)
-    if tune == "auto":
-        solo = plan_mod.make_plan(at.meta, RANK, backend="cuda",
-                                  device="cpu", tune=tune, at=at,
-                                  store_path=tmp_path / "solo.json")
-        assert "recursive" in solo.traversals()
-    else:      # the budgeted search samples its pools: compare those
-        def pool(n, **kw):
-            return {g.traversal for g in search.mode_pool(
-                at.meta, n, RANK, backend="cuda", **kw)}
-        modes = range(len(sc.dims))
-        assert any(heuristics.Traversal.RECURSIVE in pool(n) for n in modes)
-        assert not any(heuristics.Traversal.RECURSIVE
-                       in pool(n, oriented_only=True) for n in modes)
+    fits = [plan_mod.recursive_fits(at.meta, n, RANK,
+                                    plan_mod.choose_rank_block(RANK))
+            for n in range(len(sc.dims))]
+    assert any(fits)
+    # Stored where the service looks (the test's plan store), so the
+    # service serves this plan.
+    if tune == "search":
+        assert [any(g.traversal is heuristics.Traversal.RECURSIVE
+                    for g in search.mode_pool(at.meta, n, RANK,
+                                              backend="cuda"))
+                for n in range(len(sc.dims))] == fits
+        neighbour = dataclasses.replace(sc, rank=2)
+        plan_mod.make_class_plan(neighbour, backend="cuda", device="cpu",
+                                 tune="auto", at=at)
     cls = plan_mod.make_class_plan(sc, backend="cuda", device="cpu",
-                                   tune=tune, at=at,
-                                   store_path=tmp_path / "class.json")
-    assert all(heuristics.is_oriented(m.traversal) for m in cls.modes)
+                                   tune=tune, at=at)
+    routed = [m.traversal is heuristics.Traversal.RECURSIVE
+              for m in cls.modes]
+    if tune == "auto":
+        assert routed == fits
+    else:
+        assert any(routed) and all(f for r, f in zip(routed, fits) if r)
     svc = CpdService(RANK, device="cpu", backend="cuda", capacity=2,
-                     n_iters=2, tune=tune)
-    svc.submit(x)
-    assert all(r.ok for r in svc.process())
+                     n_iters=3, tol=0.0, tune=tune)
+    ids = [svc.submit(x, seed=5 + i) for i, x in enumerate(xs)]
+    got = {r.request_id: r for r in svc.process()}
+    plan = svc._class_plan(sc)
+    assert plan == cls
+    for i, (rid, x) in enumerate(zip(ids, xs)):
+        assert got[rid].ok and got[rid].bucket_size == 2
+        padded = shapeclass.canonicalize_tensor(alto.build_device(
+            shapeclass.pad_to_class(x, sc), n_partitions=sc.n_partitions,
+            compute_reuse=False, device="cpu"), sc)
+        fs = cpals.init_factors(x.dims, RANK, seed=5 + i)
+        solo = cpals.cp_als(padded, RANK, n_iters=3, tol=0.0, plan=plan,
+                            views=plan_mod.build_views(padded, plan),
+                            factors=batched.embed_factors(fs, sc.dims))
+        res = got[rid].result
+        assert res.fits == solo.fits
+        for a, b in zip(res.factors, solo.factors):
+            assert torch.equal(a, b[:a.shape[0]])
+        assert torch.equal(res.lam, solo.lam)
+
+
+def test_a_delta_drops_its_base_pull_orders():
+    """A delta changes its tensor's partition boxes: `ingest.append_delta`
+    drops the base's cached pull orders with its views
+    (`views.invalidate_changed`), and the grown tensor sorts its own."""
+    from repro_torch.core import views as views_mod
+    x = _port(uniform_tensor((12, 6, 8), 100, seed=4))
+    at = alto.build_device(x, n_partitions=8, device="cpu")
+    key = [("pull", *views_mod.mode_fingerprint(at, n), at.meta)
+           for n in range(3)]
+    before = [views_mod.get_pull_order(at, n) for n in range(3)]
+    assert all(k in views_mod._CACHE for k in key)
+    grown = ingest.append_delta(at, np.array([[13, 2, 7], [0, 6, 8]],
+                                             np.int32), [1.0, 2.0])
+    assert not any(k in views_mod._CACHE for k in key)
+    after = views_mod.get_pull_order(grown, 0)
+    assert not torch.equal(after.rows, before[0].rows) or \
+        after.rows.shape != before[0].rows.shape
 
 
 def test_trace_counters_bounded_by_the_class_count():
