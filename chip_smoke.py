@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CP-ALS and CP-APR paths, in core and out of
-core, on one CUDA card and check them.
+core, and its LM stack's serving path, on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -167,7 +167,32 @@ sm_90a), then:
    CSF-ALL; then the three single-process examples at their default
    sizes (``examples/torch_*.py``), the end-to-end one cut after its
    first checkpoint and resumed, bit for bit the uninterrupted chain of
-   its ``cp_als(factors=)`` calls.
+   its ``cp_als(factors=)`` calls;
+16. runs the LM stack (`phase_lm`, first, after the build): serves
+   granite-moe-3b-a800m at its published size (32 layers, d_model 1536,
+   40 experts top-8, vocabulary 49,155; bf16, weights from a seeded
+   generator) through the launcher's loop (``launch.serve.generate``): 4
+   requests of 128 prompt tokens from ``make_batch``, 32 greedy tokens
+   each, twice, with equal tokens and logits (``torch.equal``) and every
+   logit finite; on every layer's routing of the prompt the ALTO sort's
+   order, slots and keeps equal the reference dispatch's bit for bit and
+   the two MoE outputs agree within K bf16 roundings of max|out| (they
+   sum a token's K contributions in other orders); then the first two
+   layers of granite and smollm-360m at full width in float32 on the card
+   against the CPU, TF32 off: each layer on the CPU layer's input and the
+   unembedding within ``rtol=1e-4, atol=1e-4·max|cpu|``, the chained
+   logits within 1e-3 (`lm_cpu_parity`), the two dispatches within K
+   float32 roundings;
+   then every architecture at full width, one repeat of its block
+   pattern (smollm-360m and granite at full depth, kimi-k2's 38.8 GB
+   included): forward, prefill and 4 decode steps at batch 2 and prompt
+   64 (the VLM: its 256-position vision prefix + 64), finite logits, ms
+   and peak memory, and prefill(S-1) + one decode step against forward
+   at S-2 and S-1 (the MoE models at a capacity where nothing drops, the
+   VLM skipped, as in the JAX test), in bf16 and, where the weights fit,
+   in float32: every layer on the forward's input to it, and the whole
+   model, within 2e-2 of max|forward| (`lm_consistency`; the whole-model
+   decode of the stacks in `LM_CHAOTIC` recorded, not gated).
 
 Every kernel-vs-plain check takes its plain reference in index order
 (PyTorch's deterministic mode, `_index_order`) and records its error
@@ -191,7 +216,10 @@ Output: a line counting the kernel-vs-plain checks with the largest
 errors beside max|plain|, a ``{"dist": {...}}`` line (step 14's runs:
 seconds, fits, launches, per-rank peak memory and each bitwise verdict),
 a ``{"formats": {...}}`` line (step 15: ms, speedups over COO, agreement,
-build seconds, storage bytes and ratios), the card's name
+build seconds, storage bytes and ratios), a ``{"lm": {...}}`` line (step
+16: the served model's prefill ms, decode ms a token, tokens/s, weight
+and peak bytes, the dispatch check; the card against the CPU; each
+architecture's ms, peak bytes and consistency errors), the card's name
 and power limit, a ``{"kernels": [...]}`` line
 (each kernel's main-path ``launches`` and ``elements``, the stream
 lengths summed over those launches, and under ``tenant_axis`` its
@@ -260,6 +288,13 @@ def _imports():
     from repro_torch.dist import cpd
     from repro_torch.launch import serve_cpd
     from repro_torch.sparse import baselines, synthetic
+    from repro_torch import configs as lm_configs
+    from repro_torch.data import pipeline as lm_pipeline
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models import blocks as lm_blocks
+    from repro_torch.models import common as lm_common
+    from repro_torch.models import model as lm_model
+    from repro_torch.models import moe as lm_moe
     return dict(alto=alto, autotune=autotune, baselines=baselines,
                 cpals=cpals, cpapr=cpapr, cpd=cpd,
                 batched=batched, ingest=ingest, shapeclass=shapeclass,
@@ -268,7 +303,10 @@ def _imports():
                 search=search, build=_build, common=common,
                 ops=ops, k3=k3,
                 k4=k4, k7=k7, kori=kori, ref=ref, synthetic=synthetic,
-                stream=stream, views=views)
+                stream=stream, views=views, lm_configs=lm_configs,
+                lm_pipeline=lm_pipeline, lm_serve=lm_launch,
+                lm_model=lm_model, lm_moe=lm_moe, lm_blocks=lm_blocks,
+                lm_common=lm_common)
 
 
 def _sync():
@@ -4641,6 +4679,384 @@ def _apr_detail(run) -> dict:
     return {k: v for k, v in run.items() if k != "res"}
 
 
+# ---------------------------------------------------------------------------
+# The LM stack (`phase_lm`): models, the ALTO-sorted MoE dispatch, serving
+# ---------------------------------------------------------------------------
+
+LM_SEED = 0
+LM_SERVE = {"arch": "granite-moe-3b-a800m", "requests": 4, "prompt": 128,
+            "tokens": 32}
+LM_ARCH_BATCH, LM_ARCH_PROMPT, LM_ARCH_DECODE = 2, 64, 4
+LM_CONSISTENCY = 2e-2      # prefill + decode against forward, relative to
+                           # max|logits| (tests/test_archs_smoke.py's bound)
+LM_CPU_RTOL = 1e-4         # card against CPU per layer, float32, TF32 off
+LM_CPU_CHAIN = 1e-3        # the chained two layers (see lm_cpu_parity)
+LM_CPU_LAYERS = 2          # depth of the card-against-CPU models
+LM_F32_MAX_BYTES = 40e9    # float32 weights the consistency check may hold
+# (arch, dtype) whose whole-model decode against forward is recorded, not
+# gated: these stacks amplify last-bit differences past the bound (one
+# unit in the last place of the weights moves the JAX package's own
+# smollm-360m logits by 0.21 at 8 layers and 0.61 at 16, and its own
+# decode misses the bound at 16 layers: tools/lm_decode_witness.py;
+# tools/torch_lm_conditioning.py for the port). Their layer-by-layer
+# check and whole-model prefill stay gated.
+LM_CHAOTIC = {("granite-moe-3b-a800m", "float32"), ("smollm-360m", "float32"),
+              ("xlstm-1.3b", "bfloat16"), ("zamba2-7b", "bfloat16")}
+
+
+def _wall(fn):
+    """(result, seconds) of ``fn()`` between two synchronizations."""
+    _sync()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync()
+    return out, time.perf_counter() - t0
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+@contextlib.contextmanager
+def _recording_moe(m):
+    """Record each `moe_ffn` call's (params, input) while the model runs."""
+    mod = m["lm_moe"]
+    calls, orig = [], mod.moe_ffn
+
+    def rec(cfg, p, x):
+        calls.append((p, x))
+        return orig(cfg, p, x)
+    mod.moe_ffn = rec
+    try:
+        yield calls
+    finally:
+        mod.moe_ffn = orig
+
+
+def lm_dispatch_check(m, cfg, calls) -> dict:
+    """On every layer's routing of the prompt: the ALTO sort's order, slots
+    and keeps equal the reference dispatch's bit for bit (the reference's
+    order: its pairs sorted by (expert, slot)), and the two MoE outputs
+    agree within K roundings of their dtype, relative to max|out| (they
+    sum a token's K contributions in other orders, each as the JAX package
+    does)."""
+    moe = m["lm_moe"]
+    K, E = cfg.experts_per_token, cfg.n_experts
+    worst, dropped = 0.0, 0
+    for i, (p, x) in enumerate(calls):
+        B, S, _ = x.shape
+        top_e = moe.route(cfg, p, x)[2]
+        C = moe._capacity(cfg, S)
+        slot_a, keep_a, _ = moe.dispatch_slots(cfg, top_e, C, True)
+        slot_r, keep_r, _ = moe.dispatch_slots(cfg, top_e, C, False)
+        flat_e = top_e.reshape(B, S * K)
+        order_a = moe._alto_sort_dispatch(flat_e, E, S)[0]
+        order_r = torch.argsort(flat_e * (S * K) + slot_r, dim=-1)
+        for name, a, r in (("slot", slot_a, slot_r), ("keep", keep_a, keep_r),
+                           ("order", order_a, order_r)):
+            if not torch.equal(a, r):
+                _fail(f"lm dispatch layer {i}: ALTO and reference {name} "
+                      "differ")
+        dropped += int((~keep_a).sum())
+        out_a, _ = moe.moe_ffn(dataclasses.replace(
+            cfg, moe_alto_dispatch=True), p, x)
+        out_r, _ = moe.moe_ffn(dataclasses.replace(
+            cfg, moe_alto_dispatch=False), p, x)
+        rel = _rel_err(out_a, out_r)
+        bound = K * torch.finfo(x.dtype).eps / 2
+        if not rel <= bound:
+            _fail(f"lm dispatch layer {i}: ALTO against reference MoE "
+                  f"output {rel} beyond K roundings ({bound})")
+        worst = max(worst, rel)
+    return {"layers": len(calls), "pairs": len(calls) * B * S * K,
+            "dropped_pairs": dropped, "order_slot_keep_equal": True,
+            "moe_out_rel_max": worst}
+
+
+def lm_serve(m) -> tuple:
+    """granite-moe-3b-a800m at its published size, bf16, seeded weights:
+    4 requests of 128 prompt tokens, 32 greedy tokens each, through the
+    launcher's loop (`launch.serve.generate`), twice."""
+    M, sv = m["lm_model"], m["lm_serve"]
+    cfg = m["lm_configs"].get_config(LM_SERVE["arch"])
+    B, P, G = LM_SERVE["requests"], LM_SERVE["prompt"], LM_SERVE["tokens"]
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+    model, init_s = _wall(lambda: M.init_model(cfg, gen, device=DEVICE))
+    batch = m["lm_pipeline"].make_batch(cfg, B, P, LM_SEED, 0, device=DEVICE)
+    _, first_s = _wall(lambda: sv.generate(cfg, model, batch, 2))
+    runs = [sv.generate(cfg, model, batch, G) for _ in range(2)]
+    for r in runs:
+        if not bool(torch.isfinite(r.logits).all()):
+            _fail("lm serve: non-finite logits")
+    if not (torch.equal(runs[0].tokens, runs[1].tokens)
+            and torch.equal(runs[0].logits, runs[1].logits)):
+        _fail("lm serve: two runs differ")
+    prompt = {k: v for k, v in batch.items() if k != "labels"}
+    with _recording_moe(m) as calls:
+        logits_a, _ = M.forward(cfg, model, prompt)
+    dispatch = lm_dispatch_check(m, cfg, calls)
+    del calls
+    logits_r, _ = M.forward(dataclasses.replace(cfg, moe_alto_dispatch=False),
+                            model, prompt)
+    out = {"arch": cfg.name, "requests": B, "prompt": P, "tokens": G,
+           "layers": cfg.n_layers, "params": M.count_params(cfg),
+           "weight_bytes": _param_bytes(model), "init_s": init_s,
+           "first_call_s": first_s,
+           "prefill_ms": [r.prefill_s * 1e3 for r in runs],
+           "decode_ms_per_token": [r.decode_s / (G - 1) * 1e3 for r in runs],
+           "decode_tokens_per_s": [B * (G - 1) / r.decode_s for r in runs],
+           "tokens_per_s": [B * G / (r.prefill_s + r.decode_s)
+                            for r in runs],
+           "rerun_bitwise": True, "dispatch": dispatch,
+           "full_depth_alto_vs_reference_logits_rel":
+               _rel_err(logits_a, logits_r),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "first_row": runs[0].tokens[0].tolist()}
+    print(f"chip_smoke: lm serve {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_experts} experts top-"
+          f"{cfg.experts_per_token}, bf16, {out['weight_bytes'] / 1e9:.2f} GB "
+          f"of weights): {B} requests × ({P} + {G}) tokens, prefill "
+          f"{out['prefill_ms']} ms, decode {out['decode_ms_per_token']} ms a "
+          f"token, {out['tokens_per_s']} tokens/s, peak "
+          f"{out['peak_bytes'] / 1e9:.2f} GB; two runs bit for bit; "
+          f"dispatch {dispatch}")
+    return out, model
+
+
+def _lm_close(label: str, got, ref, rtol: float) -> float:
+    """``got`` (any device) within ``rtol=rtol, atol=rtol·max|ref|`` of
+    ``ref``; returns max|got - ref| / max|ref|."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not torch.allclose(got, ref, rtol=rtol, atol=rtol * scale):
+        _fail(f"{label}: max_abs_err {err} beyond rtol={rtol}, "
+              f"atol={rtol}·{scale}")
+    return err / scale
+
+
+def lm_cpu_parity(m) -> dict:
+    """The first two layers of granite-moe-3b-a800m and smollm-360m at full
+    width in float32, on the card and on the CPU with the same weights,
+    TF32 off. Each layer runs on the CPU layer's input, and the final norm
+    and unembedding on the CPU's last hidden state: each within
+    ``rtol=1e-4, atol=1e-4·max|cpu|``. The chained forward's logits are
+    held to 1e-3 of max|cpu|: the JAX package's init law takes the heads
+    axis as fan-in for the attention projections, so attention logits
+    reach ~500 and one float32 rounding moves the two-layer logits by up to
+    ~1e-4 on any device (`tools/torch_lm_conditioning.py`). On the card,
+    the ALTO and reference dispatches' MoE outputs on each layer's input
+    agree within K float32 roundings."""
+    M, lc, blk = m["lm_model"], m["lm_configs"], m["lm_blocks"]
+    common = m["lm_common"]
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for arch in ("granite-moe-3b-a800m", "smollm-360m"):
+            cfg = dataclasses.replace(lc.get_config(arch),
+                                      n_layers=LM_CPU_LAYERS,
+                                      dtype="float32")
+            model_cpu = M.init_model(cfg, torch.Generator().manual_seed(
+                LM_SEED), device="cpu")
+            model_card = M.Model(cfg)
+            model_card.load_state_dict({
+                k: v.to(DEVICE) for k, v in model_cpu.state_dict().items()},
+                assign=True)
+            b_cpu = m["lm_pipeline"].make_batch(cfg, 2, LM_ARCH_PROMPT,
+                                                LM_SEED, 0, device="cpu")
+            b_cpu.pop("labels")
+            b_card = {k: v.to(DEVICE) for k, v in b_cpu.items()}
+            x, pos, _ = M._embed_inputs(cfg, model_cpu, b_cpu)
+            e = {"layers": cfg.n_layers, "layer_rel": []}
+            for i, (bt, pc, pg) in enumerate(zip(
+                    M._block_types(cfg), model_cpu.layers,
+                    model_card.layers)):
+                want, _ = blk.block_apply(cfg, bt, pc, x, positions=pos)
+                got, _ = blk.block_apply(cfg, bt, pg, x.to(DEVICE),
+                                         positions=pos.to(DEVICE))
+                e["layer_rel"].append(_lm_close(
+                    f"lm card against CPU {arch} layer {i}", got, want,
+                    LM_CPU_RTOL))
+                x = want
+            heads = [common.unembed(M.unembed_params(cfg, mod), common.rmsnorm(
+                mod.final_norm, h, cfg.norm_eps)) for mod, h in (
+                (model_cpu, x), (model_card, x.to(DEVICE)))]
+            e["head_rel"] = _lm_close(f"lm card against CPU {arch} head",
+                                      heads[1], heads[0], LM_CPU_RTOL)
+            ref, _ = M.forward(cfg, model_cpu, b_cpu)
+            with _recording_moe(m) as calls:
+                got, _ = M.forward(cfg, model_card, b_card)
+            e["chain_rel"] = _lm_close(f"lm card against CPU {arch} chain",
+                                       got, ref, LM_CPU_CHAIN)
+            if cfg.n_experts:
+                e["dispatch"] = lm_dispatch_check(m, cfg, calls)
+            out[arch] = e
+            del model_card, calls
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was[0]
+        torch.backends.cudnn.allow_tf32 = was[1]
+    print(f"chip_smoke: lm card against CPU (float32, {LM_CPU_LAYERS} layers "
+          f"at full width, TF32 off): {out}")
+    return out
+
+
+def lm_consistency(m, cfg, model, batch) -> dict:
+    """prefill(S-1) + one decode step against forward at S-2 and S-1,
+    relative to max|forward|, the caches in the weights' dtype (a check of
+    the caches, not of their rounding), as tests/test_archs_smoke.py holds
+    the JAX package, under 2e-2: (1) layer by layer, each block's prefill
+    and decode on the forward's input to that block; (2) the whole model,
+    through the embedding, whisper's position at ``index``, the final norm
+    and the vocabulary cut; its decode only recorded for the stacks of
+    `LM_CHAOTIC`, which amplify the last-bit differences between the two
+    paths past the bound (attention logits of ~500 and, in the MoE, top-k
+    choices that flip)."""
+    M, blk = m["lm_model"], m["lm_blocks"]
+    S = batch["tokens"].shape[1]
+    cache_dtype = model.embed["tokens"].dtype
+    if "positions3" in batch:
+        _fail("lm consistency: the VLM follows the JAX test's skip")
+    enc = (M._encoder(cfg, model, batch["frames"]) if cfg.is_encdec
+           else None)
+    x, pos, _ = M._embed_inputs(cfg, model, batch)
+    e_layer = [0.0, 0.0]
+    for i, (bt, p) in enumerate(zip(M._block_types(cfg), model.layers)):
+        y, _ = blk.block_apply(cfg, bt, p, x, positions=pos, enc_out=enc)
+        y_pre, cache = blk.block_prefill(
+            cfg, bt, p, x[:, :S - 1], positions=pos[:, :S - 1], enc_out=enc,
+            s_max=S, cache_dtype=cache_dtype)
+        y_dec, _ = blk.block_decode(cfg, bt, p, x[:, S - 1:], cache, S - 1)
+        scale = float(y.float().abs().max())
+        e_layer[0] = max(e_layer[0], float(
+            (y_pre.float() - y[:, :S - 1].float()).abs().max()) / scale)
+        e_layer[1] = max(e_layer[1], float(
+            (y_dec.float() - y[:, S - 1:].float()).abs().max()) / scale)
+        x = y
+    if not (e_layer[0] < LM_CONSISTENCY and e_layer[1] < LM_CONSISTENCY):
+        _fail(f"lm decode consistency {cfg.name}: a layer's prefill "
+              f"{e_layer[0]}, decode {e_layer[1]} (bound {LM_CONSISTENCY})")
+    full, _ = M.forward(cfg, model, batch)
+    pre = dict(batch)
+    pre["tokens"] = batch["tokens"][:, :S - 1]
+    lg_pre, cache = M.prefill(cfg, model, pre, s_max=S,
+                              cache_dtype=cache_dtype)
+    lg_dec, _ = M.decode_step(cfg, model, batch["tokens"][:, S - 1:], cache,
+                              S - 1)
+    V = cfg.vocab_size
+    scale = float(full.abs().max())
+    out = {"layer_prefill": e_layer[0], "layer_decode": e_layer[1],
+           "model_prefill": float(
+               (lg_pre - full[:, S - 2, :V]).abs().max()) / scale,
+           "model_decode": float(
+               (lg_dec - full[:, S - 1, :V]).abs().max()) / scale,
+           "model_decode_gated": (cfg.name, cfg.dtype) not in LM_CHAOTIC}
+    if not (out["model_prefill"] < LM_CONSISTENCY
+            and (out["model_decode"] < LM_CONSISTENCY
+                 or not out["model_decode_gated"])):
+        _fail(f"lm decode consistency {cfg.name} {cfg.dtype}: the model's "
+              f"prefill {out['model_prefill']}, decode {out['model_decode']}"
+              f" (bound {LM_CONSISTENCY})")
+    return out
+
+
+def _no_drop(cfg):
+    """The configuration with a capacity where no routing pair can drop."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
+def lm_arch(m, arch: str, model=None) -> dict:
+    """One architecture at full width (one repeat of its block pattern;
+    smollm-360m and the served granite at full depth): forward, prefill and
+    LM_ARCH_DECODE greedy decode steps at batch 2 and prompt 64 (the VLM:
+    its 256-position vision prefix + 64), finite logits, in bf16; then
+    `lm_consistency` (MoE at a capacity where nothing drops; the VLM
+    skipped, as in the JAX test) in bf16 and on the same weights in
+    float32, the JAX test's dtype, where they fit (not kimi-k2's)."""
+    M, lc = m["lm_model"], m["lm_configs"]
+    cfg = lc.get_config(arch)
+    if model is None and arch != "smollm-360m":
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))
+    torch.cuda.reset_peak_memory_stats()
+    init_s = 0.0
+    if model is None:
+        gen = torch.Generator(device=DEVICE).manual_seed(LM_SEED)
+        model, init_s = _wall(lambda: M.init_model(cfg, gen, device=DEVICE))
+    S = LM_ARCH_PROMPT + (cfg.vision_prefix if cfg.family == "vlm" else 0)
+    batch = m["lm_pipeline"].make_batch(cfg, LM_ARCH_BATCH, S, LM_SEED, 1,
+                                        device=DEVICE)
+    batch.pop("labels")
+    (logits, _), fwd_s = _wall(lambda: M.forward(cfg, model, batch))
+    (lg, cache), pre_s = _wall(lambda: M.prefill(
+        cfg, model, batch, s_max=S + LM_ARCH_DECODE))
+    finite = bool(torch.isfinite(logits).all()) and \
+        bool(torch.isfinite(lg).all())
+    dec_s = []
+    for i in range(LM_ARCH_DECODE):
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        (lg, cache), s = _wall(lambda: M.decode_step(cfg, model, tok, cache,
+                                                     S + i))
+        finite = finite and bool(torch.isfinite(lg).all())
+        dec_s.append(s)
+    if not finite:
+        _fail(f"lm {arch}: non-finite logits")
+    out = {"layers": cfg.n_layers, "params": M.count_params(cfg),
+           "weight_bytes": _param_bytes(model), "prompt": S,
+           "init_s": init_s, "forward_ms": fwd_s * 1e3,
+           "prefill_ms": pre_s * 1e3,
+           "decode_ms": [s * 1e3 for s in dec_s]}
+    del cache, logits
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if cfg.family != "vlm":
+        out["bf16"] = lm_consistency(m, _no_drop(cfg), model, batch)
+        if 2 * out["weight_bytes"] <= LM_F32_MAX_BYTES:
+            model.to(torch.float32)
+            out["float32"] = lm_consistency(
+                m, _no_drop(dataclasses.replace(cfg, dtype="float32")),
+                model, batch)
+        out["consistency_peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"chip_smoke: lm {arch} ({cfg.n_layers} layers, "
+          f"{out['weight_bytes'] / 1e9:.2f} GB): forward "
+          f"{out['forward_ms']:.2f} ms, prefill {out['prefill_ms']:.2f} ms, "
+          f"decode {[round(d, 2) for d in out['decode_ms']]} ms, peak "
+          f"{out['peak_bytes'] / 1e9:.2f} GB; decode consistency bf16 "
+          f"{out.get('bf16')}, float32 {out.get('float32')}")
+    return out
+
+
+def phase_lm(m) -> dict:
+    """The LM stack on the card: granite served at full size, the card
+    against the CPU at full width, and every architecture at full width
+    with the decode consistency check."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        serve, granite = lm_serve(m)
+        archs = {serve["arch"]: lm_arch(m, serve["arch"], granite)}
+        del granite
+        torch.cuda.empty_cache()
+        cpu = lm_cpu_parity(m)
+        for arch in m["lm_configs"].ARCHS:
+            if arch not in archs:
+                archs[arch] = lm_arch(m, arch)
+                torch.cuda.empty_cache()
+    peak = max([serve["peak_bytes"]] + [
+        max(e["peak_bytes"], e.get("consistency_peak_bytes", 0))
+        for e in archs.values()])
+    return {"serve": serve, "cpu_vs_card": cpu, "archs": archs,
+            "peak_bytes": peak, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     m = _imports()
     smi = subprocess.run(
@@ -4659,6 +5075,7 @@ def main() -> int:
                 print(f"chip_smoke: ptxas {name}: {line.strip()}")
     frames = check_stack_frames(m["build"])
     t_start = time.perf_counter()
+    lm = phase_lm(m)
     small = {"worst_err": phase_small(m), **phase_small_cp_als(m),
              "phi_worst_err": phase_small_phi(m),
              "cp_apr": phase_small_cp_apr(m),
@@ -4795,15 +5212,16 @@ def main() -> int:
         "batched": buckets, "ingest": ingested, "serve": served,
         "dist": {k: v for k, v in sharded.items() if k != "runs"},
         "formats": {k: v for k, v in formats.items() if k != "runs"},
-        "kernels": kernels, "checks": CHECKS,
+        "kernels": kernels, "checks": CHECKS, "lm": lm,
         "seconds_after_build": elapsed,
-        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        "peak_memory_bytes": max(torch.cuda.max_memory_allocated(),
+                                 lm["peak_bytes"])}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(f"chip_smoke: per-mode MTTKRP ms {per_mode}; "
           f"{elapsed:.1f} s after the build; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+          f"{detail['peak_memory_bytes'] / 1e9:.1f} GB")
     print(f"chip_smoke: {_checks_summary()}")
     print(json.dumps({"dist": detail["dist"]}))
     print(json.dumps({"formats": {
@@ -4812,6 +5230,16 @@ def main() -> int:
                                        "build_s", "storage_bytes",
                                        "storage_over_coo")}
         for t in ("chicago", "darpa")} | {"seconds": formats["seconds"]}}))
+    print(json.dumps({"lm": {
+        "serve": {k: lm["serve"][k] for k in (
+            "arch", "requests", "prompt", "tokens", "weight_bytes",
+            "prefill_ms", "decode_ms_per_token", "tokens_per_s",
+            "peak_bytes", "dispatch",
+            "full_depth_alto_vs_reference_logits_rel")},
+        "cpu_vs_card": lm["cpu_vs_card"],
+        "archs": {a: {k: v for k, v in e.items() if k != "init_s"}
+                  for a, e in lm["archs"].items()},
+        "seconds": lm["seconds"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

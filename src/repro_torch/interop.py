@@ -69,3 +69,47 @@ def factors(arrays, device=None) -> list[torch.Tensor]:
     """Factor matrices (or ``lam``) as contiguous tensors on ``device``."""
     dev = resolve_device(device)
     return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+
+
+def lm_params(cfg, tree, device=None, dtype=None):
+    """A port `models.model.Model` holding the JAX package's parameter tree.
+
+    ``tree`` is `model_def`'s layout as nested dicts of numpy arrays (the
+    JAX package's ``jax.tree.map(np.asarray, params)``): each
+    ``blocks_{pos}`` leaf's leading axis is unstacked into layer ``r ·
+    len(block_pattern) + pos``, ``enc_blocks`` into the encoder's layers.
+    ``load_state_dict`` checks every shape and raises on a missing or extra
+    leaf. ``dtype`` (default: the arrays' own) and ``device`` (default
+    ``cuda``) are the parameters'."""
+    from repro_torch.models.model import Model
+    dev = resolve_device(device)
+    plen = len(cfg.block_pattern)
+    stacked = {f"blocks_{pos}": cfg.n_repeats for pos in range(plen)}
+    if cfg.is_encdec:
+        stacked["enc_blocks"] = cfg.encoder_layers
+
+    def flat(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from flat(v, f"{prefix}.{k}")
+        else:
+            yield prefix, np.asarray(t)
+
+    state = {}
+    for top, sub in tree.items():
+        for name, a in flat(sub, top):
+            if top not in stacked:
+                state[name] = a
+                continue
+            n, rest = stacked[top], name[len(top) + 1:]
+            if a.ndim == 0 or a.shape[0] != n:
+                raise ValueError(f"{name}: leading axis {a.shape[:1]}, "
+                                 f"expected {n} stacked layers")
+            for r in range(n):
+                layer = (f"enc_layers.{r}" if top == "enc_blocks"
+                         else f"layers.{r * plen + int(top[7:])}")
+                state[f"{layer}.{rest}"] = a[r]
+    model = Model(cfg)
+    model.load_state_dict({k: torch.from_numpy(np.array(a)).to(
+        device=dev, dtype=dtype) for k, a in state.items()}, assign=True)
+    return model
