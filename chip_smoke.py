@@ -192,7 +192,38 @@ sm_90a), then:
    VLM skipped, as in the JAX test), in bf16 and, where the weights fit,
    in float32: every layer on the forward's input to it, and the whole
    model, within 2e-2 of max|forward| (`lm_consistency`; the whole-model
-   decode of the stacks in `LM_CHAOTIC` recorded, not gated).
+   decode of the stacks in `LM_CHAOTIC` recorded, not gated);
+17. trains (`phase_train`, after `phase_lm`), through the training
+   launcher ``launch.train``: (a) granite-moe-3b-a800m at its published
+   size, bf16, AdamW under ``warmup_cosine(3e-4, 20, 6)``, remat on,
+   batch 4 × 1,024 tokens from ``TokenPipeline(seed=0)``, 6 steps: every
+   loss, ce, aux and grad_norm finite, step 0's loss equal (bit for bit)
+   to `make_loss_fn` on the same weights and batch under ``no_grad``, ms
+   a step (median of steps 2-6), tokens/s and peak memory; (b) its first
+   3 steps twice under ``torch.use_deterministic_algorithms(True)``
+   (``warn_only=False``): equal losses and parameters (``torch.equal``);
+   twice more in the default mode, the largest parameter difference
+   recorded; (c) the first two layers of granite and smollm-360m at full
+   width in float32 on the card against the CPU, TF32 off: one step with
+   AdamW (and Adafactor on granite's two-layer stack), the loss within
+   1e-4 relative, each gradient leaf within 1e-2 of max|cpu|, and the
+   optimizer alone on identical gradients, parameters and state within
+   1e-6 of max|cpu| per leaf (a bfloat16 leaf, Adafactor's first moment:
+   one bfloat16 ulp of each element more); (d) the two-layer granite in
+   bf16, cut after 2 steps and resumed from the launcher's checkpoint,
+   equal (bit for bit, deterministic mode) to the uninterrupted 4-step
+   run; (e)
+   every other architecture at full width, one repeat of its pattern
+   (smollm-360m at full depth; kimi-k2 skipped: one repeat's weights and
+   gradients fill the card), two steps with its optimizer and
+   ``grad_accum`` at batch max(2, grad_accum), seq 128 (the VLM: its
+   256 vision positions + 128 tokens), finite loss and gradient norm, ms
+   and peak memory; (f) the CPD workload, ``launch.train --workload cpd``
+   on Chicago's shape (6,186 × 24 × 77 × 32, 4.86 M zipf nonzeros, rank
+   16, 10 iterations) at world size 1 over NCCL, launch counts zeroed
+   before it: K1 and the fix-up launched, no plain version on a CUDA
+   tensor, fits finite, never dropping by more than 1e-3, and equal to
+   `distributed_cp_als` called directly on the same tensor and seed.
 
 Every kernel-vs-plain check takes its plain reference in index order
 (PyTorch's deterministic mode, `_index_order`) and records its error
@@ -219,8 +250,9 @@ a ``{"formats": {...}}`` line (step 15: ms, speedups over COO, agreement,
 build seconds, storage bytes and ratios), a ``{"lm": {...}}`` line (step
 16: the served model's prefill ms, decode ms a token, tokens/s, weight
 and peak bytes, the dispatch check; the card against the CPU; each
-architecture's ms, peak bytes and consistency errors), the card's name
-and power limit, a ``{"kernels": [...]}`` line
+architecture's ms, peak bytes and consistency errors), a ``{"train":
+{...}}`` line (step 17's readings), the card's name and power limit,
+a ``{"kernels": [...]}`` line
 (each kernel's main-path ``launches`` and ``elements``, the stream
 lengths summed over those launches, and under ``tenant_axis`` its
 bucketed launches: ms against the T solo launches' ms, the plain
@@ -247,6 +279,13 @@ import threading
 import time
 
 import numpy as np
+
+# cuBLAS is deterministic in PyTorch's deterministic mode only under this
+# workspace setting, which PyTorch reads when it makes its first cuBLAS
+# handle and checks before every cuBLAS call in that mode (`phase_train`
+# (b), (d)). It must be set before CUDA starts; ":4096:8" (32 MiB) is
+# PyTorch's own default workspace on sm_90, so no other phase changes.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
@@ -295,7 +334,13 @@ def _imports():
     from repro_torch.models import common as lm_common
     from repro_torch.models import model as lm_model
     from repro_torch.models import moe as lm_moe
-    return dict(alto=alto, autotune=autotune, baselines=baselines,
+    from repro_torch import interop
+    from repro_torch.launch import train as lm_train
+    from repro_torch.optim import optimizers as lm_optim
+    from repro_torch.train import steps as lm_steps
+    return dict(interop=interop, lm_train=lm_train, lm_optim=lm_optim,
+                lm_steps=lm_steps, alto=alto, autotune=autotune,
+                baselines=baselines,
                 cpals=cpals, cpapr=cpapr, cpd=cpd,
                 batched=batched, ingest=ingest, shapeclass=shapeclass,
                 faults=faults, health=health, serve=serve_cpd,
@@ -333,16 +378,18 @@ def _check_close(name: str, got, plain) -> float:
 
 
 @contextlib.contextmanager
-def _index_order():
+def _index_order(warn_only: bool = True):
     """PyTorch's deterministic mode, for a plain version's reference. On
     the card `index_add_` adds with float atomics in no fixed order, so a
     row summed from thousands of pieces differs from run to run; in this
     mode it adds in index order, the order the plain versions state and
     the kernels keep. As a decorator (``@_index_order()``) it runs a
-    whole kernel-vs-plain check so; nested, it restores the outer mode."""
+    whole kernel-vs-plain check so; nested, it restores the outer mode.
+    ``warn_only=False`` makes an op without a deterministic form raise
+    (`phase_train`)."""
     was = (torch.are_deterministic_algorithms_enabled(),
            torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
         yield
     finally:
@@ -5057,6 +5104,347 @@ def phase_lm(m) -> dict:
             "peak_bytes": peak, "seconds": time.perf_counter() - t0}
 
 
+TRAIN_ARCH = "granite-moe-3b-a800m"
+TRAIN_STEPS = 6            # (a)
+TRAIN_RUN = ["--batch", "4", "--seq", "1024", "--lr", "3e-4", "--warmup",
+             "20", "--seed", "0", "--log-every", "1"]
+TRAIN_DET_STEPS = 3        # (b): steps of each run
+TRAIN_CPU_LOSS = 1e-4      # (c): card against CPU, loss, relative
+TRAIN_CPU_GRAD = 1e-2      # (c): each gradient leaf, of max|cpu leaf|
+TRAIN_CPU_OPT = 1e-6       # (c): the optimizer alone, of max|cpu leaf|
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 64
+TRAIN_RESUME = ["--repeats", "2", "--batch", "2", "--seq", "256",
+                "--lr", "3e-4", "--warmup", "20", "--log-every", "1"]
+TRAIN_ARCH_SEQ, TRAIN_ARCH_STEPS = 128, 2
+TRAIN_SKIP = {"kimi-k2-1t-a32b": "one repeat holds 38.8 GB of bf16 weights "
+              "and as much again of gradients, ~77 GB of the card's 80 "
+              "before optimizer state; its Adafactor path is held by (c) "
+              "and the CPU tests"}
+TRAIN_CPD = ["--workload", "cpd", "--dims", "6186,24,77,32", "--nnz",
+             "4860000", "--rank", "16", "--iters", "10", "--seed", "0",
+             "--device", "cuda"]
+
+
+def _train_args(m, arch, argv):
+    return m["lm_train"].parser().parse_args(["--arch", arch] + argv)
+
+
+def _finite_history(label, history) -> None:
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in ("loss", "ce", "aux",
+                                                  "grad_norm")):
+            _fail(f"{label}: non-finite metrics at step {h['step']}: {h}")
+
+
+def _param_copies(model) -> list:
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def train_granite(m) -> dict:
+    """(a): granite at its published size through `launch.train.train_lm`;
+    step 0's loss against `make_loss_fn` run separately under no_grad."""
+    M, tr = m["lm_model"], m["lm_train"]
+    args = _train_args(m, TRAIN_ARCH,
+                       TRAIN_RUN + ["--steps", str(TRAIN_STEPS)])
+    cfg = tr.lm_config(args)
+    model = M.init_model(cfg, torch.Generator(device=DEVICE).manual_seed(
+        args.seed), device=DEVICE)
+    batch = m["lm_pipeline"].make_batch(cfg, args.batch, args.seq,
+                                        args.seed, 0, device=DEVICE)
+    with torch.no_grad():
+        ref = float(m["lm_steps"].make_loss_fn(cfg)(model, batch)[0])
+    del model, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run, seconds = _wall(lambda: tr.train_lm(args))
+    peak = torch.cuda.max_memory_allocated()
+    _finite_history("train granite", run.history)
+    if run.history[0]["loss"] != ref:
+        _fail(f"train granite: step 0's loss {run.history[0]['loss']} is "
+              f"not the separate loss {ref}")
+    steady = sorted(run.step_s[1:])
+    ms = 1e3 * steady[len(steady) // 2]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "remat": cfg.remat,
+           "optimizer": cfg.optimizer, "batch": args.batch, "seq": args.seq,
+           "steps": args.steps, "history": run.history,
+           "step_ms": [1e3 * s for s in run.step_s], "ms_per_step": ms,
+           "tokens_per_s": args.batch * args.seq / (ms / 1e3),
+           "weight_bytes": _param_bytes(run.model), "peak_bytes": peak,
+           "step0_loss_equals_no_grad_loss": True, "seconds": seconds}
+    print(f"chip_smoke: train {cfg.name} ({cfg.n_layers} layers, bf16, "
+          f"AdamW, remat): {args.steps} steps of {args.batch} × {args.seq} "
+          f"tokens, losses {[round(h['loss'], 4) for h in run.history]}, "
+          f"{ms:.1f} ms a step (median of steps 2-{args.steps}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 1e9:.2f} GB; "
+          f"step 0 bit for bit the separate loss")
+    return out
+
+
+def train_repeat(m) -> dict:
+    """(b): the first TRAIN_DET_STEPS steps of (a) twice in deterministic
+    mode (equal bits), twice in the default mode (the spread)."""
+    tr = m["lm_train"]
+    args = _train_args(m, TRAIN_ARCH,
+                       TRAIN_RUN + ["--steps", str(TRAIN_DET_STEPS)])
+    out = {"steps": TRAIN_DET_STEPS}
+    for mode in ("deterministic", "default"):
+        runs = []
+        for _ in range(2):
+            with (_index_order(warn_only=False) if mode == "deterministic"
+                  else contextlib.nullcontext()):
+                run = tr.train_lm(args)
+            _finite_history(f"train {mode}", run.history)
+            runs.append(([h["loss"] for h in run.history],
+                         _param_copies(run.model)))
+            del run
+            torch.cuda.empty_cache()
+        (la, pa), (lb, pb) = runs
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(pa, pb))
+        out[mode] = {"losses": [la, lb], "max_param_diff": diff,
+                     "params_differ": sum(not torch.equal(a, b)
+                                          for a, b in zip(pa, pb)),
+                     "n_params": len(pa)}
+        del runs, pa, pb
+        torch.cuda.empty_cache()
+        if mode == "deterministic" and (la != lb or diff != 0.0):
+            _fail(f"train deterministic: two runs differ: losses {la} "
+                  f"against {lb}, largest parameter difference {diff}")
+    print(f"chip_smoke: train repeat ({TRAIN_DET_STEPS} steps twice): "
+          f"{out}")
+    return out
+
+
+def _leaf_grads(m, cfg, model, batch):
+    """The loss and each JAX leaf's gradient (stacked) of `make_loss_fn`."""
+    leaves = m["lm_model"].jax_leaves(model)
+    loss, _ = m["lm_steps"].make_loss_fn(cfg)(model, batch)
+    flat = iter(torch.autograd.grad(
+        loss, [p for leaf in leaves for p in leaf.params]))
+    grads = [[next(flat) for _ in leaf.params] for leaf in leaves]
+    return float(loss.detach()), leaves, grads
+
+
+def _leaf_rel(label, got, ref, bound, readings) -> None:
+    """A leaf (its layers stacked) within ``bound`` of max|ref|. A
+    bfloat16 leaf (Adafactor's first moment) may also round to the next
+    bfloat16 value where its float32 value moved by a last bit: one
+    bfloat16 ulp of each element more."""
+    with torch.no_grad():
+        got = torch.stack(got) if len(got) > 1 else got[0]
+        ref = torch.stack(ref) if len(ref) > 1 else ref[0]
+        bf16 = ref.dtype == torch.bfloat16
+        got, ref = got.float().cpu(), ref.float().cpu()
+        scale = float(ref.abs().max())
+        err = (got - ref).abs()
+        if bf16:
+            ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(
+                torch.finfo(torch.float32).tiny))) - 7)
+            err = torch.clamp_min(err - ulp, 0.0)
+        rel = float(err.max()) / scale if scale else 0.0
+        finite = bool(torch.isfinite(got).all())
+    readings[label] = rel
+    if not (finite and rel <= bound):
+        _fail(f"train card against CPU {label}: {rel} of max|cpu| "
+              f"(bound {bound}{' past one bfloat16 ulp' if bf16 else ''})")
+
+
+def train_cpu_parity(m) -> dict:
+    """(c): one step on the card and on the CPU on the same weights and
+    batch, float32, TF32 off; then each optimizer alone on identical
+    gradients, parameters and state."""
+    M, lc, interop = m["lm_model"], m["lm_configs"], m["interop"]
+    opt_mod = m["lm_optim"]
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for arch in (TRAIN_ARCH, "smollm-360m"):
+            cfg = dataclasses.replace(lc.get_config(arch),
+                                      n_layers=LM_CPU_LAYERS,
+                                      dtype="float32")
+            cpu = M.init_model(cfg, torch.Generator().manual_seed(LM_SEED),
+                               device="cpu").requires_grad_(True)
+            card = M.Model(cfg)
+            card.load_state_dict({k: v.to(DEVICE) for k, v in
+                                  cpu.state_dict().items()}, assign=True)
+            card.requires_grad_(True)
+            b_cpu = m["lm_pipeline"].make_batch(
+                cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, LM_SEED, 0, device="cpu")
+            b_card = {k: v.to(DEVICE) for k, v in b_cpu.items()}
+            loss_c, leaves_c, g_cpu = _leaf_grads(m, cfg, cpu, b_cpu)
+            loss_g, leaves_g, g_card = _leaf_grads(m, cfg, card, b_card)
+            e = {"loss_cpu": loss_c, "loss_card": loss_g,
+                 "loss_rel": abs(loss_g - loss_c) / abs(loss_c), "grad": {}}
+            if not e["loss_rel"] <= TRAIN_CPU_LOSS:
+                _fail(f"train card against CPU {arch}: loss {loss_g} "
+                      f"against {loss_c}")
+            for leaf, a, b in zip(leaves_c, g_card, g_cpu):
+                _leaf_rel(f"{arch} grad {leaf.name}", a, b, TRAIN_CPU_GRAD,
+                          e["grad"])
+            e["grad_worst"] = max(e["grad"].values())
+            names = ["adamw"] + (["adafactor"] if arch == TRAIN_ARCH else [])
+            for name in names:
+                lr = opt_mod.warmup_cosine(3e-4, 20, 10)
+                o_cpu = opt_mod.get_optimizer(name, leaves_c, lr=lr)
+                o_cpu.step(grads=g_cpu)          # a state that is not zero
+                with torch.no_grad():
+                    for pc, pg in zip(cpu.parameters(), card.parameters()):
+                        pg.copy_(pc)
+                o_card = opt_mod.get_optimizer(name, leaves_g, lr=lr)
+                interop.lm_opt_state(o_card,
+                                     interop.lm_train_tree(cpu, o_cpu)[1])
+                o_cpu.step(grads=g_cpu)
+                o_card.step(grads=[[g.to(DEVICE) for g in leaf]
+                                   for leaf in g_cpu])
+                rel = {}
+                for leaf_c, leaf_g in zip(leaves_c, leaves_g):
+                    _leaf_rel(f"{arch} {name} param {leaf_c.name}",
+                              leaf_g.params, leaf_c.params, TRAIN_CPU_OPT,
+                              rel)
+                for gc, gg in zip(o_cpu.param_groups, o_card.param_groups):
+                    for key in ("m", "v", "vr", "vc"):
+                        if key in gc:
+                            _leaf_rel(f"{arch} {name} {key} {gc['leaf']}",
+                                      [gg[key]], [gc[key]], TRAIN_CPU_OPT,
+                                      rel)
+                e[f"{name}_worst"] = max(rel.values())
+            out[arch] = e
+            del cpu, card, g_cpu, g_card, leaves_c, leaves_g
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was[0]
+        torch.backends.cudnn.allow_tf32 = was[1]
+    print(f"chip_smoke: train card against CPU (float32, {LM_CPU_LAYERS} "
+          f"layers at full width, TF32 off): " + "; ".join(
+              f"{a}: loss {e['loss_rel']:.3g}, worst gradient leaf "
+              f"{e['grad_worst']:.3g}, optimizer alone "
+              + ", ".join(f"{k[:-6]} {v:.3g}" for k, v in e.items()
+                          if k.endswith("_worst") and k != "grad_worst")
+              for a, e in out.items()))
+    return out
+
+
+def train_resume(m) -> dict:
+    """(d): the two-layer granite in bf16, cut after 2 steps and resumed
+    from the launcher's checkpoint, against the uninterrupted 4 steps, in
+    deterministic mode."""
+    import tempfile
+    tr = m["lm_train"]
+    with tempfile.TemporaryDirectory(prefix="repro_torch_train_") as d, \
+            _index_order(warn_only=False):
+        full = tr.train_lm(_train_args(m, TRAIN_ARCH,
+                                       TRAIN_RESUME + ["--steps", "4"]))
+        want = (list(full.history), _param_copies(full.model))
+        del full
+        tr.train_lm(_train_args(m, TRAIN_ARCH, TRAIN_RESUME + [
+            "--steps", "2", "--ckpt-dir", d]))
+        resumed = tr.train_lm(_train_args(m, TRAIN_ARCH, TRAIN_RESUME + [
+            "--steps", "4", "--ckpt-dir", d]))
+        got = _param_copies(resumed.model)
+        if resumed.history != want[0][2:] or not all(
+                torch.equal(a, b) for a, b in zip(got, want[1])):
+            _fail(f"train resume: the resumed run {resumed.history} is not "
+                  f"the uninterrupted one's {want[0][2:]} bit for bit")
+        out = {"layers": resumed.model.cfg.n_layers,
+               "losses": [h["loss"] for h in want[0]],
+               "resumed_bitwise": True}
+    print(f"chip_smoke: train cut after 2 steps and resumed: {out}")
+    return out
+
+
+def train_archs(m) -> dict:
+    """(e): every other architecture at full width, one repeat of its
+    pattern (smollm-360m at full depth), through the launcher."""
+    tr, lc = m["lm_train"], m["lm_configs"]
+    out = {}
+    for arch in lc.ARCHS:
+        if arch == TRAIN_ARCH:
+            continue
+        if arch in TRAIN_SKIP:
+            print(f"chip_smoke: train {arch} skipped: {TRAIN_SKIP[arch]}")
+            out[arch] = {"skipped": TRAIN_SKIP[arch]}
+            continue
+        cfg = lc.get_config(arch)
+        B = max(2, cfg.grad_accum)
+        S = TRAIN_ARCH_SEQ + (cfg.vision_prefix if cfg.family == "vlm"
+                              else 0)
+        argv = ["--steps", str(TRAIN_ARCH_STEPS), "--batch", str(B),
+                "--seq", str(S), "--log-every", "1"]
+        if arch != "smollm-360m":
+            argv += ["--repeats", "1"]
+        torch.cuda.reset_peak_memory_stats()
+        run = tr.train_lm(_train_args(m, arch, argv))
+        _finite_history(f"train {arch}", run.history)
+        out[arch] = {"layers": run.model.cfg.n_layers,
+                     "optimizer": run.model.cfg.optimizer,
+                     "grad_accum": run.model.cfg.grad_accum, "batch": B,
+                     "seq": S, "weight_bytes": _param_bytes(run.model),
+                     "step_ms": [1e3 * s for s in run.step_s],
+                     "losses": [h["loss"] for h in run.history],
+                     "grad_norms": [h["grad_norm"] for h in run.history],
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del run
+        torch.cuda.empty_cache()
+        e = out[arch]
+        print(f"chip_smoke: train {arch} ({e['layers']} layers, "
+              f"{e['optimizer']}, grad_accum {e['grad_accum']}, batch {B} "
+              f"× {S}): steps {[round(t, 1) for t in e['step_ms']]} ms, "
+              f"peak {e['peak_bytes'] / 1e9:.2f} GB, losses {e['losses']}")
+    return out
+
+
+def train_cpd(m) -> dict:
+    """(f): the launcher's CPD workload on Chicago's shape at world size 1
+    over NCCL (counted), then `distributed_cp_als` called directly."""
+    tr = m["lm_train"]
+    args = tr.parser().parse_args(TRAIN_CPD)
+    (_, _, fits), seconds, counts = _counted(
+        m, "train cpd", lambda: tr.train_cpd(args),
+        {"carry_runs", "carry_fixup"})
+    if not all(math.isfinite(f) for f in fits) or any(
+            b < a - 1e-3 for a, b in zip(fits, fits[1:])):
+        _fail(f"train cpd: fits {fits}")
+    dims = tuple(int(d) for d in args.dims.split(","))
+    x = m["synthetic"].zipf_tensor(dims, args.nnz, seed=args.seed)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{_free_port()}",
+        world_size=1, rank=0)
+    try:
+        _, _, direct = m["cpd"].distributed_cp_als(
+            x, rank=args.rank, n_iters=args.iters, seed=args.seed,
+            device=DEVICE)
+    finally:
+        torch.distributed.destroy_process_group()
+    if fits != direct:
+        _fail(f"train cpd: fits {fits} are not distributed_cp_als's "
+              f"{direct}")
+    out = {"dims": dims, "nnz": x.nnz, "rank": args.rank, "fits": fits,
+           "seconds": seconds, "launches": counts["launches"],
+           "elements": counts["elements"], "equals_direct": True}
+    print(f"chip_smoke: train cpd {dims}, {x.nnz} nonzeros, rank "
+          f"{args.rank}: fits {fits} in {seconds:.2f} s (the launcher, "
+          f"zipf draw and build included), bit for bit distributed_cp_als;"
+          f" launches {counts['launches']}")
+    return out
+
+
+def phase_train(m) -> dict:
+    """The training path on the card, (a)-(f) of step 17."""
+    t0 = time.perf_counter()
+    out = {"granite": train_granite(m)}
+    torch.cuda.empty_cache()
+    out["repeat"] = train_repeat(m)
+    out["cpu_vs_card"] = train_cpu_parity(m)
+    out["resume"] = train_resume(m)
+    out["archs"] = train_archs(m)
+    out["cpd"] = train_cpd(m)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     m = _imports()
     smi = subprocess.run(
@@ -5076,6 +5464,7 @@ def main() -> int:
     frames = check_stack_frames(m["build"])
     t_start = time.perf_counter()
     lm = phase_lm(m)
+    train = phase_train(m)
     small = {"worst_err": phase_small(m), **phase_small_cp_als(m),
              "phi_worst_err": phase_small_phi(m),
              "cp_apr": phase_small_cp_apr(m),
@@ -5104,7 +5493,7 @@ def main() -> int:
             d_str["run"], d_str["apr_run"], c_str["incore_run"],
             c_str["run"], *buckets["runs"],
             *ingested["runs"], *served["runs"], *sharded["runs"],
-            *formats["runs"]]
+            *formats["runs"], train["cpd"]]
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in m["build"].KERNELS}
     launches["elements"] = {k: sum(r["elements"][k] for r in runs)
@@ -5212,10 +5601,11 @@ def main() -> int:
         "batched": buckets, "ingest": ingested, "serve": served,
         "dist": {k: v for k, v in sharded.items() if k != "runs"},
         "formats": {k: v for k, v in formats.items() if k != "runs"},
-        "kernels": kernels, "checks": CHECKS, "lm": lm,
+        "kernels": kernels, "checks": CHECKS, "lm": lm, "train": train,
         "seconds_after_build": elapsed,
         "peak_memory_bytes": max(torch.cuda.max_memory_allocated(),
-                                 lm["peak_bytes"])}
+                                 lm["peak_bytes"],
+                                 train["granite"]["peak_bytes"])}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
@@ -5240,6 +5630,19 @@ def main() -> int:
         "archs": {a: {k: v for k, v in e.items() if k != "init_s"}
                   for a, e in lm["archs"].items()},
         "seconds": lm["seconds"]}}))
+    print(json.dumps({"train": {
+        "granite": {k: v for k, v in train["granite"].items()
+                    if k != "history"},
+        "repeat": {k: {"max_param_diff": v["max_param_diff"],
+                       "params_differ": v["params_differ"]}
+                   if isinstance(v, dict) else v
+                   for k, v in train["repeat"].items()},
+        "cpu_vs_card": {a: {k: v for k, v in e.items() if k != "grad"}
+                        for a, e in train["cpu_vs_card"].items()},
+        "resume": train["resume"], "archs": train["archs"],
+        "cpd": {k: train["cpd"][k] for k in ("fits", "seconds",
+                                             "launches")},
+        "seconds": train["seconds"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

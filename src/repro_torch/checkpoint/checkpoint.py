@@ -80,7 +80,8 @@ def _to_numpy(x) -> tuple[np.ndarray, str]:
 
 
 def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    # ascontiguousarray gives a 0-d array one axis: keep the shape
+    a = np.ascontiguousarray(a).reshape(a.shape)
     if dtype_name in _EXOTIC:
         dtype, _, common = _EXOTIC[dtype_name]
         return torch.from_numpy(a.view(common)).view(dtype)

@@ -4,7 +4,9 @@ The JAX package's objects are handed over as numpy arrays plus plain ints
 and tuples — this module imports nothing of that package — and come back
 as the port's `AltoTensor`, `OrientedView`, `HostStream` and factor
 tensors on ``device`` (default ``cuda``; a host stream stays on the
-CPU). With these, both packages compute on the same inputs.
+CPU), an LM `Model` and its optimizer's state. With these, both packages
+compute on the same inputs. `lm_train_tree` goes the other way: a
+model's parameters and optimizer state in the JAX trainer's layout.
 """
 from __future__ import annotations
 
@@ -71,11 +73,23 @@ def factors(arrays, device=None) -> list[torch.Tensor]:
     return [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` included) or tensor as a
+    CPU tensor of its dtype."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
 def lm_params(cfg, tree, device=None, dtype=None):
     """A port `models.model.Model` holding the JAX package's parameter tree.
 
     ``tree`` is `model_def`'s layout as nested dicts of numpy arrays (the
-    JAX package's ``jax.tree.map(np.asarray, params)``): each
+    JAX package's ``jax.tree.map(np.asarray, params)``, bfloat16
+    included) or CPU tensors (`lm_train_tree`'s): each
     ``blocks_{pos}`` leaf's leading axis is unstacked into layer ``r ·
     len(block_pattern) + pos``, ``enc_blocks`` into the encoder's layers.
     ``load_state_dict`` checks every shape and raises on a missing or extra
@@ -93,7 +107,7 @@ def lm_params(cfg, tree, device=None, dtype=None):
             for k, v in t.items():
                 yield from flat(v, f"{prefix}.{k}")
         else:
-            yield prefix, np.asarray(t)
+            yield prefix, _tensor(t)
 
     state = {}
     for top, sub in tree.items():
@@ -110,6 +124,59 @@ def lm_params(cfg, tree, device=None, dtype=None):
                          else f"layers.{r * plen + int(top[7:])}")
                 state[f"{layer}.{rest}"] = a[r]
     model = Model(cfg)
-    model.load_state_dict({k: torch.from_numpy(np.array(a)).to(
-        device=dev, dtype=dtype) for k, a in state.items()}, assign=True)
+    model.load_state_dict({k: a.to(device=dev, dtype=dtype)
+                           for k, a in state.items()}, assign=True)
     return model
+
+
+def _put(tree: dict, path: str, value) -> None:
+    *heads, last = path.split(".")
+    for h in heads:
+        tree = tree.setdefault(h, {})
+    tree[last] = value
+
+
+def _get(tree: dict, path: str):
+    for h in path.split("."):
+        tree = tree[h]
+    return tree
+
+
+def lm_train_tree(model, optimizer) -> tuple[dict, dict]:
+    """``(params, opt_state)`` in the JAX trainer's layout, as CPU tensors:
+    `model_def`'s tree with each stacked leaf's layers stacked, and the
+    optimizer's ``{"count", "m", "v"}`` (AdamW) or ``{"count", "m",
+    "vr", "vc"}`` (Adafactor) over the same tree; ``count`` int32. This
+    is the tree the JAX launcher checkpoints."""
+    from repro_torch.models.model import jax_leaves
+    params: dict = {}
+    for leaf in jax_leaves(model):
+        ps = [p.detach().cpu() for p in leaf.params]
+        _put(params, leaf.name, torch.stack(ps) if leaf.stacked else ps[0])
+    state: dict = {"count": torch.tensor(optimizer.count,
+                                         dtype=torch.int32)}
+    for group in optimizer.param_groups:
+        for key in _state_keys(group):
+            _put(state.setdefault(key, {}), group["leaf"],
+                 group[key].detach().cpu())
+    return params, state
+
+
+def _state_keys(group: dict) -> list[str]:
+    return [k for k in ("m", "v", "vr", "vc") if k in group]
+
+
+def lm_opt_state(optimizer, tree: dict) -> None:
+    """Load the JAX optimizer state ``tree`` (``{"count", "m", "v"}`` or
+    ``{"count", "m", "vr", "vc"}``, numpy arrays or CPU tensors, each leaf
+    in the stacked shape, bfloat16 included) into ``optimizer`` in place;
+    raises on a missing leaf or a wrong shape."""
+    for group in optimizer.param_groups:
+        for key in _state_keys(group):
+            t = _tensor(_get(tree[key], group["leaf"]))
+            if tuple(t.shape) != tuple(group[key].shape):
+                raise ValueError(f"{key}.{group['leaf']}: shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{tuple(group[key].shape)}")
+            group[key].copy_(t)
+    optimizer.count = int(np.asarray(tree["count"]))

@@ -42,15 +42,19 @@ def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
-def _leaves(defs: Tree) -> list:
-    """A def tree's leaves in sorted-key order (JAX's flatten order)."""
+def def_paths(defs: Tree, prefix: str = "") -> dict:
+    """A def tree's leaves by dotted path, in sorted-key order (JAX's
+    flatten order)."""
     if is_def(defs):
-        return [defs]
-    return [leaf for k in sorted(defs) for leaf in _leaves(defs[k])]
+        return {prefix: defs}
+    out = {}
+    for k in sorted(defs):
+        out.update(def_paths(defs[k], f"{prefix}.{k}" if prefix else k))
+    return out
 
 
 def n_params(defs: Tree) -> int:
-    return sum(int(np.prod(d.shape)) for d in _leaves(defs))
+    return sum(int(np.prod(d.shape)) for d in def_paths(defs).values())
 
 
 def _init_one(d: ParamDef, generator: torch.Generator, dtype,
@@ -89,8 +93,8 @@ class ParamModule(nn.Module):
     """A def tree as a module: each `ParamDef` a parameter, created empty on
     ``meta``, each dict a submodule. Fill it with ``load_state_dict(...,
     assign=True)``, which raises on a missing or extra key and on a wrong
-    shape. Inference only in this slice, so parameters do not require
-    grad."""
+    shape. Parameters are created frozen (serving); a trainer turns them
+    on with ``requires_grad_(True)``."""
 
     def __init__(self, defs: dict):
         super().__init__()

@@ -8,9 +8,13 @@ The module-level functions take the model where the JAX package takes
 
 The JAX package scans over ``n_repeats`` stacked copies of the block
 pattern, under remat and jit; here the depth is a Python loop over the
-layers, run eagerly, with no remat. Layer ``r · len(block_pattern) + pos``
-is the JAX package's ``blocks_{pos}`` leaf ``r``. Caches are lists with
-one entry per layer.
+layers, run eagerly. Layer ``r · len(block_pattern) + pos`` is the JAX
+package's ``blocks_{pos}`` leaf ``r``; `jax_leaves` groups the layers'
+parameters into those stacked leaves, which the optimizers and the
+gradient compressors work on. With grad enabled and ``cfg.remat``, each
+repeat of the pattern (and each encoder layer) runs under
+`torch.utils.checkpoint`, as the JAX package wraps them in
+`jax.checkpoint`. Caches are lists with one entry per layer.
 
 Families: dense/moe/ssm/hybrid decoder-only LMs; vlm (stub patch-embedding
 prefix + M-RoPE positions); audio (whisper-style encoder-decoder with stub
@@ -18,19 +22,21 @@ frame embeddings).
 """
 from __future__ import annotations
 
-from typing import Any
+import functools
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (ParamDef, ParamModule, embed,
-                                       embed_def, is_def, materialize,
-                                       n_params, named_defs, rmsnorm,
-                                       rmsnorm_def, unembed)
+                                       def_paths, embed_def, is_def,
+                                       materialize, n_params, named_defs,
+                                       rmsnorm, rmsnorm_def, unembed)
 
 Tree = Any
 
@@ -96,6 +102,62 @@ class Model(nn.Module):
         return forward(self.cfg, self, batch)
 
 
+class Leaf(NamedTuple):
+    """One leaf of the JAX package's parameter tree: its dotted path in
+    `model_def`, the port's parameters that make it up (one a repeat for
+    a stacked leaf, in repeat order) and whether it is stacked."""
+    name: str
+    params: list
+    stacked: bool
+
+
+def jax_leaves(model: Model) -> list[Leaf]:
+    """The JAX package's parameter leaves in `jax.tree.flatten` order
+    (sorted keys). ``blocks_{pos}`` lists its ``n_repeats`` layers,
+    ``enc_blocks`` the encoder's layers; every other leaf one tensor."""
+    cfg = model.cfg
+    plen = len(cfg.block_pattern)
+    out = []
+    for path in def_paths(model_def(cfg)):
+        top, _, rest = path.partition(".")
+        if top.startswith("blocks_"):
+            pos = int(top[len("blocks_"):])
+            layers = [model.layers[r * plen + pos]
+                      for r in range(cfg.n_repeats)]
+        elif top == "enc_blocks":
+            layers = list(model.enc_layers)
+        else:
+            out.append(Leaf(path, [model.get_parameter(path)], False))
+            continue
+        out.append(Leaf(path, [m.get_parameter(rest) for m in layers], True))
+    return out
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of matmuls without batch
+    dimensions (``mm``, ``addmm``, and the one-batch ``bmm`` that
+    `torch.einsum` makes of a contraction without batch axes), recompute
+    the rest, as JAX's ``dots_with_no_batch_dims_saveable``."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op is aten.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, *args, dots: bool = False):
+    """``fn(*args)``, under `torch.utils.checkpoint` when grad is enabled:
+    its activations are recomputed in the backward (``dots``: but for the
+    matmuls `_save_dots` keeps). Changes memory, never values."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {}
+    if dots:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device=None) -> Model:
     """A model with weights drawn by `materialize` on ``device`` (default
@@ -123,9 +185,14 @@ def _encoder(cfg: ModelConfig, model: Model, frames):
     B, S, D = frames.shape
     x = frames + _sinusoidal(S, D, frames.dtype, frames.device)[None]
     positions = torch.arange(S, device=x.device)[None, :]
+
+    def layer(p, x):
+        return blk.block_apply(cfg, "attn", p, x, positions=positions,
+                               causal=False)[0]
+
     for p in model.enc_layers:
-        x, _ = blk.block_apply(cfg, "attn", p, x, positions=positions,
-                               causal=False)
+        x = (remat(functools.partial(layer, p), x) if cfg.remat
+             else layer(p, x))
     return rmsnorm(model.enc_norm, x, cfg.norm_eps)
 
 
@@ -152,10 +219,22 @@ def forward_hidden(cfg: ModelConfig, model: Model, batch):
         enc_out = _encoder(cfg, model, batch["frames"])
     x, positions, positions3 = _embed_inputs(cfg, model, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bt, p in zip(_block_types(cfg), model.layers):
-        x, a = blk.block_apply(cfg, bt, p, x, positions=positions,
-                               positions3=positions3, enc_out=enc_out)
-        aux = aux + a
+    types, plen = _block_types(cfg), len(cfg.block_pattern)
+
+    def repeat(r, x, aux):
+        for i in range(r * plen, (r + 1) * plen):
+            x, a = blk.block_apply(cfg, types[i], model.layers[i], x,
+                                   positions=positions,
+                                   positions3=positions3, enc_out=enc_out)
+            aux = aux + a
+        return x, aux
+
+    for r in range(cfg.n_repeats):
+        if cfg.remat:
+            x, aux = remat(functools.partial(repeat, r), x, aux,
+                           dots=cfg.remat_policy != "nothing")
+        else:
+            x, aux = repeat(r, x, aux)
     return rmsnorm(model.final_norm, x, cfg.norm_eps), aux
 
 

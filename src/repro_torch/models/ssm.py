@@ -54,13 +54,17 @@ def ssd_chunked(a, Bm, X, Cm, chunk: int):
     total = cum[:, :, -1:, :]                          # (B,nc,1,H)
 
     # --- intra-chunk (parallel attention-like form) ---
-    # L[i,j] = exp(cum_i - cum_j) for i >= j; above the diagonal exp can
-    # overflow, so it is dropped by `where` (a 0/1 product gives inf·0)
+    # L[i,j] = exp(cum_i - cum_j) for i >= j. Above the diagonal the
+    # difference can pass float32's exp range: it is masked to -inf
+    # before the exponential, so exp gives 0 there and so does its
+    # gradient. (The JAX package masks after exp, where its backward
+    # multiplies the masked zero by exp's inf: NaN gradients once the
+    # decay sums pass ~88, at full width. The values are the same.)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B,nc,Q,Q,H)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=a.device))
-    L = torch.where(causal[None, None, :, :, None], torch.exp(diff),
-                    torch.zeros((), device=a.device))
+    L = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                              float("-inf")))
     scores = einsum("bcihn,bcjhn->bcijh", Ch, Bh)    # (B,nc,Q,Q,H)
     y_intra = einsum("bcijh,bcjhp->bcihp", scores * L, Xc)
 

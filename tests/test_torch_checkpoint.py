@@ -152,3 +152,12 @@ def test_async_checkpointer_keeps_the_newest(tmp_path):
     assert torch.equal(got["a"], torch.full((1000,), 5.0))
     assert manifest["data_step"] == 5
     assert not any(d.endswith(".tmp") for d in os.listdir(tmp_path))
+
+
+def test_scalar_leaf_round_trip(tmp_path):
+    """A 0-d leaf (an optimizer's step count) restores without an axis."""
+    tree = {"count": torch.tensor(7, dtype=torch.int32), "w": torch.ones(3)}
+    tck.save(str(tmp_path), 1, tree)
+    got, _ = tck.restore(str(tmp_path), 1, tree, device="cpu")
+    assert got["count"].shape == () and int(got["count"]) == 7
+    assert got["count"].dtype == torch.int32

@@ -1,5 +1,7 @@
 """Helpers of the LM-stack parity tests (not collected): draw parameters
 with the JAX package, hand them to the port as numpy, compare."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -255,3 +257,52 @@ def check_init_cache(arch):
     gl, _ = tM.decode_step(cfg_t, model, torch.from_numpy(tok), gc, 0)
     assert_close_to_max(gl, wl, max(CHAIN_REL.get(arch, LOGITS_REL),
                                     BF16_CACHE_REL), "decode from init")
+
+
+# ---------------------------------------------------------------------
+# training: carried weights, batches with labels, JAX trees by path
+# ---------------------------------------------------------------------
+
+# Three stacks amplify float32 rounding through their backward: one ulp
+# of every weight moves the JAX package's own gradient, relative to each
+# leaf's max, by 3.7e-3 to 7.0e-3 (whisper), 7.1e-2 to 7.3e-2 (xlstm) and
+# 1.1e-4 to 3.3e-4 (zamba2) over three draws
+# (`tools/torch_lm_grad_witness.py`). Their chained gradients are held at
+# about three times that, and every layer's VJP alone at 1e-5 on the JAX
+# layer's input (`test_torch_train_layers.py`).
+GRAD_CHAIN_REL = {"whisper-base": 2e-2, "xlstm-1.3b": 0.2,
+                  "zamba2-7b": 1e-3}
+TRAIN_LOSS_REL = 1e-5      # loss, ce, aux: |port - JAX| / |JAX|
+TRAIN_B, TRAIN_S = 4, 16
+
+
+def train_configs(arch, **over):
+    """The reduced configuration of ``arch`` in both packages, with the
+    same fields changed."""
+    return (dataclasses.replace(jreduced(arch), **over),
+            dataclasses.replace(treduced(arch), **over))
+
+
+def carried_train(cfg_j, cfg_t, seed=0):
+    """(JAX params, port model) on the same perturbed JAX weights for the
+    given (possibly modified) configurations."""
+    tree = perturb(jax_params(jM.model_def(cfg_j), seed),
+                   np.random.default_rng(seed), 0.02)
+    return (jax.tree.map(jnp.asarray, tree),
+            interop.lm_params(cfg_t, tree, device="cpu"))
+
+
+def train_batches(cfg_j, cfg_t, step=0):
+    """Each package's `make_batch` (labels kept) for data step ``step``."""
+    return (jmake(cfg_j, TRAIN_B, TRAIN_S, 0, step),
+            tmake(cfg_t, TRAIN_B, TRAIN_S, 0, step, device="cpu"))
+
+
+def paths(tree, prefix=""):
+    """A nested dict's leaves by dotted path, in sorted-key order."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(paths(tree[k], f"{prefix}.{k}" if prefix else k))
+    return out
