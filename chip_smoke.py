@@ -223,7 +223,26 @@ sm_90a), then:
    16, 10 iterations) at world size 1 over NCCL, launch counts zeroed
    before it: K1 and the fix-up launched, no plain version on a CUDA
    tensor, fits finite, never dropping by more than 1e-3, and equal to
-   `distributed_cp_als` called directly on the same tensor and seed.
+   `distributed_cp_als` called directly on the same tensor and seed;
+18. pipelines and dry-runs it (`phase_mesh`, after `phase_train`): (a)
+   granite-moe-3b-a800m at its published size (bf16, remat, seeded
+   weights, batch 4 × 1,024) as 2 GPipe stages of 16 layers
+   (`dist.pipeline`) on two gloo ranks spawned on the one card, 4
+   microbatches, activations and gradients staged through pinned host
+   buffers; on each rank the logits and loss equal, bit for bit, the 4
+   microbatches through `model.forward` one after another on the whole
+   model (deterministic mode), and each of its gradient leaves lies
+   within 1e-3 of max|reference| (how many are bit for bit is counted);
+   each rank's step ms, peak memory and staged bytes, and the whole-batch
+   forward's distance with its witness layer by layer (recorded, not
+   gated: where it starts, whether the routing is equal, and how far one
+   unit in the last place of the embedding travels); (b) the dry run
+   (`launch.dryrun`) of that training step (AdamW) on a (1, 1) mesh over
+   a fake one-rank group: its per-device argument bytes equal the
+   parameters, AdamW state and batch allocated on the card, its FLOPs
+   equal `FlopCounterMode` on one real step; and the model-FLOP share of
+   (a)'s `phase_train` step, ``model_flops / (ms · 989e12)``, beside the
+   card's name and power limit.
 
 Every kernel-vs-plain check takes its plain reference in index order
 (PyTorch's deterministic mode, `_index_order`) and records its error
@@ -251,7 +270,8 @@ build seconds, storage bytes and ratios), a ``{"lm": {...}}`` line (step
 16: the served model's prefill ms, decode ms a token, tokens/s, weight
 and peak bytes, the dispatch check; the card against the CPU; each
 architecture's ms, peak bytes and consistency errors), a ``{"train":
-{...}}`` line (step 17's readings), the card's name and power limit,
+{...}}`` line (step 17's readings), a ``{"mesh": {...}}`` line (step
+18's), the card's name and power limit,
 a ``{"kernels": [...]}`` line
 (each kernel's main-path ``launches`` and ``elements``, the stream
 lengths summed over those launches, and under ``tenant_axis`` its
@@ -338,7 +358,11 @@ def _imports():
     from repro_torch.launch import train as lm_train
     from repro_torch.optim import optimizers as lm_optim
     from repro_torch.train import steps as lm_steps
-    return dict(interop=interop, lm_train=lm_train, lm_optim=lm_optim,
+    from repro_torch.dist import pipeline as lm_pp
+    from repro_torch.launch import dryrun as lm_dryrun
+    from repro_torch.launch import roofline as lm_roofline
+    return dict(lm_pp=lm_pp, lm_dryrun=lm_dryrun, lm_roofline=lm_roofline,
+                interop=interop, lm_train=lm_train, lm_optim=lm_optim,
                 lm_steps=lm_steps, alto=alto, autotune=autotune,
                 baselines=baselines,
                 cpals=cpals, cpapr=cpapr, cpd=cpd,
@@ -5444,6 +5468,416 @@ def phase_train(m) -> dict:
     out["seconds"] = time.perf_counter() - t0
     return out
 
+MESH_STAGES = 2             # (a): gloo ranks sharing the one card
+MESH_MICRO = 4              # (a): microbatches of TRAIN_RUN's batch
+MESH_GRAD_TOL = 1e-3        # (a): each gradient leaf, of max|reference|
+MESH_TIMEOUT_S = 600.0
+
+
+def _grad_readings(got: dict, ref: dict) -> dict:
+    """Per parameter: the largest difference of max|ref| and whether the
+    two are equal bit for bit."""
+    out = {}
+    for name, g in got.items():
+        r = ref[name]
+        scale = float(r.float().abs().max())
+        diff = (g.float() - r.float()).abs()
+        err = float(diff.max())
+        out[name] = {"rel": err / scale if scale else err,
+                     "bitwise": bool(torch.equal(g, r)),
+                     "finite": bool(torch.isfinite(g).all())}
+        if r.dtype == torch.bfloat16:     # the error in units of last place
+            ulp = torch.exp2(torch.floor(torch.log2(r.float().abs().clamp_min(
+                torch.finfo(torch.float32).tiny))) - 7)
+            out[name]["max_ulps"] = float((diff / ulp).max())
+    return out
+
+
+@contextlib.contextmanager
+def _routing_tap(moe):
+    """Records every MoE call's routing while it is open: the top-k
+    experts (``route``) and which pairs kept a capacity slot
+    (``dispatch_slots``), one dict a call."""
+    calls = []
+    route, slots = moe.route, moe.dispatch_slots
+
+    def tap_route(cfg, p, x):
+        out = route(cfg, p, x)
+        calls.append({"top_e": out[2]})
+        return out
+
+    def tap_slots(cfg, top_e, C, alto):
+        out = slots(cfg, top_e, C, alto)
+        calls[-1]["keep"] = out[1]
+        return out
+
+    moe.route, moe.dispatch_slots = tap_route, tap_slots
+    try:
+        yield calls
+    finally:
+        moe.route, moe.dispatch_slots = route, slots
+
+
+def _kept_experts(call, n_experts: int):
+    """(B, S, E) bool: the experts each token was routed to and kept."""
+    B, S, K = call["top_e"].shape
+    hot = call["top_e"][..., None] == torch.arange(
+        n_experts, device=call["top_e"].device)
+    return (hot & call["keep"].view(B, S, K, 1)).any(dim=2)
+
+
+def _routing_diff(whole: dict, parts: list, n_experts: int) -> int:
+    """Tokens whose kept experts differ between one whole-batch MoE call
+    and the same layer's calls on the microbatches."""
+    a = _kept_experts(whole, n_experts)
+    b = torch.cat([_kept_experts(c, n_experts) for c in parts])
+    return int((a != b).any(dim=-1).sum())
+
+
+def whole_batch_witness(m, cfg, model, tokens, n_micro: int) -> dict:
+    """Where the whole-batch forward parts from the microbatched one, layer
+    by layer (``no_grad``, the caller's deterministic mode). Three chains
+    from the embedding: the whole batch, the ``n_micro`` microbatches one
+    after another, and a twin of the microbatches whose first embedding
+    element is one bf16 unit in the last place away. Per layer: ``local``,
+    the layer applied to the microbatched chain's input as one batch
+    against per microbatch (the gap the layer itself makes on equal
+    inputs), with the tokens whose kept experts differ
+    (``local_routing``); ``chain``, the whole chain against the
+    microbatched one, and its routing difference (``chain_routing``);
+    ``twin``, the twin against the microbatched chain. Each gap is
+    max|a - b| / max|b|; the logits' gaps close the lists."""
+    M, blk, moe, common = (m["lm_model"], m["lm_blocks"], m["lm_moe"],
+                           m["lm_common"])
+    E = cfg.n_experts
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    out = {k: [] for k in ("local", "local_routing", "chain",
+                           "chain_routing", "twin", "dropped_pairs")}
+    with torch.no_grad(), _routing_tap(moe) as calls:
+        xw, pos, _ = M._embed_inputs(cfg, model, {"tokens": tokens})
+        xm = [M._embed_inputs(cfg, model, {"tokens": t})[0]
+              for t in torch.chunk(tokens, n_micro, dim=0)]
+        out["embedding_bitwise"] = bool(torch.equal(xw, torch.cat(xm)))
+        xt = [x.clone() for x in xm]
+        xt[0].view(torch.int16).view(-1)[0] += 1      # one ulp, one element
+        for bt, p in zip(M._block_types(cfg), model.layers):
+            def run(x):
+                return blk.block_apply(cfg, bt, p, x, positions=pos)[0]
+            calls.clear()
+            yl = run(torch.cat(xm))      # MoE calls: this one, then
+            ym = [run(x) for x in xm]    # the n microbatches', then
+            yw = run(xw)                 # the whole chain's
+            yt = [run(x) for x in xt]
+            out["local"].append(rel(yl, torch.cat(ym)))
+            out["chain"].append(rel(yw, torch.cat(ym)))
+            out["twin"].append(rel(torch.cat(yt), torch.cat(ym)))
+            if calls:
+                parts = calls[1:1 + n_micro]
+                out["local_routing"].append(_routing_diff(calls[0], parts, E))
+                out["chain_routing"].append(
+                    _routing_diff(calls[1 + n_micro], parts, E))
+                out["dropped_pairs"].append(
+                    int(sum(int((~c["keep"]).sum()) for c in parts)))
+            xw, xm, xt = yw, ym, yt
+        head = M.unembed_params(cfg, model)
+
+        def logits(x):
+            return common.unembed(head, common.rmsnorm(
+                model.final_norm, x, cfg.norm_eps))
+        ref = torch.cat([logits(x) for x in xm])
+        out["logits_chain"] = rel(logits(xw), ref)
+        out["logits_twin"] = rel(torch.cat([logits(x) for x in xt]), ref)
+    return out
+
+
+def mesh_pipeline_rank(m, rank: int, world: int, cfg, batch_size: int,
+                       seq: int, device) -> dict:
+    """(a) on one rank: the reference, `MESH_MICRO` microbatches of the
+    batch through `models.model.forward` one after another on the whole
+    model (the CE over their concatenated logits + the router aux, their
+    auxes summed in order and divided by the count, as the pipeline does)
+    and its gradient; then the model cut into ``world`` stages, this
+    rank's stage kept, and `dist.pipeline.forward_with_aux` with the same
+    loss, timed, and held against the reference: logits and loss bit for
+    bit, this rank's gradients (its stage's, and on rank 0 the shared
+    parameters') within `MESH_GRAD_TOL` of max|reference|. Deterministic
+    mode throughout (`_index_order(warn_only=False)`)."""
+    M, PP, steps = m["lm_model"], m["lm_pp"], m["lm_steps"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = M.init_model(cfg, gen, device=device)
+    model.requires_grad_(True)
+    batch = m["lm_pipeline"].make_batch(cfg, batch_size, seq, 0, 0,
+                                        device=device)
+    labels = batch["labels"]
+    out = {"rank": rank}
+    with _index_order(warn_only=False):
+        parts = [torch.chunk(v, MESH_MICRO, dim=0)
+                 for v in (batch["tokens"], labels)]
+        logits_m, aux = [], None
+        for mb in range(MESH_MICRO):
+            lg, a = M.forward(cfg, model, {"tokens": parts[0][mb],
+                                           "labels": parts[1][mb]})
+            logits_m.append(lg)
+            aux = a if aux is None else aux + a
+        ref_logits = torch.cat(logits_m, dim=0)
+        ref_loss = steps.cross_entropy(ref_logits, labels) \
+            + cfg.router_aux_coef * (aux / MESH_MICRO)
+        ref_loss.backward()
+        ref_logits, ref_loss = ref_logits.detach(), ref_loss.detach()
+        del logits_m, aux
+        if rank == 0:           # recorded, not gated
+            with torch.no_grad():
+                whole, _ = M.forward(cfg, model, {"tokens": batch["tokens"]})
+            out["whole_batch_logits_rel"] = float(
+                (whole - ref_logits).abs().max() / ref_logits.abs().max())
+            del whole
+            out["whole_batch_witness"] = whole_batch_witness(
+                m, cfg, model, batch["tokens"], MESH_MICRO)
+        pp = PP.to_pipeline_params(cfg, model, world)
+        own = {id(p) for p in pp.stages[rank].parameters()}
+        keep = {n: p for n, p in model.named_parameters()
+                if id(p) in own or (rank == 0
+                                    and not n.startswith("layers."))}
+        ref_grads = {n: p.grad.detach().clone() for n, p in keep.items()}
+        for s_ in range(world):
+            if s_ != rank:
+                pp.stages[s_] = torch.nn.ModuleList()
+        model.layers = torch.nn.ModuleList()
+        for p in model.parameters():
+            p.grad = None
+        for p in pp.stages[rank].parameters():
+            p.grad = None
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _sync()
+        torch.distributed.barrier()     # rank 0's witness stays untimed
+        stats = PP.PipeStats()
+        t0 = time.perf_counter()
+        logits, aux = PP.forward_with_aux(cfg, pp, batch["tokens"],
+                                          MESH_MICRO, stats=stats)
+        loss = steps.cross_entropy(logits, labels) \
+            + cfg.router_aux_coef * aux
+        loss.backward()
+        if device.type == "cuda":
+            _sync()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if device.type == "cuda" else 0)
+    out["staged_bytes"] = stats.staged_bytes
+    out["sends"], out["recvs"] = stats.sends, stats.recvs
+    out["logits_bitwise"] = bool(torch.equal(logits.detach(), ref_logits))
+    out["loss_bitwise"] = bool(torch.equal(loss.detach(), ref_loss))
+    out["loss"], out["ref_loss"] = float(loss.detach()), float(ref_loss)
+    out["logits_rel"] = float((logits.detach() - ref_logits).abs().max()
+                              / ref_logits.abs().max())
+    out["grads"] = _grad_readings(
+        {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+         for n, p in keep.items()}, ref_grads)
+    return out
+
+
+def _mesh_rank(rank: int, world: int, addr: str, out_dir: str) -> None:
+    """One gloo rank of `phase_mesh` (a) on the one card (a spawned
+    process); writes ``out_dir/rank<r>.json``."""
+    import traceback
+    out_dir = pathlib.Path(out_dir)
+    try:
+        m = _imports()
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group(
+            "gloo", init_method=addr, world_size=world, rank=rank)
+        cfg = m["lm_configs"].get_config(TRAIN_ARCH)
+        args = _train_args(m, TRAIN_ARCH, TRAIN_RUN)
+        res = mesh_pipeline_rank(m, rank, world, cfg, args.batch, args.seq,
+                                 torch.device(DEVICE))
+        torch.distributed.destroy_process_group()
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    except BaseException:
+        (out_dir / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def check_pipeline_ranks(ranks: list, label: str) -> dict:
+    """The pipelined run's verdicts over its ranks; fails the phase on
+    any."""
+    grads = {}
+    for r in ranks:
+        if not (r["logits_bitwise"] and r["loss_bitwise"]):
+            _fail(f"{label} rank {r['rank']}: logits bit for bit "
+                  f"{r['logits_bitwise']}, loss {r['loss']} against the "
+                  f"unpipelined {r['ref_loss']} ({r['logits_rel']} of "
+                  "max|logits|)")
+        for n, g in r["grads"].items():
+            if not g["finite"] or g["rel"] > MESH_GRAD_TOL:
+                _fail(f"{label} rank {r['rank']}: gradient {n}: "
+                      f"{g['rel']} of max|reference| (bound "
+                      f"{MESH_GRAD_TOL})")
+            grads[n] = g
+    worst = max(grads.items(), key=lambda kv: kv[1]["rel"])
+    return {"n_grads": len(grads),
+            "grads_bitwise": sum(g["bitwise"] for g in grads.values()),
+            "worst_grad": [worst[0], worst[1]["rel"]],
+            "not_bitwise": sorted(n for n, g in grads.items()
+                                  if not g["bitwise"])}
+
+
+def mesh_pipeline(m) -> dict:
+    """(a): granite at its published size, 2 stages of 16 layers on two
+    gloo ranks sharing the card, 4 microbatches of TRAIN_RUN's batch."""
+    import multiprocessing
+    work = ROOT / "build" / "chip_smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    addr = f"tcp://localhost:{_free_port()}"
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, MESH_STAGES, addr, str(work)))
+             for r in range(MESH_STAGES)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        if any(p.is_alive() for p in procs):
+            _fail(f"mesh ranks still running after {MESH_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    wall_s = time.perf_counter() - t0
+    errors = [(work / f"rank{r}.err").read_text()
+              for r in range(MESH_STAGES)
+              if (work / f"rank{r}.err").exists()]
+    if errors or any(p.exitcode != 0 for p in procs):
+        _fail("mesh ranks failed: exit codes "
+              f"{[p.exitcode for p in procs]}\n" + "\n".join(errors))
+    ranks = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(MESH_STAGES)]
+    shutil.rmtree(work, ignore_errors=True)
+    verdict = check_pipeline_ranks(ranks, "mesh pipeline")
+    out = {"stages": MESH_STAGES, "microbatches": MESH_MICRO,
+           "step_ms": [r["step_ms"] for r in ranks],
+           "peak_bytes": [r["peak_bytes"] for r in ranks],
+           "staged_bytes": [r["staged_bytes"] for r in ranks],
+           "whole_batch_logits_rel": ranks[0]["whole_batch_logits_rel"],
+           "whole_batch_witness": ranks[0]["whole_batch_witness"],
+           "loss": ranks[0]["loss"], "wall_s": wall_s, **verdict}
+    w = out["whole_batch_witness"]
+    first = next((i for i, e in enumerate(w["local"]) if e), None)
+    print(f"chip_smoke: mesh pipeline {TRAIN_ARCH} ({MESH_STAGES} stages, "
+          f"{MESH_MICRO} microbatches, gloo, one card): logits and loss "
+          f"bit for bit the unpipelined run of the same microbatches; "
+          f"{verdict['grads_bitwise']} of {verdict['n_grads']} gradient "
+          f"leaves bit for bit, the worst {verdict['worst_grad']}; step "
+          f"{out['step_ms']} ms, peak {out['peak_bytes']} B, staged "
+          f"{out['staged_bytes']} B through the host; whole-batch forward "
+          f"{out['whole_batch_logits_rel']:.3g} of max|logits| away "
+          f"(recorded); {wall_s:.1f} s wall with the spawn")
+    print(f"chip_smoke: mesh whole-batch witness (recorded): embedding bit "
+          f"for bit {w['embedding_bitwise']}; the first layer whose whole-"
+          f"batch apply differs on equal inputs {first}, the largest such "
+          f"gap {max(w['local']):.3g}, tokens routed apart on equal inputs "
+          f"{sum(w['local_routing'])}; chain gap by layer "
+          f"{[float(f'{e:.3g}') for e in w['chain']]}, its tokens routed "
+          f"apart {w['chain_routing']}; the one-ulp twin by layer "
+          f"{[float(f'{e:.3g}') for e in w['twin']]}; logits gap chain "
+          f"{w['logits_chain']:.3g}, twin {w['logits_twin']:.3g}; dropped "
+          f"pairs a layer {w['dropped_pairs']}")
+    return out
+
+
+def mesh_dryrun_vs_step(m, cfg, batch_size: int, seq: int, device) -> dict:
+    """(b): the dry run of the training step on a (1, 1) mesh (a fake
+    one-rank group; DTensors on meta shards) against one real step on
+    ``device``: per-device argument bytes against the bytes of the
+    parameters, AdamW state and batch allocated, and the calibrated FLOP
+    count against `FlopCounterMode` on the real step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    D, M, tr = m["lm_dryrun"], m["lm_model"], m["lm_train"]
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    shape = ShapeConfig("train_pr25", seq, batch_size, "train")
+    dist = torch.distributed
+    D.fake_world(1)
+    try:
+        mesh = make_host_mesh(device_type="cpu")
+        dry_args = D.build_cell(cfg, shape, mesh).argument_bytes
+        t0 = time.perf_counter()
+        dry = D.calibrate_costs(cfg, shape, mesh)
+        dry_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = M.init_model(cfg, gen, device=device)
+    model.requires_grad_(True)
+    opt = m["lm_optim"].get_optimizer(cfg.optimizer, M.jax_leaves(model),
+                                      lr=1e-4)
+    batch = m["lm_pipeline"].make_batch(cfg, batch_size, seq, 0, 0,
+                                        device=device)
+    real = {"params": sum(p.numel() * p.element_size()
+                          for p in model.parameters()),
+            "opt_state": sum(g[k].numel() * g[k].element_size()
+                             for g in opt.param_groups
+                             for k in ("m", "v", "vr", "vc") if k in g),
+            "batch": sum(v.numel() * v.element_size()
+                         for v in batch.values())}
+    step = m["lm_steps"].make_train_step(cfg)
+    with FlopCounterMode(display=False) as fc:
+        step(model, opt, batch)
+    real_flops = fc.get_total_flops()
+    del model, opt, batch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    got = {k: dry_args[k] for k in ("params", "opt_state", "batch")}
+    if got != real:
+        _fail(f"mesh dry run: argument bytes {got} against the allocated "
+              f"{real}")
+    if dry["flops"] != real_flops:
+        _fail(f"mesh dry run: {dry['flops']} FLOPs against "
+              f"FlopCounterMode's {real_flops} on the real step")
+    return {"argument_bytes": got, "flops": dry["flops"],
+            "real_flops": real_flops, "dry_run_s": dry_s,
+            "bytes": dry["bytes"], "coll": dry["coll"]}
+
+
+def phase_mesh(m, train, smi: str) -> dict:
+    """(a) the GPipe pipeline at granite's published size on two ranks
+    sharing the card; (b) the dry run on a (1, 1) mesh against the real
+    training step; the model-FLOP share of `phase_train`'s granite
+    step."""
+    t0 = time.perf_counter()
+    out = {"pipeline": mesh_pipeline(m)}
+    cfg = m["lm_configs"].get_config(TRAIN_ARCH)
+    args = _train_args(m, TRAIN_ARCH, TRAIN_RUN)
+    dry = mesh_dryrun_vs_step(m, cfg, args.batch, args.seq,
+                              torch.device(DEVICE))
+    RL = m["lm_roofline"]
+    from repro_torch.configs.base import ShapeConfig
+    mf = RL.model_flops(cfg, ShapeConfig("train_pr25", args.seq, args.batch,
+                                         "train"),
+                        m["lm_model"].count_active_params(cfg))
+    ms = train["granite"]["ms_per_step"]
+    share = mf / (ms / 1e3 * RL.PEAK_FLOPS)
+    dry.update(model_flops=mf, step_ms=ms, model_flop_share=share)
+    out["dry_run"] = dry
+    print(f"chip_smoke: mesh dry run (1, 1) of {TRAIN_ARCH}'s training "
+          f"step ({args.batch} × {args.seq}, AdamW): argument bytes "
+          f"{dry['argument_bytes']} equal the allocated; {dry['flops']:.6g} "
+          f"FLOPs equal FlopCounterMode on the real step; model FLOPs "
+          f"{mf:.6g}, the step {ms:.1f} ms (phase_train), "
+          f"model_flops / (ms · {RL.PEAK_FLOPS:.0f}) = {share:.4f} on {smi}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
 
 def main() -> int:
     m = _imports()
@@ -5465,6 +5899,7 @@ def main() -> int:
     t_start = time.perf_counter()
     lm = phase_lm(m)
     train = phase_train(m)
+    mesh = phase_mesh(m, train, smi)
     small = {"worst_err": phase_small(m), **phase_small_cp_als(m),
              "phi_worst_err": phase_small_phi(m),
              "cp_apr": phase_small_cp_apr(m),
@@ -5602,6 +6037,7 @@ def main() -> int:
         "dist": {k: v for k, v in sharded.items() if k != "runs"},
         "formats": {k: v for k, v in formats.items() if k != "runs"},
         "kernels": kernels, "checks": CHECKS, "lm": lm, "train": train,
+        "mesh": mesh,
         "seconds_after_build": elapsed,
         "peak_memory_bytes": max(torch.cuda.max_memory_allocated(),
                                  lm["peak_bytes"],
@@ -5643,6 +6079,10 @@ def main() -> int:
         "cpd": {k: train["cpd"][k] for k in ("fits", "seconds",
                                              "launches")},
         "seconds": train["seconds"]}}))
+    print(json.dumps({"mesh": {
+        "pipeline": {k: v for k, v in mesh["pipeline"].items()
+                     if k != "not_bitwise"},
+        "dry_run": mesh["dry_run"], "seconds": mesh["seconds"]}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -129,6 +129,49 @@ def lm_params(cfg, tree, device=None, dtype=None):
     return model
 
 
+def _stage_leaves(tree, fn):
+    """``tree`` with ``fn`` on each ``blocks_{pos}`` leaf (numpy arrays or
+    tensors), every other leaf as it is."""
+    def walk(t):
+        return {k: walk(v) for k, v in t.items()} if isinstance(t, dict) \
+            else fn(t)
+    return {k: walk(v) if k.startswith("blocks_") else v
+            for k, v in tree.items()}
+
+
+def lm_pipeline_params(cfg, tree, n_stages: int, device=None, dtype=None):
+    """The JAX package's pipeline tree (`dist.pipeline.to_pipeline_params`:
+    each ``blocks_{pos}`` leaf ``(n_stages, per, ...)``) as the port's
+    `dist.pipeline.PipelineParams`, via `lm_params`."""
+    from repro_torch.dist.pipeline import to_pipeline_params
+
+    def merge(a):
+        a = _tensor(a)
+        if a.shape[0] != n_stages:
+            raise ValueError(f"leading axis {a.shape[0]}, expected "
+                             f"{n_stages} stages")
+        return a.reshape((-1,) + tuple(a.shape[2:]))
+    model = lm_params(cfg, _stage_leaves(tree, merge), device=device,
+                      dtype=dtype)
+    return to_pipeline_params(cfg, model, n_stages)
+
+
+def lm_pipeline_tree(cfg, pp) -> dict:
+    """Inverse of `lm_pipeline_params`: the JAX pipeline tree as CPU
+    tensors (the stages' layers stacked ``(n_stages, per, ...)``)."""
+    from repro_torch.models.model import jax_leaves
+    n = pp.n_stages
+    params: dict = {}
+    for leaf in jax_leaves(pp.model):
+        ps = [p.detach().cpu() for p in leaf.params]
+        if leaf.stacked:
+            t = torch.stack(ps)
+            _put(params, leaf.name, t.reshape((n, -1) + tuple(t.shape[1:])))
+        else:
+            _put(params, leaf.name, ps[0])
+    return params
+
+
 def _put(tree: dict, path: str, value) -> None:
     *heads, last = path.split(".")
     for h in heads:

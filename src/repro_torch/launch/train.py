@@ -23,13 +23,21 @@ its periodic checkpoints one update early and resumes at the name, so it
 repeats one update from its own periodic checkpoints, never from this
 one's. Under ``int8_ef`` the error state is a third element of the tree.
 
-One device only: ``--mesh host``. The JAX launcher's production meshes
-(``pod``, ``multipod``) wait for the mesh slice of the port.
+``--mesh pod|multipod`` trains on the production mesh (16x16 or
+2x16x16, `launch.mesh`) over the world the launcher was started in (one
+rank per device, ``torchrun``; a world of another size raises): every
+rank draws the whole model from the seed and keeps its shards of the
+parameters (`models.common.shardings`), the optimizer state (its
+`state_defs`' shardings) and each batch (`launch.specs.batch_shardings`),
+and the step runs under `models.sharding.use_mesh`, as the JAX launcher
+does. Checkpoints are not written under a mesh.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import socket
 import time
 
@@ -41,12 +49,17 @@ from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer,
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model as M
+from repro_torch.models import sharding as shd
+from repro_torch.models.common import named_defs, shardings
 from repro_torch.optim import compress, get_optimizer, warmup_cosine
 from repro_torch.train.steps import make_train_step
 
-MESH_HELP = ("host only: one device. pod and multipod need the port's "
-             "mesh slice (ROADMAP item 18c) and raise")
+MESH_HELP = ("host: this device alone; pod (16x16, 256 ranks) or multipod "
+             "(2x16x16, 512 ranks): the production mesh over the world the "
+             "launcher was started in (torchrun, one rank per device)")
 
 
 @dataclasses.dataclass
@@ -86,13 +99,60 @@ def _trainable(cfg, model, args):
     return model, opt
 
 
+def production_mesh(args, dev: torch.device):
+    """The ``--mesh`` production mesh over the launched world: joins the
+    default process group from ``torchrun``'s environment unless one is
+    up (NCCL on the card, gloo on the CPU); raises on a world of another
+    size."""
+    import torch.distributed as dist
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    if not dist.is_initialized():
+        if "WORLD_SIZE" not in os.environ:
+            raise ValueError(f"--mesh {args.mesh} needs a launched world "
+                             "(torchrun --nproc-per-node ...): no process "
+                             "group and no WORLD_SIZE")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_production_mesh(multi_pod=args.mesh == "multipod",
+                                device_type=dev.type)
+
+
+def shard_model(model: M.Model, mesh) -> M.Model:
+    """The model's parameters as DTensors under `shardings` (each rank
+    keeps its shards of the values it holds)."""
+    sh = shardings(named_defs(model), mesh)
+    model.load_state_dict({k: sh[k].distribute(v.detach())
+                           for k, v in model.state_dict().items()},
+                          assign=True)
+    return model
+
+
+def shard_optimizer(opt, cfg, mesh) -> None:
+    """The optimizer's state as zero DTensors under its `state_defs`'
+    shardings (the state of a fresh optimizer is zeros)."""
+    for group, shs in zip(opt.param_groups,
+                          specs.opt_state_shardings(opt, cfg, mesh)):
+        for key, s in shs.items():
+            t = group[key]
+            group[key] = s.from_local(
+                torch.zeros(s.shard_shape(tuple(t.shape)), dtype=t.dtype,
+                            device=t.device), tuple(t.shape))
+
+
 def train_lm(args) -> TrainRun:
-    if args.mesh != "host":
-        raise NotImplementedError(f"--mesh {args.mesh}: {MESH_HELP}")
     dev = resolve_device(args.device)
     cfg = lm_config(args)
+    mesh = None if args.mesh == "host" else production_mesh(args, dev)
+    if mesh is not None and args.ckpt_dir:
+        raise ValueError("--ckpt-dir: checkpoints are not written under "
+                         f"--mesh {args.mesh}")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model, opt = _trainable(cfg, M.init_model(cfg, gen, device=dev), args)
+    model = M.init_model(cfg, gen, device=dev)
+    if mesh is not None:
+        model = shard_model(model, mesh)
+    model, opt = _trainable(cfg, model, args)
+    if mesh is not None:
+        shard_optimizer(opt, cfg, mesh)
     int8 = args.compression == "int8_ef"
     err = compress.init_error_feedback(M.jax_leaves(model)) if int8 else None
     step_fn = make_train_step(cfg, compression=args.compression or None)
@@ -122,13 +182,30 @@ def train_lm(args) -> TrainRun:
     def state():
         return interop.lm_train_tree(model, opt) + ((err,) if int8 else ())
 
+    def sharded(batch):
+        if mesh is None:
+            return batch
+        sh = specs.batch_shardings(cfg, mesh, batch)
+        return {k: sh[k].distribute(v) for k, v in batch.items()}
+
+    def on_mesh():
+        if mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        stack = contextlib.ExitStack()
+        stack.enter_context(shd.use_mesh(mesh))
+        stack.enter_context(implicit_replication())
+        return stack
+
     history, step_s = [], []
     t0 = time.time()
     for step in range(start, args.steps):
         t_step = time.perf_counter()
-        batch = next(pipe)
-        metrics = step_fn(model, opt, batch, err) if int8 else \
-            step_fn(model, opt, batch)
+        batch = sharded(next(pipe))
+        with on_mesh():
+            metrics = step_fn(model, opt, batch, err) if int8 else \
+                step_fn(model, opt, batch)
         if int8:
             metrics, err = metrics
         metrics = {k: float(v) for k, v in metrics.items()}

@@ -11,11 +11,13 @@ the inputs' dtype and would break the parity with the reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import ParamDef, einsum
 from repro_torch.models.rope import apply_mrope, apply_rope
 
@@ -69,11 +71,36 @@ def _sdpa(q, k, v, q_pos, k_valid_upto, causal, scale):
     return out.to(v.dtype)
 
 
+def _attend(cfg: ModelConfig, causal: bool, q, k, v, q_pos, head_kv):
+    """Attention of q (B, Sq, H, hd) at absolute positions q_pos (Sq,)
+    over k/v (B, S, KV, hd), in query chunks: (B, Sq, H, hd). Under a mesh
+    it runs on each device's shards (a `local_map` region): its rows, and
+    its query heads or its query positions; ``head_kv`` then names the kv
+    head of each local query head when the kv heads are not sharded with
+    them (None otherwise)."""
+    B, Sq, H, hd = q.shape
+    if head_kv is None:
+        KV = k.shape[2]
+    else:                       # the kv heads of the local query heads
+        KV = max(1, H * cfg.n_kv_heads // cfg.n_heads)
+        kv_idx = head_kv[::H // KV]
+        k, v = k.index_select(2, kv_idx), v.index_select(2, kv_idx)
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    C = min(cfg.attn_chunk, Sq)
+    if Sq % C:
+        C = Sq
+    scale = cfg.head_dim ** -0.5
+    outs = [_sdpa(qg[:, i:i + C], k, v, q_pos[i:i + C], None, causal, scale)
+            for i in range(0, Sq, C)]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return out.reshape(B, Sq, H, hd)
+
+
 def attention_full(cfg: ModelConfig, p, x, positions, *, causal=True,
                    kv_x=None, positions3=None, return_kv=False):
     """Full-sequence attention (train / prefill). x: (B, S, D)."""
     B, S, D = x.shape
-    KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    G = cfg.n_heads // cfg.n_kv_heads
     q, k, v = _project_qkv(cfg, p, x, kv_x)
     if kv_x is None and cfg.use_rope:      # self-attention -> RoPE
         if cfg.mrope and positions3 is not None:
@@ -84,19 +111,29 @@ def attention_full(cfg: ModelConfig, p, x, positions, *, causal=True,
         else:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-    scale = cfg.head_dim ** -0.5
-    qg = q.reshape(B, S, KV, G, cfg.head_dim)
-
-    C = min(cfg.attn_chunk, S)
-    if S % C:
-        C = S
-    outs = [_sdpa(qg[:, i:i + C], k, v,
-                  torch.arange(i, i + C, device=x.device), None, causal,
-                  scale)
-            for i in range(0, S, C)]
-    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
-
-    out = out.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    # TP when heads divide the model axis; otherwise sequence parallelism
+    # on the query axis, as the JAX package chooses
+    mesh = shd.current_mesh()
+    model_n = shd.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
+    q_log, kv_log, head_kv = ("batch", None, None, None), \
+        ("batch", None, None, None), None
+    if cfg.n_heads % model_n == 0:
+        q_log = ("batch", None, "heads", None)
+        q = shd.act(q, q_log)
+        if cfg.n_kv_heads % model_n == 0:
+            kv_log = ("batch", None, "kv_heads", None)
+        elif mesh is not None:
+            head_kv = torch.arange(cfg.n_heads, device=x.device) // G
+    elif S % model_n == 0:
+        q_log = ("batch", "seq_sharded", None, None)
+        q = shd.act(q, q_log)
+    k = shd.act(k, ("batch", None, "kv_heads", None))
+    v = shd.act(v, ("batch", None, "kv_heads", None))
+    q_pos = torch.arange(S, device=x.device)
+    out = shd.local_map(
+        functools.partial(_attend, cfg, causal),
+        (q_log, kv_log, kv_log, q_log[1:2], q_log[2:3]), (q_log,))(
+        q, k, v, q_pos, head_kv)
     y = einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
     if return_kv:
         return y, (k, v)
@@ -140,6 +177,11 @@ def attention_decode(cfg: ModelConfig, p, x, cache: KVCache, index: int,
         valid_upto = index
     else:
         valid_upto = None
+    mesh = shd.current_mesh()
+    if mesh is not None and KV % shd.mesh_shape(mesh).get("model", 1):
+        # the grouped reshape below cannot split heads sharded over a
+        # model axis that the kv heads do not divide: gather them
+        q = shd.act(q, ("batch", None, None, None))
     qg = q.reshape(B, 1, KV, G, cfg.head_dim)
     out = _sdpa(qg, cache.k, cache.v, pos[0], valid_upto, False,
                 cfg.head_dim ** -0.5)

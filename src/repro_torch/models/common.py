@@ -7,9 +7,11 @@ submodules, under the same names, so ``p["wq"]`` reads as the JAX
 ``params["wq"]``. `materialize` draws a def tree's tensors; over
 `named_defs` it gives a model's `state_dict`.
 
-The JAX package's mesh helpers (``abstract``, ``shardings``,
-``shardings_inference``, ``bytes_per_device``, ``specs``) have no
-counterpart here: the port runs on one device.
+The mesh helpers map a def tree (`model_def`, an optimizer's
+`state_defs`, or `named_defs`'s flat dict) leaf by leaf: `abstract` to
+``meta`` tensors (the dry run's stand-ins, never allocated), `shardings`
+and `shardings_inference` to `sharding.Sharding`s, `specs` to specs, and
+`bytes_per_device` to the bytes one device holds under them.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models import sharding as shd
 
 Tree = Any
 
@@ -55,6 +58,67 @@ def def_paths(defs: Tree, prefix: str = "") -> dict:
 
 def n_params(defs: Tree) -> int:
     return sum(int(np.prod(d.shape)) for d in def_paths(defs).values())
+
+
+def map_defs(fn, defs: Tree) -> Tree:
+    """``fn`` on every `ParamDef` of a def tree, the tree kept."""
+    if is_def(defs):
+        return fn(defs)
+    return {k: map_defs(fn, v) for k, v in defs.items()}
+
+
+def abstract(defs: Tree, dtype=torch.float32) -> Tree:
+    """The def tree's tensors on ``meta``: shapes and dtype, no storage."""
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dtype,
+                                          device="meta"), defs)
+
+
+def shardings(defs: Tree, mesh) -> Tree:
+    return map_defs(lambda d: shd.sharding_for(mesh, d.logical, d.shape),
+                    defs)
+
+
+def shardings_inference(defs: Tree, mesh, keep_fsdp: bool = False) -> Tree:
+    """Param shardings for serving: TP/EP axes only. FSDP sharding is a
+    *training* trade (it turns every step into a param all-gather); for
+    decode it makes the collective term the bottleneck, so unless the
+    model cannot fit per-device without it (``keep_fsdp=True``) params
+    replicate across data/pod."""
+    if keep_fsdp:
+        return shardings(defs, mesh)
+
+    def one(d):
+        logical = tuple(None if ax == "fsdp" else ax for ax in d.logical)
+        return shd.sharding_for(mesh, logical, d.shape)
+    return map_defs(one, defs)
+
+
+def bytes_per_device(defs: Tree, mesh, dtype_bytes: int = 2,
+                     keep_fsdp: bool = False) -> int:
+    """Exact per-device param bytes under the given sharding policy."""
+    shape = shd.mesh_shape(mesh)
+    shds = (shardings(defs, mesh) if keep_fsdp
+            else shardings_inference(defs, mesh, False))
+    total = 0
+    for path, d in def_paths(defs).items():
+        s = def_paths_get(shds, path)
+        shard = 1
+        for entry in s.spec:
+            for ax in shd.spec_axes(entry):
+                shard *= shape[ax]
+        total += int(np.prod(d.shape)) * dtype_bytes // max(1, shard)
+    return total
+
+
+def def_paths_get(tree: Tree, path: str):
+    """The leaf at a `def_paths` path of a tree of the same layout."""
+    for k in path.split(".") if path else ():
+        tree = tree[k]
+    return tree
+
+
+def specs(defs: Tree, mesh) -> Tree:
+    return map_defs(lambda d: shd.spec_for(mesh, d.logical, d.shape), defs)
 
 
 def _init_one(d: ParamDef, generator: torch.Generator, dtype,
@@ -127,10 +191,13 @@ def named_defs(module: nn.Module) -> dict:
 def einsum(eq: str, *ops):
     """`torch.einsum` with JAX's dtype promotion: mixed operands (a float32
     recurrence output against bfloat16 weights, a bfloat16 cache read in a
-    float32 model) are computed in their common dtype."""
+    float32 model) are computed in their common dtype. Under a mesh,
+    DTensor operands contract by `sharding.einsum`'s rule."""
     dt = ops[0].dtype
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
+    if shd.current_mesh() is not None:
+        return shd.einsum(eq, *(o.to(dt) for o in ops))
     return torch.einsum(eq, *(o.to(dt) for o in ops))
 
 
@@ -163,8 +230,19 @@ def embed_def(vocab: int, dim: int) -> Tree:
                                init="embed")}
 
 
+def _gather_rows(table, ids):
+    return table[ids]
+
+
+# under a mesh each device gathers its own rows' tokens from the whole
+# table (DTensor's rule for the gather's backward, an indexed put, fails
+# on sharded indices in some torch releases)
+_embed_rows = shd.local_map(_gather_rows, ((None, None), ("batch",)),
+                            (("batch",),))
+
+
 def embed(p, ids):
-    return p["tokens"][ids]
+    return _embed_rows(p["tokens"], ids)
 
 
 def unembed(p, x):

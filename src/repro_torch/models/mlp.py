@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import ParamDef, einsum, swiglu
 
 
@@ -20,4 +21,5 @@ def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 def mlp(p, x):
     h = swiglu(einsum("bsd,df->bsf", x, p["w_gate"].to(x.dtype)),
                einsum("bsd,df->bsf", x, p["w_up"].to(x.dtype)))
+    h = shd.act(h, ("batch", None, "mlp"))
     return einsum("bsf,fd->bsd", h, p["w_down"].to(x.dtype))

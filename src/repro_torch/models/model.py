@@ -33,6 +33,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import (ParamDef, ParamModule, embed,
                                        def_paths, embed_def, is_def,
                                        materialize, n_params, named_defs,
@@ -184,6 +185,7 @@ def _encoder(cfg: ModelConfig, model: Model, frames):
     """Whisper-style encoder over stub frame embeddings (B, S_enc, D)."""
     B, S, D = frames.shape
     x = frames + _sinusoidal(S, D, frames.dtype, frames.device)[None]
+    x = shd.act(x, ("batch", None, None))
     positions = torch.arange(S, device=x.device)[None, :]
 
     def layer(p, x):
@@ -209,6 +211,7 @@ def _embed_inputs(cfg: ModelConfig, model: Model, batch):
     if not cfg.use_rope:
         x = x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x = shd.act(x, ("batch", None, None))
     return x, positions, positions3
 
 
@@ -219,23 +222,34 @@ def forward_hidden(cfg: ModelConfig, model: Model, batch):
         enc_out = _encoder(cfg, model, batch["frames"])
     x, positions, positions3 = _embed_inputs(cfg, model, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = apply_repeats(cfg, model.layers, 0, x, aux, positions,
+                           positions3, enc_out)
+    return rmsnorm(model.final_norm, x, cfg.norm_eps), aux
+
+
+def apply_repeats(cfg: ModelConfig, layers, first: int, x, aux, positions,
+                  positions3, enc_out=None):
+    """Apply ``layers`` (whole repeats of the pattern; ``first`` the index
+    of the first in the model's stack): a repeat a checkpoint under remat,
+    the aux loss summed layer by layer. `forward_hidden` runs it over the
+    whole stack, the pipeline over one stage."""
     types, plen = _block_types(cfg), len(cfg.block_pattern)
 
     def repeat(r, x, aux):
         for i in range(r * plen, (r + 1) * plen):
-            x, a = blk.block_apply(cfg, types[i], model.layers[i], x,
+            x, a = blk.block_apply(cfg, types[first + i], layers[i], x,
                                    positions=positions,
                                    positions3=positions3, enc_out=enc_out)
             aux = aux + a
         return x, aux
 
-    for r in range(cfg.n_repeats):
+    for r in range(len(layers) // plen):
         if cfg.remat:
             x, aux = remat(functools.partial(repeat, r), x, aux,
                            dots=cfg.remat_policy != "nothing")
         else:
             x, aux = repeat(r, x, aux)
-    return rmsnorm(model.final_norm, x, cfg.norm_eps), aux
+    return x, aux
 
 
 def unembed_params(cfg: ModelConfig, model: Model):
@@ -246,13 +260,16 @@ def forward(cfg: ModelConfig, model: Model, batch):
     """Training/scoring forward: returns (logits f32 over the padded
     vocabulary, aux_loss)."""
     x, aux = forward_hidden(cfg, model, batch)
-    return unembed(unembed_params(cfg, model), x), aux
+    logits = unembed(unembed_params(cfg, model), x)
+    return shd.act(logits, ("batch", None, "vocab")), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                dtype=torch.bfloat16, device=None) -> list:
-    """One empty decode cache per layer on ``device`` (default ``cuda``)."""
-    dev = resolve_device(device)
+    """One empty decode cache per layer on ``device`` (default ``cuda``;
+    ``meta`` gives the dry run's input stand-in, no allocation)."""
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     return [blk.block_cache_init(cfg, bt, batch, s_max, dtype, dev)
             for bt in _block_types(cfg)]
 
@@ -287,6 +304,7 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, cache, index: int,
             / torch.pow(torch.tensor(10000.0, device=x.device), 2 * i / D)
         pe = torch.cat([torch.sin(ang), torch.cos(ang)])
         x = x + pe[None, None, :].to(x.dtype)
+    x = shd.act(x, ("batch", None, None))
     new_cache = []
     for bt, p, c in zip(_block_types(cfg), model.layers, cache):
         x, c = blk.block_decode(cfg, bt, p, x, c, index,
@@ -294,6 +312,7 @@ def decode_step(cfg: ModelConfig, model: Model, tokens, cache, index: int,
         new_cache.append(c)
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     logits = unembed(unembed_params(cfg, model), x)
+    logits = shd.act(logits, ("batch", None, "vocab"))
     # drop vocab padding at the (tiny) decode output
     return logits[:, 0, :cfg.vocab_size], new_cache
 

@@ -27,9 +27,12 @@ path): no float atomics, so two runs on the card give equal bits.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import ParamDef, einsum, swiglu
 
 
@@ -120,17 +123,11 @@ def route(cfg: ModelConfig, p, x):
     return probs, top_p / torch.sum(top_p, dim=-1, keepdim=True), top_e
 
 
-def moe_ffn(cfg: ModelConfig, p, x):
-    """x: (B, S, D) -> (B, S, D), plus router aux loss (load balancing)."""
+def _dispatch(cfg: ModelConfig, x, top_e):
+    """Every row's tokens into its (E, C) capacity buckets: the bucket
+    buffer (B, E, C, D), each pair's row of it and whether it was kept."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.experts_per_token
-    probs, top_p, top_e = route(cfg, p, x)
-
-    # load-balancing aux loss (Switch): E * <f_e, p_e>
-    me = torch.mean(probs, dim=(0, 1))
-    ce = torch.mean(_one_hot(top_e[..., 0], E).float(), dim=(0, 1))
-    aux = E * torch.sum(me * ce)
-
     C = _capacity(cfg, S)                                 # per-row buckets
     slot, keep, add_order = dispatch_slots(cfg, top_e, C,
                                            cfg.moe_alto_dispatch)
@@ -142,14 +139,15 @@ def moe_ffn(cfg: ModelConfig, p, x):
     tok = torch.arange(S, device=x.device).repeat_interleave(K)
     buf = torch.zeros((trash + 1, D), dtype=x.dtype, device=x.device)
     buf[dest.reshape(-1)] = x[:, tok].reshape(B * S * K, D)
-    buf = buf[:trash].view(B, E, C, D)
+    return buf[:trash].view(B, E, C, D), rows, keep, add_order
 
-    h = swiglu(
-        einsum("becd,edf->becf", buf, p["w_gate"].to(x.dtype)),
-        einsum("becd,edf->becf", buf, p["w_up"].to(x.dtype)))
-    y = einsum("becf,efd->becd", h, p["w_down"].to(x.dtype))
 
-    w = (top_p.reshape(B, S * K) * keep).to(x.dtype)
+def _combine(y, rows, keep, add_order, top_p):
+    """Each token's kept expert outputs, weighted and summed in
+    ``add_order``: (B, S, D)."""
+    B, E, C, D = y.shape
+    S, K = top_p.shape[1:]
+    w = (top_p.reshape(B, S * K) * keep).to(y.dtype)
     contrib = (y.reshape(B * E * C, D)[rows.reshape(-1)].view(B, S * K, D)
                * w[..., None]).view(B, S, K, D)
     contrib = torch.gather(contrib, 2,
@@ -157,4 +155,41 @@ def moe_ffn(cfg: ModelConfig, p, x):
     out = contrib[:, :, 0]
     for k in range(1, K):
         out = out + contrib[:, :, k]
+    return out
+
+
+# under a mesh the dispatch and the combine (a sort, gathers, scatters and
+# indexed writes) run on each device's own rows
+_ROW3 = ("batch", None, None)
+_ROW4 = ("batch", None, None, None)
+
+
+def moe_ffn(cfg: ModelConfig, p, x):
+    """x: (B, S, D) -> (B, S, D), plus router aux loss (load balancing)."""
+    E = cfg.n_experts
+    probs, top_p, top_e = route(cfg, p, x)
+
+    # load-balancing aux loss (Switch): E * <f_e, p_e>
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(_one_hot(top_e[..., 0], E).float(), dim=(0, 1))
+    aux = E * torch.sum(me * ce)
+
+    buf, rows, keep, add_order = shd.local_map(
+        functools.partial(_dispatch, cfg), (_ROW3, _ROW3),
+        (_ROW4, ("batch", None), ("batch", None), _ROW3))(x, top_e)
+    ep = "expert_dp" if cfg.moe_ep_axis == "data" else "expert"
+    buf_spec = ((None, ep, None, None) if ep == "expert_dp"
+                else ("batch", ep, None, None))           # a2a over data
+    buf = shd.act(buf, buf_spec)
+
+    h = swiglu(
+        einsum("becd,edf->becf", buf, p["w_gate"].to(x.dtype)),
+        einsum("becd,edf->becf", buf, p["w_up"].to(x.dtype)))
+    h = shd.act(h, buf_spec[:3] + ("mlp",))
+    y = einsum("becf,efd->becd", h, p["w_down"].to(x.dtype))
+    y = shd.act(y, buf_spec)
+
+    out = shd.local_map(_combine, (_ROW4, ("batch", None), ("batch", None),
+                                   _ROW3, _ROW3), (_ROW3,))(
+        y, rows, keep, add_order, top_p)
     return out, aux

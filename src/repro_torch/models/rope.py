@@ -45,6 +45,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     freqs = rope_freqs(hd, theta, x.device)
     stream = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))         # (hd/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=hd // 2)                             # (hd/2,)
     pos_per_slot = positions3.float()[stream]             # (hd/2, B, S)
     return _rotate(x, pos_per_slot.permute(1, 2, 0) * freqs)

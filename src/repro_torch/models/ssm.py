@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import ParamDef, einsum, rmsnorm
 
 
@@ -86,6 +87,12 @@ def ssd_chunked(a, Bm, X, Cm, chunk: int):
     y_inter = y_inter * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
     return y.to(X.dtype), h
+
+
+_R3, _R4 = ("batch", None, None), ("batch", None, None, None)
+# under a mesh the scan runs on each device's own rows, the heads gathered
+ssd_rows = shd.local_map(ssd_chunked, (_R3, _R4, _R4, _R4, None),
+                         (_R4, _R4))
 
 
 def ssd_step(h, a, Bm, X, Cm):
@@ -166,13 +173,14 @@ def mamba_apply(cfg: ModelConfig, p, x, return_cache: bool = False):
     xs, _ = _causal_conv(xs0, p["conv_x"])
     Bm, _ = _causal_conv(Bm0, p["conv_B"])
     Cm, _ = _causal_conv(Cm0, p["conv_C"])
+    xs = shd.act(xs, ("batch", None, "heads", None))
 
     dt = softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())                   # (H,) negative
     a = dt * A[None, None, :]                            # (B,S,H) log decay
     X = xs.float() * dt[..., None]
-    y, hT = ssd_chunked(a, Bm[:, :, None, :], X, Cm[:, :, None, :],
-                        cfg.ssm_chunk)
+    y, hT = ssd_rows(a, Bm[:, :, None, :], X, Cm[:, :, None, :],
+                     cfg.ssm_chunk)
     y = y + xs * p["skip"].to(x.dtype)[None, None, :, None]
     y = rmsnorm({"scale": p["norm"].reshape(-1)},
                 y.reshape(B_, S, H * P)).reshape(B_, S, H, P)

@@ -19,8 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import ParamDef, einsum, rmsnorm
-from repro_torch.models.ssm import ssd_chunked, ssd_step
+from repro_torch.models.ssm import ssd_rows, ssd_step
 
 
 # -----------------------------------------------------------------------
@@ -56,16 +57,27 @@ def mlstm_def(cfg: ModelConfig) -> dict:
     }
 
 
+# DTensor has no rule for log-sigmoid's backward: under a mesh it runs on
+# each device's own rows
+_logsigmoid = shd.local_map(F.logsigmoid, (("batch",),), (("batch",),))
+
+
 def _mlstm_gates(p, x):
+    # TP: xlstm has only 4 heads, so the model axis shards the qk (N) and
+    # value (P) feature dims instead
     v = einsum("bsd,dhp->bshp", x, p["w_up"].to(x.dtype))
+    v = shd.act(v, ("batch", None, None, "mlp"))
     z = einsum("bsd,dhp->bshp", x, p["w_gate"].to(x.dtype))
+    z = shd.act(z, ("batch", None, None, "mlp"))
     q = einsum("bsd,dhn->bshn", x, p["wq"].to(x.dtype))
+    q = shd.act(q, ("batch", None, None, "mlp"))
     k = einsum("bsd,dhn->bshn", x, p["wk"].to(x.dtype))
+    k = shd.act(k, ("batch", None, None, "mlp"))
     i_raw = einsum("bsd,dh->bsh", x, p["wi"].to(x.dtype))
     f_raw = einsum("bsd,dh->bsh", x, p["wf"].to(x.dtype)) \
         + p["f_bias"].to(x.dtype)
     i_g = torch.sigmoid(i_raw.float())
-    log_f = F.logsigmoid(f_raw.float())
+    log_f = _logsigmoid(f_raw.float())
     return v, z, q, k, i_g, log_f
 
 
@@ -84,10 +96,10 @@ def mlstm_apply(cfg: ModelConfig, p, x, return_cache: bool = False):
     v, z, q, k, i_g, log_f = _mlstm_gates(p, x)
     scale = N ** -0.5
     X = v.float() * i_g[..., None]
-    y, cT = ssd_chunked(log_f, k * scale, X, q, cfg.ssm_chunk)
+    y, cT = ssd_rows(log_f, k * scale, X, q, cfg.ssm_chunk)
     # normalizer: same recurrence with X = i (P=1)
-    nrm, nT = ssd_chunked(log_f, k * scale, i_g[..., None], q,
-                          cfg.ssm_chunk)
+    nrm, nT = ssd_rows(log_f, k * scale, i_g[..., None], q,
+                       cfg.ssm_chunk)
     y = y / torch.clamp(torch.abs(nrm), min=1.0).to(y.dtype)
     out = _mlstm_out(p, y, z, (B_, S, H, P))
     if not return_cache:
@@ -161,7 +173,7 @@ def _slstm_cell(p, xg, state: SlstmCache):
     z = torch.tanh(pre["z"].float())
     o = torch.sigmoid(pre["o"].float())
     log_i = pre["i"].float()                             # exponential gate
-    log_f = F.logsigmoid(pre["f"].float())
+    log_f = _logsigmoid(pre["f"].float())
     m_new = torch.maximum(log_f + m, log_i)              # stabilizer
     i_s = torch.exp(log_i - m_new)
     f_s = torch.exp(log_f + m - m_new)
@@ -184,27 +196,54 @@ def slstm_apply(cfg: ModelConfig, p, x, return_cache: bool = False):
     D, H, P = _slstm_dims(cfg)
     xg = {g: einsum("bsd,dhp->bshp", x, p[f"w{g}"].to(x.dtype))
           + p[f"b{g}"].to(x.dtype) for g in GATES}
-    state = slstm_init_cache(cfg, B_, x.dtype, x.device)
-    hs = []
-    for t in range(S):
-        state = _slstm_cell(p, {g: xg[g][:, t] for g in GATES}, state)
-        hs.append(state.h)
-    y = torch.stack(hs, dim=1).reshape(B_, S, D)
+    *hs, c, n, h, m = _slstm_scan_rows(
+        *(xg[g] for g in GATES), *(p[f"r{g}"] for g in GATES))
+    state = SlstmCache(c, n, h, m)
+    y = hs[0].reshape(B_, S, D)
     out = _slstm_ffn(p, y, x.dtype)
     if not return_cache:
         return out
     return out, state
 
 
-def slstm_init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
-                     device=None):
-    D, H, P = _slstm_dims(cfg)
-    shape = (batch, H, P)
+def _slstm_scan(*tensors):
+    """The recurrence over the sequence from the gates' input
+    pre-activations (four (B, S, H, P)) and recurrent weights (four (H,
+    P, P)), in `GATES` order: every step's h stacked (B, S, H, P), and
+    the final state's c, n, h, m."""
+    xg = dict(zip(GATES, tensors[:4]))
+    p = {f"r{g}": r for g, r in zip(GATES, tensors[4:])}
+    x = tensors[0]
+    B_, S, H, P = x.shape
+    state = _slstm_state((B_, H, P), x.dtype, x.device)
+    hs = []
+    for t in range(S):
+        state = _slstm_cell(p, {g: xg[g][:, t] for g in GATES}, state)
+        hs.append(state.h)
+    return (torch.stack(hs, dim=1),) + tuple(state)
+
+
+# under a mesh the sequential scan runs on each device's own rows, the
+# heads and the recurrent weights gathered
+_RW = (None, None, None)
+_slstm_scan_rows = shd.local_map(
+    _slstm_scan, (("batch",),) * 4 + (_RW,) * 4, (("batch",),) * 5)
+
+
+def _slstm_state(shape, dtype, device) -> SlstmCache:
+    """The sLSTM's initial state, (B, H, P) each: c = m = 0, n = 1, h = 0
+    in ``dtype``."""
     return SlstmCache(
         c=torch.zeros(shape, dtype=torch.float32, device=device),
         n=torch.ones(shape, dtype=torch.float32, device=device),
         h=torch.zeros(shape, dtype=dtype, device=device),
         m=torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def slstm_init_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16,
+                     device=None):
+    D, H, P = _slstm_dims(cfg)
+    return _slstm_state((batch, H, P), dtype, device)
 
 
 def slstm_decode(cfg: ModelConfig, p, x, cache: SlstmCache):

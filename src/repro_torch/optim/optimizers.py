@@ -26,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.common import ParamDef, is_def
+from repro_torch.models.common import ParamDef, map_defs
 
 Tree = dict
 
@@ -123,7 +123,7 @@ class AdamW(_LeafOptimizer):
     @staticmethod
     def state_defs(param_defs: Tree) -> Tree:
         """The state's `ParamDef` tree over `model_def`'s (JAX's)."""
-        mom = _map_defs(lambda d: ParamDef(d.shape, d.logical, init="zeros"),
+        mom = map_defs(lambda d: ParamDef(d.shape, d.logical, init="zeros"),
                         param_defs)
         return {"m": mom, "v": mom,
                 "count": ParamDef((), (), init="zeros")}
@@ -194,10 +194,10 @@ class Adafactor(_LeafOptimizer):
                                 init="zeros")
             return ParamDef((), (), init="zeros")
 
-        mom = _map_defs(lambda d: ParamDef(d.shape, d.logical, init="zeros"),
+        mom = map_defs(lambda d: ParamDef(d.shape, d.logical, init="zeros"),
                         param_defs)
-        return {"m": mom, "vr": _map_defs(vr, param_defs),
-                "vc": _map_defs(vc, param_defs),
+        return {"m": mom, "vr": map_defs(vr, param_defs),
+                "vc": map_defs(vc, param_defs),
                 "count": ParamDef((), (), init="zeros")}
 
     def _update(self, group, grads, lr, count):
@@ -241,12 +241,6 @@ class Adafactor(_LeafOptimizer):
         p.copy_(p.float() - lr * delta)
         m.copy_(m_new)
         vr.copy_(vr_new)
-
-
-def _map_defs(fn, defs: Tree) -> Tree:
-    if is_def(defs):
-        return fn(defs)
-    return {k: _map_defs(fn, v) for k, v in defs.items()}
 
 
 def warmup_cosine(peak_lr: float, warmup: int = 1000,

@@ -19,18 +19,31 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
+from repro_torch.models import sharding as shd
 from repro_torch.models.common import unembed
 from repro_torch.optim import compress as compress_lib
+
+
+def _token_ce(logits: torch.Tensor, labels: torch.Tensor):
+    """Each token's CE (zero where the label is -1) and the label mask."""
+    mask = (labels >= 0).float()
+    safe = torch.clamp_min(labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return (lse - ll) * mask, mask
+
+
+# under a mesh the vocabulary is gathered and each device takes its rows
+_token_ce_rows = shd.local_map(_token_ce, (("batch", None, None),
+                                           ("batch", None)),
+                               (("batch", None), ("batch", None)))
 
 
 def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
     """The summed token CE over the labels that are not -1, and their
     count."""
-    mask = (labels >= 0).float()
-    safe = torch.clamp_min(labels, 0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
-    return torch.sum((lse - ll) * mask), torch.sum(mask)
+    ce, mask = _token_ce_rows(logits, labels)
+    return torch.sum(ce), torch.sum(mask)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

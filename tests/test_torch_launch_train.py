@@ -4,6 +4,8 @@ import argparse
 import json
 import os
 import shutil
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -139,8 +141,63 @@ def test_jax_periodic_checkpoint_resumes_at_its_cursor(tmp_path,
 
 
 def test_mesh_other_than_host_raises():
-    with pytest.raises(NotImplementedError, match="18c"):
-        ttrain.train_lm(_port_args(mesh="pod", steps=1))
+    """Without a launched world (no process group, no ``WORLD_SIZE``) the
+    production meshes raise."""
+    for mesh in ("pod", "multipod"):
+        with pytest.raises(ValueError, match="launched world"):
+            ttrain.train_lm(_port_args(mesh=mesh, steps=1))
+
+
+_MESH_STEP = r"""
+import json, sys
+import torch.distributed as dist
+from repro_torch.launch import train as T
+from repro_torch.launch.dryrun import fake_world
+args = T.parser().parse_args(["--arch", "smollm-360m", "--reduced",
+    "--device", "cpu", "--batch", "16", "--seq", "8", "--steps", "1",
+    "--mesh", sys.argv[1], "--log-every", "1"])
+out = {}
+fake_world(int(sys.argv[2]))
+try:
+    run = T.train_lm(args)
+    p = run.model.embed.tokens
+    out["steps"] = [h["step"] for h in run.history]
+    out["param"] = [type(p).__name__, list(p.shape),
+                    list(p.to_local().shape)]
+    g = run.optimizer.param_groups[0]
+    out["state"] = [type(g["m"]).__name__, list(g["m"].to_local().shape)]
+except ValueError as e:
+    out["raised"] = str(e)
+print("RESULT" + json.dumps(out))
+"""
+
+
+def _mesh_step(mesh: str, world: int) -> dict:
+    env = dict(os.environ, PYTHONPATH=os.environ.get("PYTHONPATH", "src"))
+    r = subprocess.run([sys.executable, "-c", _MESH_STEP, mesh, str(world)],
+                       capture_output=True, text=True, env=env, timeout=300)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT")]
+    assert r.returncode == 0 and lines, r.stdout + r.stderr
+    return json.loads(lines[-1][len("RESULT"):])
+
+
+def test_mesh_pod_takes_a_step_on_a_fake_world():
+    """``--mesh pod`` on a fake process group of 256 ranks (its
+    collectives return at once, without data): one step over the
+    sharded parameters, optimizer state and batch; the values are not
+    checked, only that the step runs on the shards."""
+    out = _mesh_step("pod", 256)
+    assert out["steps"] == [0]
+    # embed (vocab 128 over model 16, d 64 over data 16)
+    assert out["param"] == ["DTensor", [128, 64], [8, 4]]
+    assert out["state"][0] == "DTensor"
+
+
+@pytest.mark.parametrize("mesh,world", [("pod", 4), ("pod", 512),
+                                        ("multipod", 256)])
+def test_mesh_on_a_world_of_another_size_raises(mesh, world):
+    out = _mesh_step(mesh, world)
+    assert "needs a world of" in out["raised"]
 
 
 def test_train_cpd_equals_distributed_cp_als(tmp_path):

@@ -199,3 +199,27 @@ def job_tune(rank, world, store):
     return {"modes": p.modes, "shards": p.shards, "writes": len(writes),
             "again_runs": ops.timing_runs() - runs,
             "again_same": again == p}
+
+
+def job_pipeline(rank, world, cfg, tree, tokens, n_micro):
+    """`pipeline_loss` on every rank (the model carried in from the JAX
+    tree), ``loss.backward()``, and this rank's logits, loss and
+    gradients: its stage's layers, and on rank 0 the shared parameters."""
+    from repro_torch import interop
+    from repro_torch.dist import pipeline as PP
+    model = interop.lm_params(cfg, tree, device="cpu")
+    model.requires_grad_(True)
+    pp = PP.to_pipeline_params(cfg, model, world)
+    toks = torch.from_numpy(tokens)
+    stats = PP.PipeStats()
+    loss = PP.pipeline_loss(cfg, pp, {"tokens": toks, "labels": toks},
+                            n_micro, stats=stats)
+    logits = PP.pipeline_forward(cfg, pp, toks, n_micro)
+    loss.backward()
+    own = {id(p) for p in pp.stages[rank].parameters()}
+    grads = {name: p.grad.clone() for name, p in model.named_parameters()
+             if id(p) in own or (rank == 0 and not name.startswith(
+                 "layers."))}
+    return {"logits": logits.detach(), "loss": loss.detach(),
+            "grads": grads, "sends": stats.sends, "recvs": stats.recvs,
+            "staged": stats.staged_bytes}
