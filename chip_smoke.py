@@ -1274,14 +1274,13 @@ def run_cp_apr(m, at, p, k_max: int, label: str) -> dict:
             "seconds": seconds, "n_outer": res.n_outer,
             "s_per_outer": seconds / res.n_outer,
             "n_inner_total": res.n_inner_total,
-            "kkt_wait_s": res.kkt_wait_s, "phi_ms_per_mode": phi_ms,
+            "phi_ms_per_mode": phi_ms,
             "launches": counts["launches"], "elements": counts["elements"]}
     print(f"chip_smoke: {label}: traversals {p.traversals()} "
           f"{res.pi_policy}; {res.n_outer} outer iterations in "
           f"{seconds:.3f} s ({seconds / res.n_outer:.3f} s each, "
           f"log-likelihood included), {res.n_inner_total} inner; Φ ms per "
-          f"mode {phi_ms}; host blocked on KKT reads {res.kkt_wait_s:.3f} "
-          f"s; log-likelihoods {lls}; KKT {kkts}; launches "
+          f"mode {phi_ms}; log-likelihoods {lls}; KKT {kkts}; launches "
           f"{counts['launches']}")
     return {**info, "res": res}
 

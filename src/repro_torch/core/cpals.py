@@ -26,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import faults
 from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
@@ -91,7 +92,10 @@ def _sweep(plan, at: AltoTensor, views, factors, lam, gram_fn=None,
             V = grams[m] if V is None else V * grams[m]
         M = mttkrp_adaptive(at, views, factors, n, plan=plan,
                             group=group)                     # (I_n, R)
-        A = M @ torch.linalg.pinv(V)
+        with trace.span("read.pinv"):
+            # On CUDA the pseudo-inverse synchronises (twice a call).
+            V_inv = torch.linalg.pinv(V)
+        A = M @ V_inv
         lam = torch.linalg.vector_norm(A, dim=0)
         lam = torch.where(lam > 0, lam, torch.ones_like(lam))
         A = A / lam[None, :]
@@ -103,25 +107,28 @@ def _sweep(plan, at: AltoTensor, views, factors, lam, gram_fn=None,
 def _fit(M_last, factors, lam, normX2: float) -> float:
     """Kolda–Bader fit from sweep-consistent state, in float64 on the
     factors' device; the fit is the one value copied back."""
-    return float(_fit_tensor(M_last, factors, lam, normX2))
+    fit = _fit_tensor(M_last, factors, lam, normX2)
+    with trace.span("read.fit"):
+        return float(fit)
 
 
 def _fit_tensor(M_last, factors, lam, normX2: float) -> torch.Tensor:
     """`_fit` as a 0-d float64 tensor on the factors' device, not yet
     copied back (the batched driver copies a bucket's fits at once)."""
-    if normX2 == 0.0:
-        return torch.ones((), dtype=torch.float64, device=lam.device)
-    lam64 = lam.double()
-    inner = ((factors[-1].double() * M_last.double()).sum(dim=0)
-             * lam64).sum()
-    V = None
-    for A in factors:
-        A64 = A.double()
-        gram = A64.T @ A64
-        V = gram if V is None else V * gram
-    norm_model2 = (torch.outer(lam64, lam64) * V).sum()
-    resid2 = (normX2 + norm_model2 - 2.0 * inner).clamp_min(0.0)
-    return 1.0 - resid2.sqrt() / math.sqrt(normX2)
+    with trace.span("cpals.fit"):
+        if normX2 == 0.0:
+            return torch.ones((), dtype=torch.float64, device=lam.device)
+        lam64 = lam.double()
+        inner = ((factors[-1].double() * M_last.double()).sum(dim=0)
+                 * lam64).sum()
+        V = None
+        for A in factors:
+            A64 = A.double()
+            gram = A64.T @ A64
+            V = gram if V is None else V * gram
+        norm_model2 = (torch.outer(lam64, lam64) * V).sum()
+        resid2 = (normX2 + norm_model2 - 2.0 * inner).clamp_min(0.0)
+        return 1.0 - resid2.sqrt() / math.sqrt(normX2)
 
 
 def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
@@ -187,7 +194,9 @@ def cp_als(at: AltoTensor, rank: int, n_iters: int = 50, tol: float = 1e-5,
     if views is None:
         views = plan_mod.build_views(at, plan)
     lam = torch.ones((rank,), dtype=dtype, device=at.device)
-    normX2 = float((at.values.detach().double() ** 2).sum())
+    normX2_t = (at.values.detach().double() ** 2).sum()
+    with trace.span("read.norm"):
+        normX2 = float(normX2_t)
     report = health_mod.HealthReport() if guard else None
     fits: list[float] = []
     prev_fit = -np.inf

@@ -17,7 +17,8 @@ The inner multiplicative-update loop (Alg. 2 lines 7-14) is a host loop
 that reads the KKT violation of each step and stops once it is below
 ``tau``: the semantics of the JAX package's masked ``lax.scan``, whose
 frozen steps only recompute the Φ of an unchanged B. Each inner step
-therefore waits for the card once (`CpaprResult.kkt_wait_s`).
+therefore waits for the card once (the ``repro.read.kkt`` span of
+`repro_torch.trace`).
 
 A streaming plan (`core.plan.StreamPlan`) runs the same loop; its Φ is
 the chunked executor over host streams, which takes the factors under
@@ -34,12 +35,12 @@ replicated.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import faults, heuristics
 from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
@@ -71,7 +72,6 @@ class CpaprResult:
     pi_policy: str
     traversals: list[str]
     plan: plan_mod.ExecutionPlan | None = None
-    kkt_wait_s: float = 0.0        # host seconds blocked on KKT reads
     health: health_mod.HealthReport | None = None   # guard=True only
 
 
@@ -111,16 +111,18 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
                  phi_prev, first_outer: bool, pre_pi: bool, p: CpaprParams,
                  group=None):
     """One full Alg. 2 mode update (lines 4-15). Returns (A, λ, Φ of the
-    final B, converged, inner steps taken, KKT of the first step, host
-    seconds blocked on KKT reads)."""
+    final B, converged, inner steps taken, KKT of the first step)."""
     A = factors[mode]
     # Line 4: inadmissible-zero adjustment (skipped on the first outer
     # iteration).
     if first_outer:
         S = torch.zeros_like(A)
     else:
-        S = torch.where((A < p.kappa_tol) & (phi_prev > 1.0),
-                        A.new_tensor(p.kappa), A.new_tensor(0.0))
+        with trace.span("read.kappa"):
+            # A scalar copied to the device from pageable host memory
+            # waits for the device, twice a mode update.
+            kappa, zero = A.new_tensor(p.kappa), A.new_tensor(0.0)
+        S = torch.where((A < p.kappa_tol) & (phi_prev > 1.0), kappa, zero)
     B = (A + S) * lam[None, :]                        # line 5: B = (A+S)Λ
 
     streamed = (plan.streaming is not None and view is not None
@@ -133,8 +135,9 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
         oriented = (view is not None
                     and heuristics.is_oriented(plan.modes[mode].traversal))
         words = view.words if oriented else at.words
-        pi = krp_rows(ops.delinearize(at.meta.enc, words), factors,
-                      mode).contiguous()
+        with trace.span("cpapr.pi_build"):
+            pi = krp_rows(ops.delinearize(at.meta.enc, words), factors,
+                          mode).contiguous()
     if streamed:
         operands = dict(factors=factors, pre=pre_pi)
     else:
@@ -144,14 +147,12 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
     Phi = None
     kkt_first = None
     n_inner = 0
-    wait = 0.0
     for _ in range(p.l_max):
         Phi = plan_mod.execute_phi(plan, at, view, B, mode, eps=p.eps_div,
                                    group=group, **operands)  # line 8
         kkt_t = torch.minimum(B, 1.0 - Phi).abs().max()     # line 9
-        t0 = time.perf_counter()
-        kkt = kkt_t.item()
-        wait += time.perf_counter() - t0
+        with trace.span("read.kkt"):
+            kkt = kkt_t.item()
         if kkt_first is None:
             kkt_first = kkt
         if kkt < tau:
@@ -162,7 +163,7 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
     lam_new = B.sum(dim=0)                            # line 15: λ = eᵀB
     lam_new = torch.where(lam_new > 0, lam_new, torch.ones_like(lam_new))
     A_new = B / lam_new[None, :]
-    return A_new, lam_new, Phi, n_inner == 0, n_inner, kkt_first, wait
+    return A_new, lam_new, Phi, n_inner == 0, n_inner, kkt_first
 
 
 def log_likelihood(at: AltoTensor, lam, factors,
@@ -229,7 +230,9 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
     elif plan.rank != rank:
         raise ValueError(f"plan was built for rank {plan.rank}, "
                          f"cp_apr called with rank {rank}")
-    total = float(at.values.sum())
+    total_t = at.values.sum()
+    with trace.span("read.total"):
+        total = float(total_t)
     if warm_start is not None:
         if factors is not None or lam is not None:
             raise ValueError("pass factors=/lam= or warm_start=, not both")
@@ -264,14 +267,13 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
     kkt_hist: list[float] = []
     ll_hist: list[float] = []
     n_inner_total = 0
-    wait_s = 0.0
     outer = 0
     for outer in range(1, p.k_max + 1):
         good = (lam, list(factors), list(phi_prev))
         all_converged = True
         kkt_max = 0.0
         for n in range(N):
-            A, lam, phi_prev[n], conv, n_inner, kkt, wait = _mode_update(
+            A, lam, phi_prev[n], conv, n_inner, kkt = _mode_update(
                 plan, at, views.get(n), n, lam, factors, phi_prev[n],
                 first_outer=(outer == 1), pre_pi=pre_pi, p=p, group=group)
             pd = faults.fire("cpapr.nan")
@@ -281,7 +283,6 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
             factors = list(factors)
             factors[n] = A
             n_inner_total += n_inner
-            wait_s += wait
             all_converged &= conv
             kkt_max = max(kkt_max, kkt)
         if guard:
@@ -303,5 +304,4 @@ def cp_apr(at: AltoTensor, rank: int, params: CpaprParams | None = None,
     return CpaprResult(lam=lam, factors=factors, kkt_violations=kkt_hist,
                        log_likelihoods=ll_hist, n_outer=outer,
                        n_inner_total=n_inner_total, pi_policy=pi_policy,
-                       traversals=traversals, plan=plan, kkt_wait_s=wait_s,
-                       health=report)
+                       traversals=traversals, plan=plan, health=report)

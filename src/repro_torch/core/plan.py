@@ -69,6 +69,7 @@ import os
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import faults, heuristics
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core.alto import AltoMeta, AltoTensor, OrientedView
@@ -535,34 +536,36 @@ def execute_mttkrp(plan: ExecutionPlan, at: AltoTensor,
     the chunked executor over the mode's host stream. A sharded plan runs
     this rank's slice and sums the ranks of ``group`` (default the world
     group; `dist.cpd.sharded_mttkrp`)."""
-    faults.inject("plan.dispatch")
-    if plan.shards is not None:
-        from repro_torch.dist import cpd
-        return cpd.sharded_mttkrp(plan, at, views, factors, mode,
-                                  group=group)
-    mp = plan.modes[mode]
-    oriented = (heuristics.is_oriented(mp.traversal)
-                and views is not None and mode in views)
-    if plan.streaming is not None and oriented:
+    with trace.span("mttkrp"):
+        faults.inject("plan.dispatch")
+        if plan.shards is not None:
+            from repro_torch.dist import cpd
+            return cpd.sharded_mttkrp(plan, at, views, factors, mode,
+                                      group=group)
+        mp = plan.modes[mode]
+        oriented = (heuristics.is_oriented(mp.traversal)
+                    and views is not None and mode in views)
+        if plan.streaming is not None and oriented:
+            if plan.backend == "cuda":
+                return ops.mttkrp_oriented_chunked(
+                    views[mode], factors, chunk_m=plan.streaming.chunk_m,
+                    block_m=mp.block_m, r_block=mp.r_block, threads=mp.threads)
+            return ops.mttkrp_oriented_chunked_reference(
+                views[mode], factors, chunk_m=plan.streaming.chunk_m)
         if plan.backend == "cuda":
-            return ops.mttkrp_oriented_chunked(
-                views[mode], factors, chunk_m=plan.streaming.chunk_m,
-                block_m=mp.block_m, r_block=mp.r_block, threads=mp.threads)
-        return ops.mttkrp_oriented_chunked_reference(
-            views[mode], factors, chunk_m=plan.streaming.chunk_m)
-    if plan.backend == "cuda":
-        kw = dict(r_block=mp.r_block, threads=mp.threads)
-        if not oriented:
-            return ops.mttkrp(at, factors, mode, order=pull, **kw)
-        if mp.traversal is heuristics.Traversal.ORIENTED_CARRY:
-            return ops.mttkrp_oriented_carry(views[mode], factors,
-                                             block_m=mp.block_m, **kw)
-        return ops.mttkrp_oriented(views[mode], factors, block_m=mp.block_m,
-                                   **kw)
-    # reference backend: both oriented variants are one sorted segment sum.
-    if oriented:
-        return core_mttkrp.mttkrp_oriented(views[mode], factors)
-    return core_mttkrp.mttkrp_recursive(at, factors, mode)
+            kw = dict(r_block=mp.r_block, threads=mp.threads)
+            if not oriented:
+                return ops.mttkrp(at, factors, mode, order=pull, **kw)
+            if mp.traversal is heuristics.Traversal.ORIENTED_CARRY:
+                return ops.mttkrp_oriented_carry(views[mode], factors,
+                                                 block_m=mp.block_m, **kw)
+            return ops.mttkrp_oriented(views[mode], factors,
+                                       block_m=mp.block_m, **kw)
+        # reference backend: both oriented variants are one sorted segment
+        # sum.
+        if oriented:
+            return core_mttkrp.mttkrp_oriented(views[mode], factors)
+        return core_mttkrp.mttkrp_recursive(at, factors, mode)
 
 
 def execute_phi(plan: ExecutionPlan, at: AltoTensor,
@@ -582,44 +585,46 @@ def execute_phi(plan: ExecutionPlan, at: AltoTensor,
     then names the policy, the plan's by default. In-core routes ignore
     ``pre``. A sharded plan runs this rank's slice of the stream (and of
     ``pi``) and sums the ranks of ``group`` (`dist.cpd.sharded_phi`)."""
-    faults.inject("plan.dispatch")
-    if (pi is None) == (factors is None):
-        raise ValueError("pass exactly one of pi= / factors=")
-    if plan.shards is not None:
-        from repro_torch.dist import cpd
-        return cpd.sharded_phi(plan, at, view, B, mode, factors=factors,
-                               pi=pi, eps=eps, group=group)
-    mp = plan.modes[mode]
-    oriented = heuristics.is_oriented(mp.traversal) and view is not None
-    if plan.streaming is not None and oriented:
-        if factors is None:
-            raise ValueError("streaming Φ needs factors= — chunk Π rows are "
-                             "built on the device per chunk, never passed "
-                             "as a full-stream pi=")
-        pre_flag = (pre if pre is not None
-                    else plan.pi_policy is heuristics.PiPolicy.PRE)
-        if plan.backend == "cuda":
-            return ops.cpapr_phi_oriented_chunked(
+    with trace.span("phi"):
+        faults.inject("plan.dispatch")
+        if (pi is None) == (factors is None):
+            raise ValueError("pass exactly one of pi= / factors=")
+        if plan.shards is not None:
+            from repro_torch.dist import cpd
+            return cpd.sharded_phi(plan, at, view, B, mode, factors=factors,
+                                   pi=pi, eps=eps, group=group)
+        mp = plan.modes[mode]
+        oriented = heuristics.is_oriented(mp.traversal) and view is not None
+        if plan.streaming is not None and oriented:
+            if factors is None:
+                raise ValueError("streaming Φ needs factors= — chunk Π rows "
+                                 "are built on the device per chunk, never "
+                                 "passed as a full-stream pi=")
+            pre_flag = (pre if pre is not None
+                        else plan.pi_policy is heuristics.PiPolicy.PRE)
+            if plan.backend == "cuda":
+                return ops.cpapr_phi_oriented_chunked(
+                    view, B, factors, pre=pre_flag, eps=eps,
+                    chunk_m=plan.streaming.chunk_m, block_m=mp.block_m,
+                    threads=mp.threads)
+            return ops.cpapr_phi_oriented_chunked_reference(
                 view, B, factors, pre=pre_flag, eps=eps,
-                chunk_m=plan.streaming.chunk_m, block_m=mp.block_m,
-                threads=mp.threads)
-        return ops.cpapr_phi_oriented_chunked_reference(
-            view, B, factors, pre=pre_flag, eps=eps,
-            chunk_m=plan.streaming.chunk_m)
-    if plan.backend == "cuda":
-        if not oriented:
-            return ops.cpapr_phi(at, B, mode, factors=factors, pi=pi,
-                                 eps=eps, threads=mp.threads, order=pull)
-        fn = (ops.cpapr_phi_oriented_carry
-              if mp.traversal is heuristics.Traversal.ORIENTED_CARRY
-              else ops.cpapr_phi_oriented)
-        return fn(view, B, factors=factors, pi=pi, eps=eps,
-                  block_m=mp.block_m, threads=mp.threads)
-    # reference backend: the plain traversals of core.mttkrp.
-    src = view if oriented else at
-    contrib = core_mttkrp.phi_contributions(
-        plan.meta.enc, mode, src.words, src.values,
-        view.rows if oriented else None, B, factors=factors, pi=pi, eps=eps)
-    if oriented:
-        return core_mttkrp.row_reduce_oriented(view, contrib)
-    return core_mttkrp.row_reduce_recursive(at, mode, contrib)
+                chunk_m=plan.streaming.chunk_m)
+        if plan.backend == "cuda":
+            if not oriented:
+                return ops.cpapr_phi(at, B, mode, factors=factors, pi=pi,
+                                     eps=eps, threads=mp.threads, order=pull)
+            fn = (ops.cpapr_phi_oriented_carry
+                  if mp.traversal is heuristics.Traversal.ORIENTED_CARRY
+                  else ops.cpapr_phi_oriented)
+            return fn(view, B, factors=factors, pi=pi, eps=eps,
+                      block_m=mp.block_m, threads=mp.threads)
+        # reference backend: the plain traversals of core.mttkrp.
+        src = view if oriented else at
+        contrib = core_mttkrp.phi_contributions(
+            plan.meta.enc, mode, src.words, src.values,
+            view.rows if oriented else None, B, factors=factors, pi=pi,
+            eps=eps)
+        if oriented:
+            return core_mttkrp.row_reduce_oriented(view, contrib)
+        return core_mttkrp.row_reduce_recursive(at, mode, contrib)
