@@ -709,15 +709,9 @@ def phase_small_cp_als(m) -> dict:
     return {"fits_cuda": res["cuda"], "fits_cpu": res["cpu"]}
 
 
-def _pi_rows(m, enc, words, factors, mode):
-    """Π rows of a word stream (ALTO-PRE), decoded through K4."""
-    return m["mttkrp"].krp_rows(m["ops"].delinearize(enc, words), factors,
-                                mode).contiguous()
-
-
 def _phi_operands(m, enc, words, factors, mode, policy) -> dict:
     if policy == "pre":
-        return {"pi": _pi_rows(m, enc, words, factors, mode)}
+        return {"pi": m["ops"].pi_rows(enc, words, factors, mode)}
     return {"factors": factors}
 
 
@@ -861,6 +855,29 @@ def check_delinearize(m, enc, words, label: str,
                          k4.delinearize(enc, w, route=route), plain)
 
 
+@_index_order()
+def check_pi_rows(m, enc, words, factors, label: str,
+                  modes=None) -> None:
+    """`ops.pi_rows` equal to its plain version (`krp_rows` on the plain
+    decode), repeatably, for each mode of ``modes`` (None: all); and
+    under the ``"l1"`` decode route, which a shared-memory limit of 0
+    bytes makes `choose_route` pick."""
+    k4, ops, common = m["k4"], m["ops"], m["common"]
+    for mode in range(enc.ndim) if modes is None else modes:
+        plain = k4.pi_rows_plain(enc, words, factors, mode)
+        got = ops.pi_rows(enc, words, factors, mode)
+        _check_equal(f"{label} mode {mode} pi_rows repeat", got,
+                     ops.pi_rows(enc, words, factors, mode))
+        _check_equal(f"{label} mode {mode} pi_rows", got, plain)
+        limit = common.smem_limit
+        common.smem_limit = lambda device: 0
+        try:
+            l1 = ops.pi_rows(enc, words, factors, mode)
+        finally:
+            common.smem_limit = limit
+        _check_equal(f"{label} mode {mode} pi_rows (l1)", l1, plain)
+
+
 def phase_small_phi(m) -> dict:
     """The CP-APR kernels on the adversarial run layouts, both Π policies,
     at ranks 5, `RANK` and 40 (a partial sub-warp, a full one, several
@@ -886,6 +903,7 @@ def phase_small_phi(m) -> dict:
                 label = f"small phi {name} block_m={block_m} R={rank}"
                 if rank == RANK:
                     check_delinearize(m, at.meta.enc, at.words, label)
+                check_pi_rows(m, at.meta.enc, view.words, fs, label)
                 for policy in ("otf", "pre"):
                     operands = _phi_operands(m, at.meta.enc, view.words, fs,
                                              0, policy)
@@ -1014,7 +1032,7 @@ def check_chunk_kernels(m, hs, B, fs, block_m, chunk_m, policy,
             want = kori.carry_chunk_plain(*args, out.clone(), crow, cval,
                                           block_m, final)
         else:
-            kw = ({"pi": _pi_rows(m, enc, words, fs, mode)}
+            kw = ({"pi": m["ops"].pi_rows(enc, words, fs, mode)}
                   if policy == "pre" else {"factors": fs})
             args = (enc, mode, 1e-10, rows, words, values, B)
             got = kori.phi_carry_chunk(*args, out.clone(), crow, cval, **kw,
@@ -1065,7 +1083,7 @@ def phase_small_chunks(m) -> dict:
             hs = stream.host_stream(at, 0)
             if not hs.pinned:
                 _fail("a host stream of a card tensor is not pinned")
-            pi = _pi_rows(m, at.meta.enc, view.words, fs, 0)
+            pi = m["ops"].pi_rows(at.meta.enc, view.words, fs, 0)
             k1 = ops.mttkrp_oriented_carry(view, fs, block_m, 4, 64)
             k5 = {"pre": ops.cpapr_phi_oriented_carry(
                       view, B, pi=pi, block_m=block_m, threads=64),
@@ -1134,9 +1152,10 @@ def apr_kernels(m, p) -> set:
                   trav.RECURSIVE: {"phi_partials", "carry_fixup"}}
     if p.streaming is not None:
         kernels_of[trav.ORIENTED_CARRY] = {"phi_carry_chunk"}
-    # K4: Π under PRE, the log-likelihood
+    # K4: the log-likelihood; pi_rows: Π under PRE
+    pre = {"pi_rows"} if p.pi_policy.value == "pre" else set()
     return set().union(*(kernels_of[mp.traversal] for mp in p.modes),
-                       {"delinearize"})
+                       {"delinearize"}, pre)
 
 
 def jax_routing(m, p):
@@ -1380,8 +1399,10 @@ def _copy_ms(m, hs) -> tuple[float, float]:
 def chunk_breakdown(m, hs, sp, mp, res) -> dict:
     """ms of the steps a streamed Φ under ALTO-PRE takes for one full
     chunk (the first of the stream): its host-to-device copy, K4 on its
-    words, its Π rows (`core.mttkrp.krp_rows`: PyTorch gathers); and K9
-    under ALTO-OTF on the same chunk, which gathers the factors itself."""
+    words, its Π rows from those coordinates (`core.mttkrp.krp_rows`:
+    PyTorch gathers) and from the words (`ops.pi_rows`, the main path);
+    and K9 under ALTO-OTF on the same chunk, which gathers the factors
+    itself."""
     ops, enc, mode = m["ops"], hs.meta.enc, hs.mode
     src = hs.chunk(0, sp.chunk_m)
     dev = [t.to(DEVICE) for t in src]
@@ -1398,6 +1419,7 @@ def chunk_breakdown(m, hs, sp, mp, res) -> dict:
             "delinearize": _ms(m, ops.delinearize, enc, dev[1]),
             "krp_rows": _ms(m, lambda: m["mttkrp"].krp_rows(
                 coords, res.factors, mode).contiguous()),
+            "pi_rows": _ms(m, ops.pi_rows, enc, dev[1], res.factors, mode),
             "k9_otf": _ms(m, m["kori"].phi_carry_chunk, enc, mode, 1e-10,
                           *dev, B, out, crow, cval, res.factors, None,
                           mp.block_m, mp.threads, False)}
@@ -1426,7 +1448,7 @@ def check_streamed_mode(m, at, ps, hs, als_res, apr_res, mode: int) -> int:
     pfs = apr_res.factors
     B = pfs[mode] * apr_res.lam[None, :]
     k5 = ops.cpapr_phi_oriented_carry(
-        view, B, pi=_pi_rows(m, at.meta.enc, view.words, pfs, mode), **kw)
+        view, B, pi=m["ops"].pi_rows(at.meta.enc, view.words, pfs, mode), **kw)
     outs = [ops.cpapr_phi_oriented_chunked(hs[mode], B, pfs, pre=True,
                                            chunk_m=sp.chunk_m, **kw)
             for _ in range(3)]
@@ -1714,7 +1736,7 @@ def phase_tilings(m, tilings) -> dict:
             B = fs[0] * 3.0
             view = m["alto"].oriented_view_device(at, 0)
             hs = stream.host_stream(at, 0)
-            pi_view = _pi_rows(m, at.meta.enc, view.words, fs, 0)
+            pi_view = m["ops"].pi_rows(at.meta.enc, view.words, fs, 0)
             cm = 2 * block_m
             first = {}
             for _, rb, th in here:
@@ -4020,7 +4042,7 @@ def phase_dist(m, chicago, chicago_apr, darpa, darpa_apr) -> dict:
     d_res, c_res = darpa_apr["run"]["res"], chicago_apr["run"]["res"]
     d_fs = darpa["run"]["res"].factors
     d_view = m["views"].get_view(d_at, 2)
-    d_pi = _pi_rows(m, d_at.meta.enc, d_view.words, d_res.factors, 2)
+    d_pi = m["ops"].pi_rows(d_at.meta.enc, d_view.words, d_res.factors, 2)
     slices = {"darpa_mode2": check_shard_slices(
         m, d_at, 2, d_fs, d_res.factors[2] * d_res.lam[None, :],
         "dist darpa mode 2 (pre)", pi=d_pi)}
@@ -4298,6 +4320,8 @@ KERNEL_SOURCES = {   # name -> (port source, TPU kernel it replaces)
     "phi_partials": ("cpapr_phi.cu", "cpapr_phi.py:57"),
     "carry_chunk": ("mttkrp_oriented.cu", "mttkrp_oriented.py:541"),
     "phi_carry_chunk": ("phi_oriented.cu", "mttkrp_oriented.py:637"),
+    # not a Pallas kernel: the JAX Π build is K4 and jnp gathers
+    "pi_rows": ("delinearize.cu", "src/repro/core/cpapr.py:104"),
 }
 
 
@@ -4310,7 +4334,9 @@ def _entry(name, launches, err, ms, plain_ms, nbytes, nops, library_ms,
     bound, by = _bound(nbytes, nops)
     source, replaces = KERNEL_SOURCES[name]
     e = {"name": name, "route": "cuda", "source": CSRC + source,
-         "replaces": JAX_KERNELS + replaces, "launches": launches[name],
+         "replaces": (replaces if replaces.startswith("src/")
+                      else JAX_KERNELS + replaces),
+         "launches": launches[name],
          "elements": launches["elements"][name], "max_abs_err": err,
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
          "library_ms": library_ms, "shape": shape}
@@ -4507,7 +4533,7 @@ def time_phi_oriented(m, view, res, mp, launches) -> list[dict]:
     W, R, bm, th = meta.enc.n_words, RANK, mp.block_m, mp.threads
     I_n = meta.dims[mode]
     B = res.factors[mode] * res.lam[None, :]
-    pi = _pi_rows(m, meta.enc, view.words, res.factors, mode)
+    pi = m["ops"].pi_rows(meta.enc, view.words, res.factors, mode)
     errs = check_phi_oriented_kernels(m, view, B, {"pi": pi}, bm, th,
                                       f"phi mode {mode} real size")
     rows, words, values, pi_p = ops.pad_sorted_stream(
@@ -4595,6 +4621,62 @@ def time_delinearize(m, at, chicago_at, chunk_m, launches) -> dict:
     return e
 
 
+def _misaligned(A):
+    """A copy of ``A`` 4 bytes past a 16-byte boundary, contiguous."""
+    flat = A.new_empty(A.numel() + 1)
+    B = flat[1:].view(A.shape)
+    B.copy_(A)
+    return B
+
+
+def time_pi_rows(m, views, res, launches) -> dict:
+    """`pi_rows` on the DARPA view words of modes 0 and 2 (Π of a 23.8 M-
+    row factor and a 22,476-row one, and of the two 22,476-row factors),
+    from a CP-APR run's final state: equal to its plain version there,
+    then timed beside the K4 + `krp_rows` chain it replaces
+    (``library_ms``), and on its one-float column path (``one_float_ms``:
+    the smaller factor it reads moved off a 16-byte boundary, the same
+    bits). The entry is mode 2's; ``mode0`` holds mode 0's."""
+    k4, ops, mtt = m["k4"], m["ops"], m["mttkrp"]
+    fs = res.factors
+    out = {}
+    for mode in (0, 2):
+        view = views[mode]
+        enc, words = view.meta.enc, view.words
+        check_pi_rows(m, enc, words, fs, f"darpa view {mode}", (mode,))
+        small = min((n for n in range(enc.ndim) if n != mode),
+                    key=lambda n: fs[n].shape[0])
+        fs1 = list(fs)
+        fs1[small] = _misaligned(fs[small])
+        _check_equal(f"darpa view {mode} pi_rows (one float)",
+                     ops.pi_rows(enc, words, fs1, mode),
+                     ops.pi_rows(enc, words, fs, mode))
+        M, W, N = words.shape[0], enc.n_words, enc.ndim
+        coords = ops.delinearize(enc, words)
+        rows_b = sum(_distinct(coords[:, n]) for n in range(N)
+                     if n != mode) * RANK * 4
+        del coords
+        nbytes = M * W * 4 + M * RANK * 4 + rows_b
+        out[mode] = dict(
+            ms=_ms(m, ops.pi_rows, enc, words, fs, mode),
+            one_float_ms=_ms(m, ops.pi_rows, enc, words, fs1, mode),
+            plain_ms=_ms(m, k4.pi_rows_plain, enc, words, fs, mode, iters=3),
+            library_ms=_ms(m, lambda: mtt.krp_rows(
+                ops.delinearize(enc, words), fs, mode).contiguous()),
+            nbytes=nbytes, nops=M * RANK * (N - 2),
+            shape=f"view {mode} of {enc.dims}, M={M}, W={W}, R={RANK}")
+    o = out[2]
+    e = _entry("pi_rows", launches, 0.0, o["ms"], o["plain_ms"],
+               o["nbytes"], o["nops"], o["library_ms"], o["shape"])
+    e["one_float_ms"] = o["one_float_ms"]
+    z = out[0]
+    e["mode0"] = {"shape": z["shape"], "ms": z["ms"],
+                  "one_float_ms": z["one_float_ms"],
+                  "plain_ms": z["plain_ms"], "library_ms": z["library_ms"],
+                  "bound_ms": _bound(z["nbytes"], z["nops"])[0]}
+    return e
+
+
 def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
     """K8 and K9 (ALTO-PRE) on the first full chunk of DARPA mode 2 in
     the middle of a stream (a carry in, none out is final), from the
@@ -4634,7 +4716,7 @@ def time_chunks(m, hs, sp, mp, als_res, apr_res, launches) -> list[dict]:
 
     pfs = apr_res.factors
     B = pfs[mode] * apr_res.lam[None, :]
-    pi = _pi_rows(m, enc, words, pfs, mode)
+    pi = m["ops"].pi_rows(enc, words, pfs, mode)
     k9_args = (enc, mode, 1e-10, rows, words, values, B)
     out = torch.zeros((I_n, R), device=DEVICE)
     got = kori.phi_carry_chunk(*k9_args, out.clone(), crow, cval, pi=pi,
@@ -5940,7 +6022,8 @@ def main() -> int:
     rec = next(mp for mp in cp.modes if mp.traversal is trav.RECURSIVE)
     kernels = [time_recursive(m, chicago["at"], c_fs, rec, launches)]
     big = dp.modes[2]                      # the 23.8 M-row mode
-    d_view = m["plan"].build_views(darpa["at"], dp)[2]
+    d_views = m["plan"].build_views(darpa["at"], dp)
+    d_view = d_views[2]
     kernels += time_oriented(m, d_view, d_fs, big, launches)
     kernels.append(time_phi_recursive(m, chicago["at"],
                                       chicago_apr["run"]["res"], rec,
@@ -5949,6 +6032,9 @@ def main() -> int:
                                  launches)
     kernels.append(time_delinearize(m, darpa["at"], chicago["at"],
                                     d_str["chunk_m"], launches))
+    kernels.append(time_pi_rows(m, d_views, darpa_apr["run"]["res"],
+                                launches))
+    del d_views, d_view
     kernels += time_chunks(m, d_str["streams"][2], d_str["plan"].streaming,
                            d_str["plan"].modes[2], d_str["run"]["res"],
                            d_str["apr_run"]["res"], launches)

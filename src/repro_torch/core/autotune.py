@@ -59,7 +59,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import faults, heuristics
-from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoMeta, AltoTensor
 from repro_torch.device import resolve_device
@@ -373,13 +372,6 @@ def seeded_factors(meta: AltoMeta, rank: int, seed: int, device):
             for I in meta.dims]
 
 
-def pi_rows(at: AltoTensor, words: torch.Tensor, factors, mode: int):
-    """ALTO-PRE Π rows of a word stream, in its order (decoded through
-    K4)."""
-    return core_mttkrp.krp_rows(ops.delinearize(at.meta.enc, words),
-                                factors, mode).contiguous()
-
-
 def _time_mttkrp(cand_plan, at, views, factors, mode, group=None):
     """(median, IQR) seconds of one MTTKRP under ``cand_plan`` (over the
     ranks of ``group`` for a sharded plan)."""
@@ -485,9 +477,10 @@ def tune_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
             B = factors[n].abs() + 0.1
             pi_alto = pi_view = None
             if pre_pi:       # Π in the order each traversal consumes
-                pi_alto = pi_rows(at, at.words, factors, n)
+                pi_alto = ops.pi_rows(at.meta.enc, at.words, factors, n)
                 if view is not None:
-                    pi_view = pi_rows(at, view.words, factors, n)
+                    pi_view = ops.pi_rows(at.meta.enc, view.words, factors,
+                                          n)
         timings = []
         for i, mp in enumerate(cands):
             modes = list(base)

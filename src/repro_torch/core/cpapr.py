@@ -10,8 +10,9 @@ traversals. The plan carries the paper's two adaptive choices:
   * traversal per mode: recursive (Temp + pull reduction) or
     output-oriented (carry or partials), per fiber reuse (§4.2);
   * Π policy: ALTO-PRE (the (M, R) Khatri-Rao rows built once per mode
-    update, through the K4 decode) or ALTO-OTF (rebuilt inside the Φ
-    kernel on every inner iteration), per the memory heuristic (§4.3).
+    update by one kernel that decodes, gathers and multiplies,
+    `ops.pi_rows`) or ALTO-OTF (rebuilt inside the Φ kernel on every
+    inner iteration), per the memory heuristic (§4.3).
 
 The inner multiplicative-update loop (Alg. 2 lines 7-14) is a host loop
 that reads the KKT violation of each step and stops once it is below
@@ -45,7 +46,6 @@ from repro_torch.core import faults, heuristics
 from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
-from repro_torch.core.mttkrp import krp_rows
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -136,8 +136,7 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
                     and heuristics.is_oriented(plan.modes[mode].traversal))
         words = view.words if oriented else at.words
         with trace.span("cpapr.pi_build"):
-            pi = krp_rows(ops.delinearize(at.meta.enc, words), factors,
-                          mode).contiguous()
+            pi = ops.pi_rows(at.meta.enc, words, factors, mode)
     if streamed:
         operands = dict(factors=factors, pre=pre_pi)
     else:

@@ -79,7 +79,7 @@ from repro_torch.core import autotune
 from repro_torch.core import heuristics
 from repro_torch.core import plan as plan_mod
 from repro_torch.core.alto import AltoMeta, AltoTensor
-from repro_torch.kernels import common
+from repro_torch.kernels import common, ops
 from repro_torch.kernels.mttkrp_oriented import lane_map
 
 TUNE_LOG_ENV = "REPRO_TORCH_TUNE_LOG"
@@ -695,10 +695,10 @@ def search_plan(at: AltoTensor, rank: int, *, backend: str | None = None,
         if objective == "phi":
             B = factors[mode].abs() + 0.1
             if pre_pi and not streaming:
-                pi_alto = autotune.pi_rows(at, at.words, factors, mode)
+                pi_alto = ops.pi_rows(at.meta.enc, at.words, factors, mode)
                 if view is not None:
-                    pi_view = autotune.pi_rows(at, view.words, factors,
-                                               mode)
+                    pi_view = ops.pi_rows(at.meta.enc, view.words, factors,
+                                          mode)
         out = (views, view, B, pi_alto, pi_view)
         mode_operands[mode] = out
         return out

@@ -59,6 +59,7 @@ SIGNATURES = {
     },
     "delinearize": {
         "alto_delinearize": [_I, _I, _P, _P, _L, _I, _I, _P, _P],
+        "alto_pi_rows": [_I, _I, _P, _P, _L, _P, _I, _I, _I, _P, _P],
     },
     "phi_oriented": {
         "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [
@@ -78,7 +79,7 @@ SIGNATURES = {
 KERNELS = ("carry_runs", "carry_fixup", "segment_split",
            "oriented_partials", "recursive_partials", "delinearize",
            "phi_carry_runs", "phi_oriented_partials", "phi_partials",
-           "carry_chunk", "phi_carry_chunk")
+           "carry_chunk", "phi_carry_chunk", "pi_rows")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 ELEMENTS = dict.fromkeys(KERNELS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)

@@ -174,6 +174,190 @@ int launch_route(const uint32_t* dtab, int ndim, int nwords,
   }
 }
 
+// ---------------------------------------------------------------------------
+// ALTO-PRE Π rows
+// ---------------------------------------------------------------------------
+
+constexpr int PI_THREADS = 256;
+
+// The other modes' factors in increasing mode order, and those modes.
+struct PiFactors {
+  const float* f[ALTO_MAX_MODES - 1];
+  int mode[ALTO_MAX_MODES - 1];
+};
+
+// Slots a thread holds at once: about 8 factor-row loads in flight.
+template <int N>
+struct PiUnroll {
+  static constexpr int value = N - 1 >= 8 ? 1 : 8 / (N - 1);
+};
+
+template <int VEC>
+struct Chunk;
+template <>
+struct Chunk<4> {
+  using T = float4;
+  static __device__ __forceinline__ float4 mul(float4 a, float4 b) {
+    return make_float4(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y),
+                       __fmul_rn(a.z, b.z), __fmul_rn(a.w, b.w));
+  }
+};
+template <>
+struct Chunk<1> {
+  using T = float;
+  static __device__ __forceinline__ float mul(float a, float b) {
+    return __fmul_rn(a, b);
+  }
+};
+
+// Elements of a tile: PI_THREADS·U slots, at least one element.
+template <int N>
+__host__ __device__ __forceinline__ int pi_tile(int chunks) {
+  const int e = PI_THREADS * PiUnroll<N>::value / chunks;
+  return e > 0 ? e : 1;
+}
+
+template <int ROUTE, int N, int NW, int VEC>
+__global__ void pi_rows_kernel(const uint32_t* __restrict__ dtab,
+                               PiFactors fac, int rank,
+                               const uint32_t* __restrict__ words, int64_t M,
+                               float* __restrict__ pi) {
+  using V = typename Chunk<VEC>::T;
+  constexpr int U = PiUnroll<N>::value;
+  extern __shared__ uint4 pi_smem[];
+  if constexpr (ROUTE == ROUTE_SMEM) {
+    const uint4* src = reinterpret_cast<const uint4*>(dtab);
+    for (int k = threadIdx.x; k < N * NW * 256; k += blockDim.x)
+      pi_smem[k] = __ldg(src + k);
+    __syncthreads();
+  }
+  const uint32_t* tab = ROUTE == ROUTE_SMEM
+                            ? reinterpret_cast<const uint32_t*>(pi_smem)
+                            : dtab;
+  const int chunks = rank / VEC;            // chunks of a Π row
+  const int per_tile = pi_tile<N>(chunks);
+  const int64_t n_tiles = (M + per_tile - 1) / per_tile;
+  V* out = reinterpret_cast<V*>(pi);
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t e0 = t * per_tile;
+    // The tile's slots are one contiguous run of Π's chunks.
+    const int n = static_cast<int>(M - e0 < per_tile ? M - e0 : per_tile) *
+                  chunks;
+    for (int s0 = threadIdx.x; s0 < n; s0 += PI_THREADS * U) {
+      V row[U][N - 1];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int s = s0 + u * PI_THREADS;
+        if (s < n) {
+          const int e = s / chunks;
+          const int q = s - e * chunks;
+          Words<NW> w;
+          w.load(words, e0 + e);
+#pragma unroll
+          for (int j = 0; j < N - 1; ++j) {
+            const int i = decode<ROUTE, NW>(tab, w, fac.mode[j]);
+            row[u][j] = __ldg(reinterpret_cast<const V*>(
+                                  fac.f[j] + static_cast<int64_t>(i) * rank) +
+                              q);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int s = s0 + u * PI_THREADS;
+        if (s < n) {
+          V acc = row[u][0];
+#pragma unroll
+          for (int j = 1; j < N - 1; ++j)
+            acc = Chunk<VEC>::mul(acc, row[u][j]);
+          __stcs(out + e0 * chunks + s, acc);
+        }
+      }
+    }
+  }
+}
+
+template <int ROUTE, int N, int NW, int VEC>
+int launch_pi_rows(const uint32_t* dtab, const PiFactors& fac, int rank,
+                   const uint32_t* words, int64_t M, float* pi,
+                   cudaStream_t stream) {
+  auto kernel = pi_rows_kernel<ROUTE, N, NW, VEC>;
+  const size_t smem =
+      ROUTE == ROUTE_SMEM ? static_cast<size_t>(N) * NW * 4096 : 0;
+  cudaError_t st = cudaSuccess;
+  if (smem > 48 * 1024)
+    st = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (st == cudaSuccess) st = cudaGetDevice(&dev);
+  if (st == cudaSuccess)
+    st = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (st == cudaSuccess)
+    st = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       PI_THREADS, smem);
+  if (st != cudaSuccess) return static_cast<int>(st);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int per_tile = pi_tile<N>(rank / VEC);
+  const int64_t n_tiles = (M + per_tile - 1) / per_tile;
+  const int64_t grid = n_tiles < static_cast<int64_t>(sms) * per_sm
+                           ? n_tiles
+                           : static_cast<int64_t>(sms) * per_sm;
+  kernel<<<static_cast<unsigned>(grid), PI_THREADS, smem, stream>>>(
+      dtab, fac, rank, words, M, pi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch for ndim N or above: one instantiation for each N up to
+// ALTO_MAX_MODES.
+template <int ROUTE, int NW, int VEC, int N = 2>
+int pi_rows_for_n(int ndim, const uint32_t* dtab, const PiFactors& fac,
+                  int rank, const uint32_t* words, int64_t M, float* pi,
+                  cudaStream_t stream) {
+  if (ndim == N)
+    return launch_pi_rows<ROUTE, N, NW, VEC>(dtab, fac, rank, words, M, pi,
+                                             stream);
+  if constexpr (N < ALTO_MAX_MODES)
+    return pi_rows_for_n<ROUTE, NW, VEC, N + 1>(ndim, dtab, fac, rank, words,
+                                                M, pi, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int ROUTE, int VEC>
+int pi_rows_for_w(int ndim, int nwords, const uint32_t* dtab,
+                  const PiFactors& fac, int rank, const uint32_t* words,
+                  int64_t M, float* pi, cudaStream_t stream) {
+  switch (nwords) {
+    case 1:
+      return pi_rows_for_n<ROUTE, 1, VEC>(ndim, dtab, fac, rank, words, M, pi,
+                                          stream);
+    case 2:
+      return pi_rows_for_n<ROUTE, 2, VEC>(ndim, dtab, fac, rank, words, M, pi,
+                                          stream);
+    case 4:
+      return pi_rows_for_n<ROUTE, 4, VEC>(ndim, dtab, fac, rank, words, M, pi,
+                                          stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int VEC>
+int pi_rows_for_route(int route, int ndim, int nwords, const uint32_t* dtab,
+                      const PiFactors& fac, int rank, const uint32_t* words,
+                      int64_t M, float* pi, cudaStream_t stream) {
+  switch (route) {
+    case ROUTE_SMEM:
+      return pi_rows_for_w<ROUTE_SMEM, VEC>(ndim, nwords, dtab, fac, rank,
+                                            words, M, pi, stream);
+    case ROUTE_L1:
+      return pi_rows_for_w<ROUTE_L1, VEC>(ndim, nwords, dtab, fac, rank,
+                                          words, M, pi, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -203,6 +387,40 @@ int alto_delinearize(int ndim, int nwords, const void* words,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// pi is (M, rank) float32, every entry written. words (M, nwords), nwords
+// 1, 2 or 4, aligned to a row; dtab: the byte decode tables (ndim, nwords,
+// 4, 256); factor_ptrs: a host array of the ndim factors' device addresses,
+// each (I_m, rank) row-major (the target mode's is not read); route:
+// ROUTE_*. The chunk width is chosen here: float4 where rank % 4 == 0 and
+// pi and every factor read are 16-byte aligned, else one float.
+int alto_pi_rows(int ndim, int nwords, const void* words, const void* dtab,
+                 long long M, const void* factor_ptrs, int mode, int rank,
+                 int route, void* pi, void* stream) {
+  if (ndim < 2 || ndim > ALTO_MAX_MODES || mode < 0 || mode >= ndim ||
+      rank < 1 || M < 0 || dtab == nullptr || factor_ptrs == nullptr ||
+      reinterpret_cast<uintptr_t>(pi) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(words) % (4 * nwords) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const int64_t* ptrs = static_cast<const int64_t*>(factor_ptrs);
+  PiFactors fac = {};
+  bool vec = rank % 4 == 0 && reinterpret_cast<uintptr_t>(pi) % 16 == 0;
+  for (int m = 0, j = 0; m < ndim; ++m) {
+    if (m == mode) continue;
+    fac.f[j] = reinterpret_cast<const float*>(ptrs[m]);
+    fac.mode[j++] = m;
+    vec = vec && ptrs[m] % 16 == 0;
+  }
+  const uint32_t* t = static_cast<const uint32_t*>(dtab);
+  const uint32_t* w = static_cast<const uint32_t*>(words);
+  float* out = static_cast<float*>(pi);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? pi_rows_for_route<4>(route, ndim, nwords, t, fac, rank, w, M,
+                                    out, s)
+             : pi_rows_for_route<1>(route, ndim, nwords, t, fac, rank, w, M,
+                                    out, s);
 }
 
 }  // extern "C"

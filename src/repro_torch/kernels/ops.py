@@ -151,6 +151,15 @@ def delinearize(enc: AltoEncoding, words: torch.Tensor) -> torch.Tensor:
     return _delin.delinearize(enc, words)
 
 
+def pi_rows(enc: AltoEncoding, words: torch.Tensor, factors,
+            mode: int) -> torch.Tensor:
+    """ALTO-PRE Π rows of a word stream, in its order: ``(M, R)``, the
+    Khatri-Rao rows of every factor but ``mode``'s, decoded, gathered and
+    multiplied by one kernel (`kernels.delinearize.pi_rows`), bit for bit
+    `core.mttkrp.krp_rows` on the decoded coordinates."""
+    return _delin.pi_rows(enc, words, factors, mode)
+
+
 # ---------------------------------------------------------------------------
 # MTTKRP entry points
 # ---------------------------------------------------------------------------
@@ -429,8 +438,8 @@ def cpapr_phi_oriented_chunked(view, B: torch.Tensor, factors, *,
     """Out-of-core carry Φ: host stream -> (I_n, R), one K9 per chunk.
 
     Takes ``factors`` under both Π policies. Under ``pre=True`` each
-    chunk's Π rows are built on the device from the chunk's words (K4 and
-    `core.mttkrp.krp_rows`), element for element the rows of a full-stream
+    chunk's Π rows are built on the device from the chunk's words
+    (`pi_rows`), element for element the rows of a full-stream
     Π: bit-identical to the in-core ALTO-PRE carry path. (A padded
     element's Π row is not zero here but its value is, so its term is
     +0.0 as in core, for the non-negative factors of CP-APR.) Under
@@ -448,8 +457,7 @@ def cpapr_phi_oriented_chunked(view, B: torch.Tensor, factors, *,
                                                       B.device)):
         faults.inject("ops.chunk_oom")
         if pre:
-            kw = dict(pi=core_mttkrp.krp_rows(delinearize(enc, words),
-                                              factors, mode).contiguous())
+            kw = dict(pi=pi_rows(enc, words, factors, mode))
         else:
             kw = dict(factors=factors)
         out, crow, cval = _oriented.phi_carry_chunk(

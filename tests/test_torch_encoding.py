@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import alto as jalto
 from repro.core import encoding as jenc
+from repro.core import mttkrp as jmttkrp
 from repro.kernels import ops as jops
 from repro_torch.core import alto as talto
 from repro_torch.core import cpals as tcpals
@@ -99,6 +101,32 @@ def test_delinearize_kernel_matches_pallas(dims, block_m):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     np.testing.assert_array_equal(got.numpy(), coords)
+
+
+@pytest.mark.parametrize("rank", [5, 16])
+@pytest.mark.parametrize("dims", SHAPES, ids=str)
+def test_pi_rows_matches_jax_pi_build(dims, rank):
+    """`ops.pi_rows` (its plain version on the CPU) equals, for every
+    mode, the JAX package's ALTO-PRE Π build (`src/repro/core/cpapr.py`:
+    `alto.delinearize`, then `mttkrp.krp_rows`) bit for bit; 500 words,
+    factors drawn at the rows they address."""
+    coords = _coords(dims, 500, seed=6)
+    words = jenc.linearize_np(jenc.make_encoding(dims), coords)
+    rng = np.random.default_rng(rank)
+    factors = []
+    for m, d in enumerate(dims):
+        A = np.zeros((d, rank), dtype=np.float32)
+        A[coords[:, m]] = rng.standard_normal((500, rank)).astype(np.float32)
+        factors.append(A)
+    jcoords = jalto.delinearize(jenc.make_encoding(dims), jnp.asarray(words))
+    enc = tenc.make_encoding(dims)
+    for mode in range(len(dims)):
+        ref = jmttkrp.krp_rows(jcoords, [jnp.asarray(A) for A in factors],
+                               mode)
+        got = tops.pi_rows(enc, tenc.words_from_np(words),
+                           [torch.from_numpy(A) for A in factors], mode)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_high_bit_words_sort_unsigned():

@@ -558,7 +558,8 @@ def test_cta_variants_give_equal_phi(one_thread, policy):
                 view = views.get(mode)
                 if policy == "pre":
                     words = view.words if view is not None else at.words
-                    kw = dict(pi=autotune.pi_rows(at, words, fs, mode))
+                    kw = dict(pi=tops.pi_rows(at.meta.enc, words, fs,
+                                               mode))
                 else:
                     kw = dict(factors=fs)
                 outs.append(tplan.execute_phi(p, at, view, B, mode, **kw))
