@@ -12,7 +12,9 @@ There is no prebuilt binary and no fallback when ``nvcc`` fails.
 Every C entry returns ``cudaGetLastError()``; `check` raises when it is
 not 0. Launch counts: each kernel wrapper adds one to `LAUNCHES[name]`,
 and the length of the stream it was launched on (nonzeros, or pieces for
-the fix-up) to `ELEMENTS[name]`, where it launches its kernel; each plain
+the fix-up) to `ELEMENTS[name]`, where it launches its kernel; a counter
+of `COUNTERS` counts the same way what is not a kernel (K7's window
+passes: one a launch, ⌈T / window⌉ elements); each plain
 version adds one to `PLAIN_ON_CUDA[name]` when it runs on a CUDA tensor,
 so a caller can show that its main path went through the kernels and
 never through a plain version.
@@ -80,8 +82,9 @@ KERNELS = ("carry_runs", "carry_fixup", "segment_split",
            "oriented_partials", "recursive_partials", "delinearize",
            "phi_carry_runs", "phi_oriented_partials", "phi_partials",
            "carry_chunk", "phi_carry_chunk", "pi_rows")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
-ELEMENTS = dict.fromkeys(KERNELS, 0)
+COUNTERS = ("phi_partials_passes",)
+LAUNCHES = dict.fromkeys(KERNELS + COUNTERS, 0)
+ELEMENTS = dict.fromkeys(KERNELS + COUNTERS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)
 BUILD_LOG: dict[str, str] = {}     # library -> nvcc output (ptxas -v),
                                    # from this build or the one cached
@@ -105,9 +108,10 @@ def count_plain(name: str, tensor) -> None:
 
 def reset_counts() -> None:
     with _LOCK:
-        for k in KERNELS:
+        for k in KERNELS + COUNTERS:
             LAUNCHES[k] = 0
             ELEMENTS[k] = 0
+        for k in KERNELS:
             PLAIN_ON_CUDA[k] = 0
 
 

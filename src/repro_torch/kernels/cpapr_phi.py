@@ -13,7 +13,11 @@ its Temp and the window's B rows in shared memory, ``window`` rows at a
 time (`common.window_rows` with B rows, from the card's shared memory per
 CTA): a Temp taller than one window is covered in several passes over the
 partition, and any window height gives the same bits
-(`phi_partials_windowed`).
+(`phi_partials_windowed`). ``temp_rows`` is the tallest partition's row
+interval: a partition walks only the windows its own rows reach (found
+first by a walk that only decodes) and stores zeros in the others. Each launch adds the
+windows of its Temp (`window_passes`, the most walks a partition makes)
+to the counter ``phi_partials_passes`` (`_build.COUNTERS`).
 
 The tenant axis, as K3's (`kernels.mttkrp`): a bucket's stacked words,
 values, part_start, B ``(T, I_n, R)`` and Π ``(T, Mp, R)`` or factors
@@ -30,6 +34,12 @@ from repro_torch.core.mttkrp import phi_contributions
 from repro_torch.kernels import _build, common
 from repro_torch.kernels.mttkrp import DEFAULT_THREADS
 from repro_torch.kernels.mttkrp_oriented import tenant_loop
+
+
+def window_passes(temp_rows: int, window: int) -> int:
+    """Windows of ``window`` rows that cover a Temp of ``temp_rows``:
+    ⌈temp_rows / window⌉, the most walks K7 makes over a partition."""
+    return -(-temp_rows // window)
 
 
 def phi_partials_plain(enc: AltoEncoding, mode: int, temp_rows: int,
@@ -112,4 +122,6 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
     del keep, strides
     _build.check(status, "alto_phi_partials")
     _build.count_launch("phi_partials", values.numel())
+    _build.count_launch("phi_partials_passes", window_passes(temp_rows,
+                                                             window))
     return temp

@@ -17,7 +17,8 @@
 // rounding), then each Temp entry adds its terms in stream order. A Temp
 // larger than a CTA may hold is covered in row windows (`window` rows, the
 // wrapper's choice from alto_phi_smem_limit), the partition walked once
-// per window; any window height gives the same bits. The words are decoded
+// per window that its own rows reach (zeros stored in the rest); any
+// window height gives the same bits. The words are decoded
 // through byte tables (alto_coord_table); the factors of the other modes
 // are gathered through L1, not staged in shared memory. The pull into (I_n, R)
 // is ops.pull_reduction, a fixed-order sum over the partitions covering
@@ -61,6 +62,10 @@ int launch_phi_partials_smem(const AltoArgs& a, const Tenants& tn,
       out_rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   PhiArgs p = phi_args(a, B, pi, eps, words, values, threads, stream);
+  // Several windows: the partition's reach is reduced through the staging
+  // tile (terms, then rows), an int a warp.
+  if (window < temp_rows && tile * (a.rank + 1) < p.threads / 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   p.tn = tn;
   p.part_start = static_cast<const int*>(part_start);
   p.n_parts = n_parts;

@@ -55,7 +55,11 @@
 // partition once per row window of `window` rows (the wrapper's choice
 // from the card's shared memory) and adds only that window's rows: the
 // same order per entry, so any window height gives the same bits. Every
-// Temp row is written once, at the end of its window.
+// Temp row is written once, at the end of its window. The Temp is as tall
+// as the tallest partition's row interval; a partition walks only the
+// windows its own rows reach (found first by a walk that only decodes)
+// and stores zeros in the rest, so its walks follow its own interval and
+// not the tallest.
 #pragma once
 
 #include "alto_scan.cuh"
@@ -356,9 +360,37 @@ __global__ void phi_partials_smem_kernel(
   temp += z * L * temp_rows * R;
   const int start = __ldg(part_start + l * a.ndim + a.mode);
   const int64_t s = l * chunk;
+  // Temp rows [0, reach) are those this partition's rows reach: temp_rows
+  // is the tallest partition's. With several windows, a walk that only
+  // decodes finds reach first; a window at or past it holds no term and is
+  // stored as zeros without a walk.
+  int64_t reach = temp_rows;
+  if (window < temp_rows) {
+    int top = 0;                           // highest local row + 1
+    for (int64_t j = tid; j < chunk; j += nthreads) {
+      const int64_t lr =
+          alto_coord_table(a, words + (s + j) * a.nwords, a.mode) - start;
+      top = lr >= top ? static_cast<int>(lr) + 1 : top;
+    }
+    // The CTA's largest, an int a warp through the staging tile (its
+    // terms, then its rows; the launcher checks they hold one a warp).
+    int* s_top = reinterpret_cast<int*>(s_term);
+    top = __reduce_max_sync(0xffffffffu, top);
+    if (wl == 0) s_top[tid / 32] = top;
+    __syncthreads();
+    reach = 0;
+    for (int k = 0; k < nthreads / 32; ++k)
+      reach = s_top[k] > reach ? s_top[k] : reach;
+    __syncthreads();
+  }
   for (int64_t w0 = 0; w0 < temp_rows; w0 += window) {
     const int h = static_cast<int>(
         temp_rows - w0 < window ? temp_rows - w0 : window);
+    float* tl = temp + (l * temp_rows + w0) * R;
+    if (w0 >= reach) {
+      for (int k = tid; k < h * R; k += nthreads) tl[k] = 0.0f;
+      continue;
+    }
     const int64_t base = start + w0;
     for (int k = tid; k < h * R; k += nthreads) {
       s_temp[k] = 0.0f;
@@ -428,7 +460,6 @@ __global__ void phi_partials_smem_kernel(
       }
       __syncthreads();
     }
-    float* tl = temp + (l * temp_rows + w0) * R;
     for (int k = tid; k < h * R; k += nthreads) tl[k] = s_temp[k];
     __syncthreads();
   }

@@ -43,6 +43,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import faults
 from repro_torch.core import mttkrp as core_mttkrp
 from repro_torch.core import stream as _stream
@@ -221,18 +222,20 @@ def cpapr_phi(at: AltoTensor, B: torch.Tensor, mode: int, factors=None,
               pi: torch.Tensor | None = None, eps: float = 1e-10,
               threads: int = _mttkrp.DEFAULT_THREADS,
               order: _views.PullOrder | None = None) -> torch.Tensor:
-    """Recursive-traversal Φ: K7 partials + pull reduction. ``pi`` holds
-    the Π rows of the ALTO-ordered (padded) stream; ``order`` as in
-    `mttkrp`."""
+    """Recursive-traversal Φ: K7 partials + pull reduction, in the spans
+    ``repro.phi.partials`` and ``repro.phi.pull``. ``pi`` holds the Π rows
+    of the ALTO-ordered (padded) stream; ``order`` as in `mttkrp`."""
     faults.inject("ops.exec")
     meta = at.meta
-    partials = _phi.phi_partials(
-        meta.enc, mode, meta.temp_rows[mode], eps, at.words, at.values,
-        at.part_start, B, factors=factors, pi=pi, threads=threads)
-    if order is None:
-        order = _views.get_pull_order(at, mode)
-    return pull_reduction(partials, at.part_start[..., mode],
-                          meta.dims[mode], threads, order)
+    with trace.span("phi.partials"):
+        partials = _phi.phi_partials(
+            meta.enc, mode, meta.temp_rows[mode], eps, at.words, at.values,
+            at.part_start, B, factors=factors, pi=pi, threads=threads)
+    with trace.span("phi.pull"):
+        if order is None:
+            order = _views.get_pull_order(at, mode)
+        return pull_reduction(partials, at.part_start[..., mode],
+                              meta.dims[mode], threads, order)
 
 
 def cpapr_phi_oriented(view: OrientedView, B: torch.Tensor, factors=None,
