@@ -32,7 +32,9 @@ sm_90a), then:
    their plain versions on the same small layouts under both Π policies
    and at ranks 5, 16 and 40 (K4 equal, K5 equal to K6 + segment_merge,
    K9 chained over chunks equal to K5, K7 in Temp windows of 1 and 3 rows
-   equal to K7 in one window, K5, K6 and K7 equal bit for bit to their
+   equal to K7 in one window, as is K7 in the wide CTA that
+   ``common.k7_launch`` gives a Temp taller than one window, K5, K6 and
+   K7 equal bit for bit to their
    plain versions run on CPU copies of the inputs with one CPU thread,
    every row of K5's output written as K1's, the split of K6's slots
    equal to ``split_block_runs``, equal bits on a second run),
@@ -63,7 +65,12 @@ sm_90a), then:
    ``split_block_runs`` on DARPA mode 2's slots; K4 under each
    decode route on the whole DARPA stream, one chunk's ragged length,
    lengths 1, 1023 and 1025, and the Chicago stream) and times kernel,
-   plain version and bound, and the pull with its cached order;
+   plain version and bound, and the pull with its cached order; and K7 on
+   the four modes of FROSTT Enron's shape, whose Temp windows fill a
+   CTA's shared memory: the main path's wide CTA counted in
+   ``phi_partials_wide``, equal bit for bit to the plan's 128 threads and
+   to itself in windows of 256 rows, close to its plain version, and
+   timed beside the 128-thread launch;
 10. measures plans, with a plan store in a temporary directory: the
    MTTKRP tuner at its defaults (what ``make_plan(tune="auto", at=)``
    runs on a store miss: every mode's list capped at 24 candidates, every
@@ -800,9 +807,11 @@ def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
                                cpu_copies: bool = False) -> dict:
     """K7 against its plain version, and the fixed-order pull against the
     CPU's; both repeatable; K7 with Temp windows of ``windows`` rows equal
-    to K7 in one window; with ``cpu_copies``, K7 equal bit for bit to its
+    to K7 in one window, and so is K7 in the wide CTA `common.k7_launch`
+    gives a Temp as tall as Enron's mode 0 (`ENRON_TEMP_ROWS`), in those
+    windows and in one; with ``cpu_copies``, K7 equal bit for bit to its
     plain version run on CPU copies of the inputs."""
-    k7, ops = m["k7"], m["ops"]
+    k7, ops, common = m["k7"], m["ops"], m["common"]
     meta = at.meta
     args = (meta.enc, mode, meta.temp_rows[mode], 1e-10, at.words,
             at.values, at.part_start, B)
@@ -816,6 +825,17 @@ def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
         _check_equal(f"{label} phi_partials windows of {w} rows", one,
                      k7.phi_partials_windowed(*args, **operands,
                                               threads=threads, window=w))
+    wide = common.k7_launch(ENRON_TEMP_ROWS, B.shape[1],
+                            common.smem_limit(B.device), threads,
+                            common.k7_max_threads(B.shape[1], B.device))[0]
+    if wide <= common.cta_threads(threads):
+        _fail(f"{label}: k7_launch keeps {threads} threads for a Temp of "
+              f"{ENRON_TEMP_ROWS} rows")
+    for w in (*windows, meta.temp_rows[mode]):
+        _check_equal(f"{label} phi_partials in CTAs of {wide} threads, "
+                     f"windows of {w} rows", one,
+                     k7.phi_partials_windowed(*args, **operands,
+                                              threads=wide, window=w))
     errs = {"phi_partials": _check_close(
         f"{label} phi_partials", temp,
         k7.phi_partials_plain(*args, **operands))}
@@ -929,6 +949,80 @@ def phase_small_phi(m) -> dict:
                         per_rank[k] = max(per_rank.get(k, 0.0), v)
     print(f"chip_smoke: small CP-APR kernels ok, worst errors {worst}")
     return worst
+
+
+ENRON_TEMP_ROWS = 5983   # FROSTT Enron's mode 0 at rank 16: Temp rows
+ENRON_SEED = 20261018
+
+
+@_index_order()
+def phase_enron_k7(m) -> dict:
+    """K7 where its Temp windows fill a CTA's shared memory: FROSTT Enron's
+    shape (`bench/configs/enron.json`, drawn on the card by
+    `bench.generators` from `ENRON_SEED`: 6,066 × 5,699 × 244,268 ×
+    1,176, 54.2 M nonzeros, 1,024 partitions) at `RANK` under ALTO-OTF.
+    On each mode the main path's launch (`common.k7_launch` from the
+    plan's 128 threads: a wider CTA, counted once in
+    ``phi_partials_wide`` with its threads as elements) equal bit for bit
+    to the plan's CTA of 128 threads in its own window and to the wide CTA
+    in windows of 256 rows, and close to the plain version; the main
+    path's launch and the plan's CTA timed."""
+    from bench import generators
+    from repro_torch.sparse.tensor import SparseTensor
+    common, k7, b = m["common"], m["k7"], m["build"]
+    cfg = json.loads((ROOT / "bench/configs/enron.json").read_text())
+    coo = generators.make_tensor(cfg, ENRON_SEED, torch.device(DEVICE))
+    x = SparseTensor(coo.dims, coo.coords.to(torch.int32).cpu().numpy(),
+                     coo.values.cpu().numpy())
+    del coo
+    at = m["alto"].build_device(x, n_partitions=int(cfg["n_partitions"]))
+    del x
+    fs = _factors(at.meta.dims, seed=5)
+    limit = common.smem_limit(at.words.device)
+    if at.meta.temp_rows[0] != ENRON_TEMP_ROWS:
+        _fail(f"Enron mode 0: Temp of {at.meta.temp_rows[0]} rows, not "
+              f"{ENRON_TEMP_ROWS}")
+    modes = []
+    for mode, T in enumerate(at.meta.temp_rows):
+        label = f"Enron K7 mode {mode} (T={T})"
+        args = (at.meta.enc, mode, T, 1e-10, at.words, at.values,
+                at.part_start, fs[mode] * 3.0)
+        threads, tile, window = common.k7_launch(
+            T, RANK, limit, 128, common.k7_max_threads(RANK, fs[0].device))
+        if threads <= 128:
+            _fail(f"{label}: k7_launch keeps the plan's 128 threads")
+        before = b.counts()
+        temp = k7.phi_partials(*args, factors=fs, threads=128)
+        after = b.counts()
+        wide = tuple(after[k]["phi_partials_wide"]
+                     - before[k]["phi_partials_wide"]
+                     for k in ("launches", "elements"))
+        if wide != (1, threads):
+            _fail(f"{label}: phi_partials_wide counted {wide}, not "
+                  f"(1, {threads})")
+        plan_window = common.window_rows(T, RANK, limit, True)
+        _check_equal(f"{label} vs the plan's CTA of 128 threads", temp,
+                     k7.phi_partials_windowed(*args, factors=fs,
+                                              threads=128,
+                                              window=plan_window))
+        _check_equal(f"{label} in windows of 256 rows", temp,
+                     k7.phi_partials_windowed(*args, factors=fs,
+                                              threads=threads, window=256))
+        err = _check_close(label, temp,
+                           k7.phi_partials_plain(*args, factors=fs))
+        del temp
+        modes.append({
+            "mode": mode, "temp_rows": T, "threads": threads, "tile": tile,
+            "window": window, "plan_window": plan_window,
+            "max_abs_err": err,
+            "ms": _ms(m, k7.phi_partials, *args, fs, None, None, 128),
+            "plan_ms": _ms(m, k7.phi_partials_windowed, *args, fs, None,
+                           None, 128, plan_window)})
+    print(f"chip_smoke: Enron K7 ok, by mode (threads, tile, window, ms, "
+          f"128-thread ms): "
+          + "; ".join(f"{e['threads']}, {e['tile']}, {e['window']}, "
+                      f"{e['ms']:.2f}, {e['plan_ms']:.2f}" for e in modes))
+    return {"nnz": int(at.values.numel()), "modes": modes}
 
 
 def _apr_params(m, k_max):
@@ -6028,6 +6122,7 @@ def main() -> int:
     kernels.append(time_phi_recursive(m, chicago["at"],
                                       chicago_apr["run"]["res"], rec,
                                       launches))
+    kernels[-1]["enron"] = phase_enron_k7(m)
     kernels += time_phi_oriented(m, d_view, darpa_apr["run"]["res"], big,
                                  launches)
     kernels.append(time_delinearize(m, darpa["at"], chicago["at"],

@@ -14,7 +14,8 @@ not 0. Launch counts: each kernel wrapper adds one to `LAUNCHES[name]`,
 and the length of the stream it was launched on (nonzeros, or pieces for
 the fix-up) to `ELEMENTS[name]`, where it launches its kernel; a counter
 of `COUNTERS` counts the same way what is not a kernel (K7's window
-passes: one a launch, ⌈T / window⌉ elements); each plain
+passes: one a launch, ⌈T / window⌉ elements; K7's launches in a CTA
+wider than the plan's: one each, its threads as elements); each plain
 version adds one to `PLAIN_ON_CUDA[name]` when it runs on a CUDA tensor,
 so a caller can show that its main path went through the kernels and
 never through a plain version.
@@ -75,6 +76,7 @@ SIGNATURES = {
         "alto_phi_partials": _ALTO + [_P, _P, _P] + _PHI + [
             _P, _L, _L, _L, _I, _I, _I, _I, _P] + _TENANTS + [_P],
         "alto_phi_smem_limit": [_P],
+        "alto_phi_partials_max_threads": [_I, _P],
     },
 }
 
@@ -82,7 +84,7 @@ KERNELS = ("carry_runs", "carry_fixup", "segment_split",
            "oriented_partials", "recursive_partials", "delinearize",
            "phi_carry_runs", "phi_oriented_partials", "phi_partials",
            "carry_chunk", "phi_carry_chunk", "pi_rows")
-COUNTERS = ("phi_partials_passes",)
+COUNTERS = ("phi_partials_passes", "phi_partials_wide")
 LAUNCHES = dict.fromkeys(KERNELS + COUNTERS, 0)
 ELEMENTS = dict.fromkeys(KERNELS + COUNTERS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)

@@ -180,6 +180,25 @@ def smem_limit(device: torch.device) -> int:
     return _SMEM_LIMIT[idx]
 
 
+_K7_MAX_THREADS: dict[tuple[int, int], int] = {}
+
+
+def k7_max_threads(rank: int, device: torch.device) -> int:
+    """The most threads a K7 CTA may have at ``rank`` on ``device``, as
+    its kernel's registers allow (the CUDA runtime's
+    ``maxThreadsPerBlock``)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if (idx, rank) not in _K7_MAX_THREADS:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _build.check(_build.library(
+                "cpapr_phi").alto_phi_partials_max_threads(
+                    rank, ctypes.byref(out)), "alto_phi_partials_max_threads")
+        _K7_MAX_THREADS[idx, rank] = out.value
+    return _K7_MAX_THREADS[idx, rank]
+
+
 def alto_args(enc: AltoEncoding, mode: int, factors, rank: int):
     """The leading C arguments of every MTTKRP and Φ entry: factor
     addresses (null under ALTO-PRE, ``factors=None``), the BitRun table,
@@ -239,12 +258,13 @@ def smem_bytes(window: int, cols: int, tile: int, b_rows: bool) -> int:
 
 
 def window_rows(temp_rows: int, cols: int, limit_bytes: int,
-                b_rows: bool) -> int:
+                b_rows: bool, tile: int | None = None) -> int:
     """Temp rows K3 (``b_rows`` False) or K7 (True) holds in shared memory
-    at once: all ``temp_rows`` where they fit under ``limit_bytes`` (one
-    CTA's shared memory), else the most that do. Raises when not even one
-    row fits."""
-    tile = tile_nnz(cols)
+    at once beside a staging tile of ``tile`` nonzeros (default
+    `tile_nnz`): all ``temp_rows`` where they fit under ``limit_bytes``
+    (one CTA's shared memory), else the most that do. Raises when not even
+    one row fits."""
+    tile = tile_nnz(cols) if tile is None else tile
     per_row = smem_bytes(1, cols, tile, b_rows) - smem_bytes(0, cols, tile,
                                                               b_rows)
     h = (limit_bytes - smem_bytes(0, cols, tile, b_rows)) // per_row
@@ -254,3 +274,67 @@ def window_rows(temp_rows: int, cols: int, limit_bytes: int,
                          f"bytes of shared memory, the card has "
                          f"{limit_bytes}")
     return int(min(temp_rows, h))
+
+
+# K7's CTA from its occupancy. A Temp window that fills a CTA's shared
+# memory leaves one CTA an SM; a CTA of the plan's 128 threads then gives
+# the SM 4 warps, too few gathers in flight to hide the factor rows' L2
+# latency. `k7_launch` widens such a CTA until the SM holds `K7_SM_WARPS`
+# warps, with a staging tile scaled to its warps (`k7_tile`).
+K7_SM_WARPS = 16
+K7_WIDE_THREADS = (256, 512)        # the widths k7_launch may give a CTA
+CTA_SMEM_RESERVED = 1024            # shared memory the runtime keeps a
+                                    # CTA; an SM holds one CTA at the
+                                    # opt-in limit and this
+
+
+def ctas_per_sm(smem: int, limit_bytes: int) -> int:
+    """CTAs of ``smem`` bytes one SM's shared memory holds, on a card whose
+    CTA may opt in to ``limit_bytes`` (the SM has that and one CTA's
+    reserve). The SM's caps on threads (2,048) and CTAs (32) bind only
+    where they leave 16 warps or more, so `k7_launch` needs neither."""
+    return (limit_bytes + CTA_SMEM_RESERVED) // (smem + CTA_SMEM_RESERVED)
+
+
+def k7_tile(cols: int, threads: int) -> int:
+    """K7's staging tile in a CTA of ``threads``: `tile_nnz`, sized for
+    the plan's 128 threads, times the CTA's multiple of 128 threads, so
+    each sub-warp keeps its share of a tile in a wider CTA."""
+    return tile_nnz(cols) * max(1, cta_threads(threads) // 128)
+
+
+def k7_launch(temp_rows: int, rank: int, limit_bytes: int, threads: int,
+              max_threads: int = 1024) -> tuple[int, int, int]:
+    """K7's ``(threads, tile, window)`` for a Temp of ``temp_rows`` rows at
+    ``rank`` under ``limit_bytes`` of shared memory a CTA, from the plan's
+    ``threads``, in CTAs of at most ``max_threads`` (`k7_max_threads`).
+
+    Where the plan's CTA with `tile_nnz` and `window_rows` leaves an SM
+    `K7_SM_WARPS` warps or more, that launch, as it always was. Else the
+    fewest of `K7_WIDE_THREADS` that reach them, with its `k7_tile` and
+    the window that leaves; where none reaches them, the shape with the
+    most warps an SM (the plan's on a tie). The bits do not depend on the
+    shape (csrc/phi_scan.cuh)."""
+    t0 = cta_threads(threads)
+    best = (t0, tile_nnz(rank), window_rows(temp_rows, rank, limit_bytes,
+                                            True))
+
+    def warps(t, tile, window):
+        return ctas_per_sm(smem_bytes(window, rank, tile, True),
+                           limit_bytes) * t // 32
+
+    most = warps(*best)
+    for t in K7_WIDE_THREADS:
+        if most >= K7_SM_WARPS:
+            break
+        if t <= t0 or t > max_threads:
+            continue
+        tile = k7_tile(rank, t)
+        try:
+            shape = (t, tile, window_rows(temp_rows, rank, limit_bytes,
+                                          True, tile))
+        except ValueError:
+            break
+        if warps(*shape) > most:
+            best, most = shape, warps(*shape)
+    return best

@@ -8,16 +8,19 @@ of the ``(L, temp_rows, R)`` output, in stream order from 0.0, where
 No rank tiles: the denominator needs the whole rank. The pull into
 ``(I_n, R)`` is `ops.pull_reduction`.
 
-On the card one CTA of ``threads`` (whole warps) runs each partition with
-its Temp and the window's B rows in shared memory, ``window`` rows at a
-time (`common.window_rows` with B rows, from the card's shared memory per
-CTA): a Temp taller than one window is covered in several passes over the
-partition, and any window height gives the same bits
+On the card one CTA runs each partition with its Temp and the window's B
+rows in shared memory, ``window`` rows at a time: a Temp taller than one
+window is covered in several passes over the partition. The CTA's
+threads, its staging tile and the window come from `common.k7_launch`:
+the plan's ``threads`` (whole warps) and `common.window_rows` where they
+leave an SM 16 warps or more, else a wider CTA, a larger tile and the
+window that remains. Any shape gives the same bits
 (`phi_partials_windowed`). ``temp_rows`` is the tallest partition's row
 interval: a partition walks only the windows its own rows reach (found
 first by a walk that only decodes) and stores zeros in the others. Each launch adds the
 windows of its Temp (`window_passes`, the most walks a partition makes)
-to the counter ``phi_partials_passes`` (`_build.COUNTERS`).
+to the counter ``phi_partials_passes`` (`_build.COUNTERS`), and a launch
+in a CTA wider than the plan's its threads to ``phi_partials_wide``.
 
 The tenant axis, as K3's (`kernels.mttkrp`): a bucket's stacked words,
 values, part_start, B ``(T, I_n, R)`` and Π ``(T, Mp, R)`` or factors
@@ -79,9 +82,11 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
                           factors=None, pi=None, r_block: int | None = None,
                           threads: int = DEFAULT_THREADS,
                           window: int | None = None) -> torch.Tensor:
-    """K7 with its Temp window height given (``None``: `common.
-    window_rows` of the card's shared memory). On the CPU the window
-    changes nothing."""
+    """K7 with its Temp window height given: ``window`` None takes `common.
+    k7_launch` of the card's shared memory from the plan's ``threads`` (a
+    CTA widened there counts in ``phi_partials_wide``); else CTAs of
+    ``threads`` with staging tiles of `common.k7_tile` nonzeros and Temp
+    windows of ``window`` rows. On the CPU the shape changes nothing."""
     lead = common.tenant_lead(values)
     L = part_start.shape[-2]
     Mp = values.shape[-1]
@@ -103,10 +108,13 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
             lambda w, v, p, b, f, pi_: phi_partials_plain(
                 enc, mode, temp_rows, eps, w, v, p, b, f, pi_),
             lead, words, values, part_start, B, factors, pi)
-    tile = common.tile_nnz(R)
+    plan_threads = threads
     if window is None:
-        window = common.window_rows(temp_rows, R,
-                                    common.smem_limit(words.device), True)
+        threads, tile, window = common.k7_launch(
+            temp_rows, R, common.smem_limit(words.device), threads,
+            common.k7_max_threads(R, words.device))
+    else:
+        tile = common.k7_tile(R, threads)
     window = min(window, temp_rows)
     temp = torch.empty(lead + (L, temp_rows, R), dtype=torch.float32,
                        device=words.device)
@@ -124,4 +132,6 @@ def phi_partials_windowed(enc: AltoEncoding, mode: int, temp_rows: int,
     _build.count_launch("phi_partials", values.numel())
     _build.count_launch("phi_partials_passes", window_passes(temp_rows,
                                                              window))
+    if threads > common.cta_threads(plan_threads):
+        _build.count_launch("phi_partials_wide", threads)
     return temp

@@ -15,10 +15,15 @@
 // its Temp window and the window's B rows in shared memory; the sub-warps
 // form the terms of a tile of nonzeros in parallel (K5's lane map and
 // rounding), then each Temp entry adds its terms in stream order. A Temp
-// larger than a CTA may hold is covered in row windows (`window` rows, the
-// wrapper's choice from alto_phi_smem_limit), the partition walked once
-// per window that its own rows reach (zeros stored in the rest); any
-// window height gives the same bits. The words are decoded
+// larger than a CTA may hold is covered in row windows, the partition
+// walked once per window that its own rows reach (zeros stored in the
+// rest). The wrapper chooses the CTA's threads, its staging tile and the
+// window together (common.k7_launch, from alto_phi_smem_limit): the
+// plan's threads, tile_nnz and the tallest window that fits, unless that
+// leaves an SM fewer than 16 warps; then a wider CTA of the same kernel,
+// a tile scaled with its warps (common.k7_tile) and the window that
+// remains. Every Temp entry adds its terms in stream order whatever the
+// shape, so the shape never changes the bits. The words are decoded
 // through byte tables (alto_coord_table); the factors of the other modes
 // are gathered through L1, not staged in shared memory. The pull into (I_n, R)
 // is ops.pull_reduction, a fixed-order sum over the partitions covering
@@ -78,6 +83,19 @@ int launch_phi_partials_smem(const AltoArgs& a, const Tenants& tn,
   return phi_dispatch<PhiPartialsLaunch>(a.rank, p);
 }
 
+// The most threads a CTA of K7's kernel for the lane map of a rank may
+// have, as its registers allow (common.k7_launch widens no further).
+template <int W, int COLS>
+struct PhiPartialsMaxThreads {
+  static int run(int* threads) {
+    cudaFuncAttributes attr;
+    const cudaError_t st = cudaFuncGetAttributes(
+        &attr, phi_partials_smem_kernel<W, COLS, phi_unroll<COLS>()>);
+    if (st == cudaSuccess) *threads = attr.maxThreadsPerBlock;
+    return static_cast<int>(st);
+  }
+};
+
 }  // namespace
 
 extern "C" {
@@ -90,6 +108,11 @@ int alto_phi_smem_limit(int* bytes) {
     st = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                 dev);
   return static_cast<int>(st);
+}
+
+// The most threads a K7 CTA may have at `rank` (its kernel's registers).
+int alto_phi_partials_max_threads(int rank, int* threads) {
+  return phi_dispatch<PhiPartialsMaxThreads>(rank, threads);
 }
 
 // temp is (n_parts, temp_rows, rank); every entry is written. pi is null

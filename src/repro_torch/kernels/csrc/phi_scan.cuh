@@ -60,6 +60,22 @@
 // windows its own rows reach (found first by a walk that only decodes)
 // and stores zeros in the rest, so its walks follow its own interval and
 // not the tallest.
+//
+// K7's CTA (common.k7_launch): the plan's threads with a tile of
+// tile_nnz(R) nonzeros and the tallest window that fits, where that
+// leaves an SM 16 warps or more (Chicago's mode 0: 25 KB, 8 CTAs of 4
+// warps). A window that fills the CTA's 227 KB leaves one CTA an SM, 4
+// warps: too few factor-row gathers in flight for rows that come from
+// L2. There the same kernel runs in a wider CTA (blockDim.x is any whole
+// number of warps) until the SM holds 16 warps, with a staging tile
+// scaled with its warps and the window that leaves: on Enron's modes
+// 512 threads, a 512-nonzero tile and 1,544-row windows, 1.7 times as
+// fast as 128 threads (H100, 700 W; 1,024 threads ran 0.2 % slower in
+// all, 256 threads 1.4 times as fast as 128). Sub-warp q
+// still owns the rows with row % n_subwarps == q and adds a tile's terms
+// in slot order, so each Temp entry still adds its terms in stream order
+// from 0.0: the bits depend on neither the threads, nor the tile, nor
+// the window.
 #pragma once
 
 #include "alto_scan.cuh"
