@@ -2154,7 +2154,7 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
         if p.pi_policy.value == "pre":
             phi_op = dict(pi=ops.pad_sorted_stream(
                 None, vb.words, None, bm,
-                pi=batched.pi_rows(enc, vb.words, apr_fac, n))[3])
+                pi=ops.pi_rows(enc, vb.words, apr_fac, n))[3])
         else:
             phi_op = dict(factors=apr_fac)
         W = enc.n_words
@@ -2169,6 +2169,10 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
         fbytes = sum(touched[k] for k in range(enc.ndim) if k != n) * R * 4
         b_rows = touched[n] * R * 4
         out_b = K * I_n * R * 4
+        if "pi" in phi_op:
+            out.append(check_tenant_pi_rows(
+                m, label, enc, vb.words, apr_fac, n,
+                vb.words.shape[:2].numel() * (W + R) * 4 + fbytes))
         carry = mp.traversal is trav.ORIENTED_CARRY
         cases = []
         if carry:
@@ -2283,6 +2287,38 @@ def check_tenant_kernels(m, p, ats, views, res_als, res_apr, label) -> list:
     return out + rec
 
 
+def check_tenant_pi_rows(m, label, enc, words, factors, n,
+                         nbytes) -> dict:
+    """A bucket's Π of mode ``n`` (``words`` ``(T, M, W)``, ``factors``
+    ``(T, I_m, R)``): one `ops.pi_rows` launch, equal bit for bit to the
+    plain version tenant by tenant and to the T solo launches; times of
+    the stacked launch, the T solo launches, the plain version, and the
+    bound of ``nbytes``."""
+    ops, build = m["ops"], m["build"]
+    loop = m["kori"].tenant_loop
+    K, M = words.shape[:2]
+    tag = f"{label} pi_rows mode {n}"
+    before = build.LAUNCHES["pi_rows"]
+    got = ops.pi_rows(enc, words, factors, n)
+    _sync()
+    if build.LAUNCHES["pi_rows"] != before + 1:
+        _fail(f"{tag}: {build.LAUNCHES['pi_rows'] - before} launches for "
+              f"the bucket")
+    _check_equal(f"{tag} stacked vs plain", got, loop(
+        m["k4"].pi_rows_plain, (K,), enc, words, factors, n))
+    _check_equal(f"{tag} vs {K} solo launches", got,
+                 loop(ops.pi_rows, (K,), enc, words, factors, n))
+    e = {"kernel": "pi_rows", "class": label, "mode": n, "tenants": K,
+         "elements": K * M, "max_abs_err": 0.0,
+         "ms": _ms(m, ops.pi_rows, enc, words, factors, n, iters=5),
+         "solo_ms": _ms(m, lambda: loop(ops.pi_rows, (K,), enc, words,
+                                        factors, n), iters=3),
+         "plain_ms": _ms(m, lambda: loop(m["k4"].pi_rows_plain, (K,), enc,
+                                         words, factors, n), iters=1)}
+    e["bound_ms"], e["bound_by"] = _bound(nbytes, 0.0)
+    return e
+
+
 def _print_axis(label, e) -> None:
     print(f"chip_smoke: {label} tenant axis {e.get('op') or e['kernel']} "
           f"mode {e['mode']}{' ' + e['policy'] if 'policy' in e else ''}: "
@@ -2318,7 +2354,7 @@ def check_tenant_recursive(m, p, ats, n, res_als, res_apr, label) -> list:
         for r in res_apr.results])
     lam = torch.stack([r.lam for r in res_apr.results])
     B = (apr_fac[n] * lam[:, None, :]).contiguous()
-    pi = batched.pi_rows(enc, at_b.words, apr_fac, n)
+    pi = ops.pi_rows(enc, at_b.words, apr_fac, n)
     coords = ops.delinearize(enc, at_b.words.reshape(-1, W)).reshape(
         K, Mp, N)
     touched = [sum(int(torch.unique(coords[t, :, k]).numel())
@@ -2401,6 +2437,8 @@ def check_tenant_recursive(m, p, ats, n, res_als, res_apr, label) -> list:
     e["bound_ms"], e["bound_by"] = _bound(
         temp_b + K * L * T_rows * 12 + K * I_n * R * 4, 0.0)
     out.append(e)
+    out.append(check_tenant_pi_rows(m, label, enc, at_b.words, apr_fac, n,
+                                    K * Mp * (W + R) * 4 + fbytes))
     del temp, got, at_b, pi, B
     for e in out:
         _print_axis(label, e)
@@ -2478,8 +2516,9 @@ def bucket_apr(m, label, p, ats, views, dims, seeds, params, cap,
     with ``solo``, every tenant against its solo run, bit for bit.
     Returns (result, seconds, counts, solo seconds, Φ evaluations)."""
     cpapr, batched = m["cpapr"], m["batched"]
+    pre = p.pi_policy.value == "pre"
     expect = set(_bucket_kernels(m, p, apr=True)) | (
-        {"delinearize"} if p.pi_policy.value == "pre" else set())
+        {"pi_rows"} if pre else set())
     with _phi_calls(m, {}) as calls:
         res, seconds, c = _counted(
             m, f"{label} batched cp_apr", lambda: batched.batched_cp_apr(
@@ -2489,6 +2528,10 @@ def bucket_apr(m, label, p, ats, views, dims, seeds, params, cap,
         if c["launches"][k] != calls.get(trav, 0):
             _fail(f"{label}: {k} launched {c['launches'][k]} times in "
                   f"{calls.get(trav, 0)} Φ evaluations of its modes")
+    updates = res.n_outer * len(p.modes) if pre else 0
+    if c["launches"]["pi_rows"] != updates:
+        _fail(f"{label}: pi_rows launched {c['launches']['pi_rows']} times "
+              f"in {updates} mode updates under ALTO-PRE")
     solo_s = 0.0
     for i in range(len(ats) if solo else 0):
         lam0, f0 = cpapr.init_factors(dims[i], RANK, seed=seeds[i],

@@ -5,19 +5,24 @@ padded stream length and the canonical `AltoMeta`, so their ALTO streams,
 oriented views and factors stack along a leading tenant axis
 (`stack_tenants`). The JAX package runs its single-tensor sweeps under
 ``vmap``; the port writes the batch dimension out: every in-core kernel
-takes the tenant axis, the oriented ones (`kernels.mttkrp_oriented`) and
-the recursive ones with their pull (`kernels.mttkrp`, `kernels.
-cpapr_phi`, `ops.pull_reduction`), so one launch per kernel and mode
-serves the whole bucket, whatever its size and whatever the class plan
-routes, and each tenant gets the bits of its solo launch. A streaming
-plan is refused: a bucket runs in core.
+takes the tenant axis, the oriented ones (`kernels.mttkrp_oriented`), the
+recursive ones with their pull (`kernels.mttkrp`, `kernels.cpapr_phi`,
+`ops.pull_reduction`) and ALTO-PRE's Π build (`kernels.delinearize.
+pi_rows`), so one launch per kernel and mode serves the whole bucket,
+whatever its size and whatever the class plan routes, and each tenant
+gets the bits of its solo launch. A streaming plan is refused: a bucket
+runs in core.
 
-The dense algebra is not batched: a batched GEMM or pseudo-inverse is not
-promised the bits of the unbatched call, so the Gram matrices, the pinv
-solve, the normalization, the CP-APR λ and the float64 fit run per slot
-with the solo drivers' own calls. What leaves the card is one copy per
-sweep (CP-ALS: every active slot's fit) or per inner step (CP-APR: every
-slot's KKT violation).
+The dense algebra is the solo drivers' own functions, so a bucket keeps
+the solo bits by construction: CP-ALS's solve and normalisation
+(`cpals._update_factor`) and Gram matrices, CP-APR's λ and normalised
+factor (`cpapr._normalized`) and the float64 fit run slot by slot, since
+a batched GEMM, pseudo-inverse or column sum is not promised the bits of
+the unbatched call; CP-APR's shifted B (`cpapr._shifted`), KKT violation
+(`cpapr._kkt`, one max a slot) and ALTO-PRE Π (`cpapr._pi`, `ops.pi_rows`
+on the tenant axis) take the stacked tensors whole. What leaves the card
+is one copy per sweep (CP-ALS: every active slot's fit) or per inner
+step (CP-APR: every slot's KKT violation).
 
 Per-tenant convergence: a converged tenant keeps its slot (its mates need
 the stacked shapes) and freezes: each update is computed for every slot
@@ -63,7 +68,6 @@ from repro_torch.core import health as health_mod
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import views as views_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
-from repro_torch.kernels import ops
 
 _SWEEP_KEYS: set = set()
 _SWEEP_TRACES = {"als": 0, "apr": 0}
@@ -223,41 +227,21 @@ def _phi(plan, at_b, pull, view_b, B, mode: int, eps: float,
         for t in range(B.shape[0])])
 
 
-def pi_rows(enc, words_b: torch.Tensor, factors_b, mode: int):
-    """A bucket's Π rows ``(T, M, R)`` (ALTO-PRE): the stacked words
-    decoded in one K4 launch, each tenant's factor rows gathered at its
-    own offset and multiplied in increasing mode order, as
-    `core.mttkrp.krp_rows` forms a solo Π."""
-    T, M, W = words_b.shape
-    coords = ops.delinearize(enc, words_b.reshape(T * M, W)).reshape(
-        T, M, enc.ndim)
-    base = torch.arange(T, device=words_b.device)[:, None]
-    out = None
-    for m, A in enumerate(factors_b):
-        if m == mode:
-            continue
-        I, R = A.shape[1:]
-        rows = A.reshape(T * I, R)[base * I + coords[..., m].long()]
-        out = rows if out is None else out * rows
-    return out.contiguous()
-
-
 # ---------------------------------------------------------------------------
 # Batched CP-ALS
 # ---------------------------------------------------------------------------
 
 def _als_sweep(plan, at_b, pulls, views_b, factors_b, lam_b, active):
     """One CP-ALS sweep of every slot: `cpals._sweep` with the MTTKRP of
-    the whole bucket and the dense algebra slot by slot, skipped for the
-    slots not ``active`` (converged, quarantined or fill: their factors
-    and λ come back as they were, and a quarantined slot's data never
-    reaches a pseudo-inverse)."""
+    the whole bucket and each slot's factor update by
+    `cpals._update_factor`, skipped for the slots not ``active``
+    (converged, quarantined or fill: their factors and λ come back as they
+    were, and a quarantined slot's data never reaches a pseudo-inverse)."""
     T = lam_b.shape[0]
-    N = len(factors_b)
     factors_b = list(factors_b)
-    grams = [[A.T @ A for A in F.unbind(0)] for F in factors_b]
+    grams = [[cpals._gram(A) for A in F.unbind(0)] for F in factors_b]
     lams, M = [], None
-    for n in range(N):
+    for n in range(len(factors_b)):
         M = _mttkrp(plan, at_b, pulls, views_b, factors_b, n)
         new, lams = [], []
         for t in range(T):
@@ -265,18 +249,10 @@ def _als_sweep(plan, at_b, pulls, views_b, factors_b, lam_b, active):
                 new.append(factors_b[n][t])
                 lams.append(lam_b[t])
                 continue
-            V = None
-            for m in range(N):
-                if m == n:
-                    continue
-                V = grams[m][t] if V is None else V * grams[m][t]
-            A = M[t] @ torch.linalg.pinv(V)
-            lam = torch.linalg.vector_norm(A, dim=0)
-            lam = torch.where(lam > 0, lam, torch.ones_like(lam))
-            A = A / lam[None, :]
+            A, lam = cpals._update_factor(M[t], [g[t] for g in grams], n)
             new.append(A)
             lams.append(lam)
-            grams[n][t] = A.T @ A
+            grams[n][t] = cpals._gram(A)
         factors_b[n] = torch.stack(new)
     return factors_b, torch.stack(lams), M
 
@@ -411,26 +387,15 @@ def _apr_mode_update(plan, at_b, pull, view_b, mode: int, lam_b,
                      factors_b, phi_prev, active, first_outer: bool,
                      pre_pi: bool, p: cpapr.CpaprParams):
     """One Alg. 2 mode update of every slot (`cpapr._mode_update`), the Φ
-    of the whole bucket per inner step. Returns (A, λ, Φ of the final B,
-    converged, inner steps, KKT of the first step), the last three as
-    numpy arrays over the slots."""
-    A = factors_b[mode]
-    T = A.shape[0]
-    if first_outer:
-        S = torch.zeros_like(A)
-    else:
-        S = torch.where((A < p.kappa_tol) & (phi_prev > 1.0),
-                        A.new_tensor(p.kappa), A.new_tensor(0.0))
-    B = (A + S) * lam_b[:, None, :]
-    if pre_pi:
-        # Π in the element order the mode's traversal consumes: the
-        # view's for an oriented mode, ALTO order for a recursive one.
-        oriented = (view_b is not None
-                    and heuristics.is_oriented(plan.modes[mode].traversal))
-        words = view_b.words if oriented else at_b.words
-        operands = dict(pi=pi_rows(plan.meta.enc, words, factors_b, mode))
-    else:
-        operands = dict(factors=factors_b)
+    of the whole bucket per inner step; lines 4-5, 6 (Π) and 9 by the solo
+    driver's functions on the stacked tensors, line 15 by its function
+    slot by slot. Returns (A, λ, Φ of the final B, converged, inner steps,
+    KKT of the first step), the last three as numpy arrays over the
+    slots."""
+    B = cpapr._shifted(factors_b[mode], lam_b, phi_prev, first_outer, p)
+    T = B.shape[0]
+    operands = (dict(pi=cpapr._pi(plan, at_b, view_b, factors_b, mode))
+                if pre_pi else dict(factors=factors_b))
     tau = float(np.float32(p.tau))
     done = np.zeros(T, bool)
     n_inner = np.zeros(T, np.int64)
@@ -441,20 +406,14 @@ def _apr_mode_update(plan, at_b, pull, view_b, mode: int, lam_b,
             break                  # every active slot froze
         Phi = _phi(plan, at_b, pull, view_b, B, mode, p.eps_div,
                    **operands)
-        kkt = torch.minimum(B, 1.0 - Phi).abs().amax(dim=(1, 2))
-        kkt = kkt.cpu().numpy().astype(np.float64)  # one copy a step
+        kkt = cpapr._kkt(B, Phi).cpu().numpy().astype(np.float64)  # one copy
         if step == 0:
             kkt_first = kkt
         done |= kkt < tau
         upd = torch.from_numpy(~done).to(B.device)[:, None, None]
         B = torch.where(upd, B * Phi, B)
         n_inner += ~done
-    lam_new, A_new = [], []
-    for t in range(T):
-        lam_t = B[t].sum(dim=0)
-        lam_t = torch.where(lam_t > 0, lam_t, torch.ones_like(lam_t))
-        lam_new.append(lam_t)
-        A_new.append(B[t] / lam_t[None, :])
+    A_new, lam_new = zip(*(cpapr._normalized(b) for b in B.unbind(0)))
     return (torch.stack(A_new), torch.stack(lam_new), Phi, n_inner == 0,
             n_inner, kkt_first)
 

@@ -70,6 +70,25 @@ def _gram(A: torch.Tensor) -> torch.Tensor:
     return A.T @ A
 
 
+def _update_factor(M, grams, n: int):
+    """Mode ``n``'s new factor from its MTTKRP ``M`` (Alg. 1 lines 12-13)
+    -> (A, λ): ``M V⁺``, V the Hadamard product of the other modes' Grams
+    in mode order, then each column divided by its 2-norm (a zero norm
+    counts as 1). `_sweep` calls it for one tensor, `core.batched` for
+    each slot of a bucket."""
+    V = None
+    for m, G in enumerate(grams):
+        if m != n:
+            V = G if V is None else V * G
+    with trace.span("read.pinv"):
+        # On CUDA the pseudo-inverse synchronises (twice a call).
+        V_inv = torch.linalg.pinv(V)
+    A = M @ V_inv
+    lam = torch.linalg.vector_norm(A, dim=0)
+    lam = torch.where(lam > 0, lam, torch.ones_like(lam))
+    return A / lam[None, :], lam
+
+
 def _sweep(plan, at: AltoTensor, views, factors, lam, gram_fn=None,
            group=None):
     """One CP-ALS sweep over all modes -> (factors, lam, M_last); M_last
@@ -80,27 +99,14 @@ def _sweep(plan, at: AltoTensor, views, factors, lam, gram_fn=None,
     distributed driver passes `dist.cpd.sharded_gram`. A sharded plan
     routes the MTTKRP over the ranks of ``group`` itself."""
     gram = gram_fn or _gram
-    N = len(factors)
     factors = list(factors)
     grams = [gram(A) for A in factors]
     M = None
-    for n in range(N):
-        V = None
-        for m in range(N):
-            if m == n:
-                continue
-            V = grams[m] if V is None else V * grams[m]
+    for n in range(len(factors)):
         M = mttkrp_adaptive(at, views, factors, n, plan=plan,
                             group=group)                     # (I_n, R)
-        with trace.span("read.pinv"):
-            # On CUDA the pseudo-inverse synchronises (twice a call).
-            V_inv = torch.linalg.pinv(V)
-        A = M @ V_inv
-        lam = torch.linalg.vector_norm(A, dim=0)
-        lam = torch.where(lam > 0, lam, torch.ones_like(lam))
-        A = A / lam[None, :]
-        factors[n] = A
-        grams[n] = gram(A)
+        factors[n], lam = _update_factor(M, grams, n)
+        grams[n] = gram(factors[n])
     return factors, lam, M
 
 

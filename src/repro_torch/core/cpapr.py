@@ -106,15 +106,12 @@ def _starting_factors(factors, dims, rank, dtype, device):
     return out
 
 
-def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
-                 view: OrientedView | None, mode: int, lam, factors,
-                 phi_prev, first_outer: bool, pre_pi: bool, p: CpaprParams,
-                 group=None):
-    """One full Alg. 2 mode update (lines 4-15). Returns (A, λ, Φ of the
-    final B, converged, inner steps taken, KKT of the first step)."""
-    A = factors[mode]
-    # Line 4: inadmissible-zero adjustment (skipped on the first outer
-    # iteration).
+def _shifted(A, lam, phi_prev, first_outer: bool, p: CpaprParams):
+    """Alg. 2 lines 4-5: B = (A + S)Λ, S the inadmissible-zero shift (κ
+    where A < κ_tol and the previous Φ exceeds 1; none on the first outer
+    iteration). λ scales the last axis, so one tensor's ``(I, R)`` with
+    ``(R,)`` and a bucket's ``(T, I, R)`` with ``(T, R)`` take the same
+    expression."""
     if first_outer:
         S = torch.zeros_like(A)
     else:
@@ -123,24 +120,52 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
             # waits for the device, twice a mode update.
             kappa, zero = A.new_tensor(p.kappa), A.new_tensor(0.0)
         S = torch.where((A < p.kappa_tol) & (phi_prev > 1.0), kappa, zero)
-    B = (A + S) * lam[None, :]                        # line 5: B = (A+S)Λ
+    return (A + S) * lam.unsqueeze(-2)
 
+
+def _kkt(B, Phi) -> torch.Tensor:
+    """Alg. 2 line 9: the KKT violation max |min(B, 1 − Φ)|, a 0-d tensor
+    for one tensor, ``(T,)`` for a bucket's slots. A max is exact, so
+    every slot gets the value of its own reduction."""
+    return torch.minimum(B, 1.0 - Phi).abs().amax(dim=(-2, -1))
+
+
+def _normalized(B):
+    """Alg. 2 line 15 on one ``(I, R)`` B -> (A, λ): λ = eᵀB (a zero
+    column sum counts as 1), A = BΛ⁻¹."""
+    lam = B.sum(dim=0)
+    lam = torch.where(lam > 0, lam, torch.ones_like(lam))
+    return B / lam[None, :], lam
+
+
+def _pi(plan: plan_mod.ExecutionPlan, at: AltoTensor | None,
+        view: OrientedView | None, factors, mode: int) -> torch.Tensor:
+    """Alg. 2 line 6 under ALTO-PRE: Π's rows (`ops.pi_rows`) in the
+    element order the plan's traversal consumes: the view's for an
+    oriented mode, ALTO order for a recursive one. A bucket passes its
+    stacked tensor, view and factors and gets ``(T, M, R)``."""
+    oriented = (view is not None
+                and heuristics.is_oriented(plan.modes[mode].traversal))
+    src = view if oriented else at
+    with trace.span("cpapr.pi_build"):
+        return ops.pi_rows(src.meta.enc, src.words, factors, mode)
+
+
+def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
+                 view: OrientedView | None, mode: int, lam, factors,
+                 phi_prev, first_outer: bool, pre_pi: bool, p: CpaprParams,
+                 group=None):
+    """One full Alg. 2 mode update (lines 4-15). Returns (A, λ, Φ of the
+    final B, converged, inner steps taken, KKT of the first step)."""
+    B = _shifted(factors[mode], lam, phi_prev, first_outer, p)
     streamed = (plan.streaming is not None and view is not None
                 and heuristics.is_oriented(plan.modes[mode].traversal))
-    pi = None
-    if pre_pi and not streamed:
-        # Line 6 (Π, M×R rows) in the element order the plan's traversal
-        # consumes: the view's order for an oriented mode, ALTO order for a
-        # recursive one.
-        oriented = (view is not None
-                    and heuristics.is_oriented(plan.modes[mode].traversal))
-        words = view.words if oriented else at.words
-        with trace.span("cpapr.pi_build"):
-            pi = ops.pi_rows(at.meta.enc, words, factors, mode)
     if streamed:
         operands = dict(factors=factors, pre=pre_pi)
+    elif pre_pi:
+        operands = dict(pi=_pi(plan, at, view, factors, mode))
     else:
-        operands = dict(pi=pi) if pre_pi else dict(factors=factors)
+        operands = dict(factors=factors)
     tau = float(np.float32(p.tau))     # the float32 comparison of the scan
 
     Phi = None
@@ -149,7 +174,7 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
     for _ in range(p.l_max):
         Phi = plan_mod.execute_phi(plan, at, view, B, mode, eps=p.eps_div,
                                    group=group, **operands)  # line 8
-        kkt_t = torch.minimum(B, 1.0 - Phi).abs().max()     # line 9
+        kkt_t = _kkt(B, Phi)                                 # line 9
         with trace.span("read.kkt"):
             kkt = kkt_t.item()
         if kkt_first is None:
@@ -159,9 +184,7 @@ def _mode_update(plan: plan_mod.ExecutionPlan, at: AltoTensor,
         B = B * Phi                                          # line 13
         n_inner += 1
 
-    lam_new = B.sum(dim=0)                            # line 15: λ = eᵀB
-    lam_new = torch.where(lam_new > 0, lam_new, torch.ones_like(lam_new))
-    A_new = B / lam_new[None, :]
+    A_new, lam_new = _normalized(B)                   # line 15: λ = eᵀB
     return A_new, lam_new, Phi, n_inner == 0, n_inner, kkt_first
 
 

@@ -62,7 +62,8 @@ SIGNATURES = {
     },
     "delinearize": {
         "alto_delinearize": [_I, _I, _P, _P, _L, _I, _I, _P, _P],
-        "alto_pi_rows": [_I, _I, _P, _P, _L, _P, _I, _I, _I, _P, _P],
+        "alto_pi_rows": [_I, _I, _P, _P, _L, _P, _I, _I, _I, _P]
+        + _TENANTS + [_P],
     },
     "phi_oriented": {
         "alto_phi_carry_runs": _ALTO + [_P, _P, _P] + _PHI + [

@@ -75,6 +75,31 @@ static inline bool alto_make_args(AltoArgs* a, const int64_t* factor_ptrs,
   return true;
 }
 
+// A bucket's tenant axis, shared by every in-core kernel: one launch over
+// `count` tenants of one shape class, whose operands are stacked, each
+// tenant's contiguous. How a kernel finds its tenant is its own (the scans
+// of alto_scan.cuh: blockIdx.z; delinearize.cu's Π rows: its tile walk).
+// A solo launch is one tenant with zero strides.
+struct Tenants {
+  int count;                        // tenants in the launch
+  int64_t factor[ALTO_MAX_MODES];   // elements between tenants' factor m
+  int64_t rows;                     // elements between tenants' out and B
+};
+
+// Host side: `count` tenants with strides[0 .. ndim) the factors' and
+// strides[ndim] out's (null strides: one tenant). False on a count the
+// grid cannot hold.
+static inline bool tenants_make(Tenants* t, int count,
+                                const int64_t* strides, int ndim) {
+  if (count < 1 || count > 65535 || (count > 1 && strides == nullptr))
+    return false;
+  t->count = count;
+  for (int m = 0; m < ALTO_MAX_MODES; ++m)
+    t->factor[m] = strides != nullptr && m < ndim ? strides[m] : 0;
+  t->rows = strides != nullptr ? strides[ndim] : 0;
+  return true;
+}
+
 // Coordinate of mode m of the element whose words start at w.
 __device__ __forceinline__ int alto_coord(const AltoArgs& a,
                                           const uint32_t* w, int m) {

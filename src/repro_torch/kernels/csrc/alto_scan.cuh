@@ -68,29 +68,10 @@ constexpr int K1_UNROLL = 2;
 // strides: the factors' from factor[m], out's and B's from rows (I_n·R
 // elements), the stream's, the carries' and the slots' from n_blocks and
 // block_m, the recursive kernels' stream, part_start, Π and Temp from the
-// partitions (gridDim.x), chunk and temp_rows. Inside a tenant
-// the tiling, the lanes and the order of every sum are the solo launch's,
-// so a bucket's launch gives each tenant the bits of its solo launch. A
-// solo launch is one tenant with zero strides.
-struct Tenants {
-  int count;                        // tenants in the launch (gridDim.z)
-  int64_t factor[ALTO_MAX_MODES];   // elements between tenants' factor m
-  int64_t rows;                     // elements between tenants' out and B
-};
-
-// Host side: `count` tenants with strides[0 .. ndim) the factors' and
-// strides[ndim] out's (null strides: one tenant). False on a count the
-// grid cannot hold.
-static inline bool tenants_make(Tenants* t, int count,
-                                const int64_t* strides, int ndim) {
-  if (count < 1 || count > 65535 || (count > 1 && strides == nullptr))
-    return false;
-  t->count = count;
-  for (int m = 0; m < ALTO_MAX_MODES; ++m)
-    t->factor[m] = strides != nullptr && m < ndim ? strides[m] : 0;
-  t->rows = strides != nullptr ? strides[ndim] : 0;
-  return true;
-}
+// partitions (gridDim.x), chunk and temp_rows (`Tenants`,
+// alto_decode.cuh). Inside a tenant the tiling, the lanes and the order of
+// every sum are the solo launch's, so a bucket's launch gives each tenant
+// the bits of its solo launch.
 
 // This block's tenant offsets of the factors (elements), for the term
 // helpers below.

@@ -119,7 +119,7 @@ int alto_phi_partials_max_threads(int rank, int* threads) {
 // under ALTO-OTF; dtab: the byte decode tables. out_rows: the rows of B.
 // window: Temp rows per pass, tile: nonzeros per staging tile, threads:
 // CTA size (whole warps). n_tenants stacked tenants (Tenants in
-// alto_scan.cuh): tenant_strides holds the elements between two tenants'
+// alto_decode.cuh): tenant_strides holds the elements between two tenants'
 // factor m (ndim entries), then between two tenants' B; null for one.
 // Each tenant's stream, Π, part_start and temp follow the previous one's.
 int alto_phi_partials(const int64_t* factor_ptrs, const int* runs,

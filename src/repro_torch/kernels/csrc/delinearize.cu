@@ -180,10 +180,12 @@ int launch_route(const uint32_t* dtab, int ndim, int nwords,
 
 constexpr int PI_THREADS = 256;
 
-// The other modes' factors in increasing mode order, and those modes.
+// The other modes' factors in increasing mode order, those modes, and the
+// elements between two tenants' factor (0 for one tensor).
 struct PiFactors {
   const float* f[ALTO_MAX_MODES - 1];
   int mode[ALTO_MAX_MODES - 1];
+  int64_t stride[ALTO_MAX_MODES - 1];
 };
 
 // Slots a thread holds at once: about 8 factor-row loads in flight.
@@ -217,11 +219,15 @@ __host__ __device__ __forceinline__ int pi_tile(int chunks) {
   return e > 0 ? e : 1;
 }
 
+// A bucket's `tenants` stacked streams of M elements each are one walk over
+// tenants · ⌈M / per_tile⌉ tiles; a tile lies inside one tenant, whose
+// words, factors and Π rows it reads and writes at that tenant's offsets,
+// so each tenant gets the tiles and the products of its solo launch.
 template <int ROUTE, int N, int NW, int VEC>
 __global__ void pi_rows_kernel(const uint32_t* __restrict__ dtab,
                                PiFactors fac, int rank,
                                const uint32_t* __restrict__ words, int64_t M,
-                               float* __restrict__ pi) {
+                               int tenants, float* __restrict__ pi) {
   using V = typename Chunk<VEC>::T;
   constexpr int U = PiUnroll<N>::value;
   extern __shared__ uint4 pi_smem[];
@@ -236,12 +242,15 @@ __global__ void pi_rows_kernel(const uint32_t* __restrict__ dtab,
                             : dtab;
   const int chunks = rank / VEC;            // chunks of a Π row
   const int per_tile = pi_tile<N>(chunks);
-  const int64_t n_tiles = (M + per_tile - 1) / per_tile;
+  const int64_t tiles = (M + per_tile - 1) / per_tile;   // a tenant's
+  const int64_t n_tiles = tiles * tenants;
   V* out = reinterpret_cast<V*>(pi);
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t e0 = t * per_tile;
+  for (int64_t g = blockIdx.x; g < n_tiles; g += gridDim.x) {
+    const int64_t z = tenants == 1 ? 0 : g / tiles;     // the tenant
+    const int64_t e1 = (g - z * tiles) * per_tile;      // in its stream
+    const int64_t e0 = z * M + e1;                      // in the stack
     // The tile's slots are one contiguous run of Π's chunks.
-    const int n = static_cast<int>(M - e0 < per_tile ? M - e0 : per_tile) *
+    const int n = static_cast<int>(M - e1 < per_tile ? M - e1 : per_tile) *
                   chunks;
     for (int s0 = threadIdx.x; s0 < n; s0 += PI_THREADS * U) {
       V row[U][N - 1];
@@ -257,7 +266,8 @@ __global__ void pi_rows_kernel(const uint32_t* __restrict__ dtab,
           for (int j = 0; j < N - 1; ++j) {
             const int i = decode<ROUTE, NW>(tab, w, fac.mode[j]);
             row[u][j] = __ldg(reinterpret_cast<const V*>(
-                                  fac.f[j] + static_cast<int64_t>(i) * rank) +
+                                  fac.f[j] + z * fac.stride[j] +
+                                  static_cast<int64_t>(i) * rank) +
                               q);
           }
         }
@@ -279,7 +289,7 @@ __global__ void pi_rows_kernel(const uint32_t* __restrict__ dtab,
 
 template <int ROUTE, int N, int NW, int VEC>
 int launch_pi_rows(const uint32_t* dtab, const PiFactors& fac, int rank,
-                   const uint32_t* words, int64_t M, float* pi,
+                   const uint32_t* words, int64_t M, int tenants, float* pi,
                    cudaStream_t stream) {
   auto kernel = pi_rows_kernel<ROUTE, N, NW, VEC>;
   const size_t smem =
@@ -299,12 +309,12 @@ int launch_pi_rows(const uint32_t* dtab, const PiFactors& fac, int rank,
   if (st != cudaSuccess) return static_cast<int>(st);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int per_tile = pi_tile<N>(rank / VEC);
-  const int64_t n_tiles = (M + per_tile - 1) / per_tile;
+  const int64_t n_tiles = (M + per_tile - 1) / per_tile * tenants;
   const int64_t grid = n_tiles < static_cast<int64_t>(sms) * per_sm
                            ? n_tiles
                            : static_cast<int64_t>(sms) * per_sm;
   kernel<<<static_cast<unsigned>(grid), PI_THREADS, smem, stream>>>(
-      dtab, fac, rank, words, M, pi);
+      dtab, fac, rank, words, M, tenants, pi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -312,31 +322,31 @@ int launch_pi_rows(const uint32_t* dtab, const PiFactors& fac, int rank,
 // ALTO_MAX_MODES.
 template <int ROUTE, int NW, int VEC, int N = 2>
 int pi_rows_for_n(int ndim, const uint32_t* dtab, const PiFactors& fac,
-                  int rank, const uint32_t* words, int64_t M, float* pi,
-                  cudaStream_t stream) {
+                  int rank, const uint32_t* words, int64_t M, int tenants,
+                  float* pi, cudaStream_t stream) {
   if (ndim == N)
-    return launch_pi_rows<ROUTE, N, NW, VEC>(dtab, fac, rank, words, M, pi,
-                                             stream);
+    return launch_pi_rows<ROUTE, N, NW, VEC>(dtab, fac, rank, words, M,
+                                             tenants, pi, stream);
   if constexpr (N < ALTO_MAX_MODES)
     return pi_rows_for_n<ROUTE, NW, VEC, N + 1>(ndim, dtab, fac, rank, words,
-                                                M, pi, stream);
+                                                M, tenants, pi, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int ROUTE, int VEC>
 int pi_rows_for_w(int ndim, int nwords, const uint32_t* dtab,
                   const PiFactors& fac, int rank, const uint32_t* words,
-                  int64_t M, float* pi, cudaStream_t stream) {
+                  int64_t M, int tenants, float* pi, cudaStream_t stream) {
   switch (nwords) {
     case 1:
-      return pi_rows_for_n<ROUTE, 1, VEC>(ndim, dtab, fac, rank, words, M, pi,
-                                          stream);
+      return pi_rows_for_n<ROUTE, 1, VEC>(ndim, dtab, fac, rank, words, M,
+                                          tenants, pi, stream);
     case 2:
-      return pi_rows_for_n<ROUTE, 2, VEC>(ndim, dtab, fac, rank, words, M, pi,
-                                          stream);
+      return pi_rows_for_n<ROUTE, 2, VEC>(ndim, dtab, fac, rank, words, M,
+                                          tenants, pi, stream);
     case 4:
-      return pi_rows_for_n<ROUTE, 4, VEC>(ndim, dtab, fac, rank, words, M, pi,
-                                          stream);
+      return pi_rows_for_n<ROUTE, 4, VEC>(ndim, dtab, fac, rank, words, M,
+                                          tenants, pi, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -345,14 +355,15 @@ int pi_rows_for_w(int ndim, int nwords, const uint32_t* dtab,
 template <int VEC>
 int pi_rows_for_route(int route, int ndim, int nwords, const uint32_t* dtab,
                       const PiFactors& fac, int rank, const uint32_t* words,
-                      int64_t M, float* pi, cudaStream_t stream) {
+                      int64_t M, int tenants, float* pi,
+                      cudaStream_t stream) {
   switch (route) {
     case ROUTE_SMEM:
       return pi_rows_for_w<ROUTE_SMEM, VEC>(ndim, nwords, dtab, fac, rank,
-                                            words, M, pi, stream);
+                                            words, M, tenants, pi, stream);
     case ROUTE_L1:
       return pi_rows_for_w<ROUTE_L1, VEC>(ndim, nwords, dtab, fac, rank,
-                                          words, M, pi, stream);
+                                          words, M, tenants, pi, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -393,15 +404,22 @@ int alto_delinearize(int ndim, int nwords, const void* words,
 // 1, 2 or 4, aligned to a row; dtab: the byte decode tables (ndim, nwords,
 // 4, 256); factor_ptrs: a host array of the ndim factors' device addresses,
 // each (I_m, rank) row-major (the target mode's is not read); route:
-// ROUTE_*. The chunk width is chosen here: float4 where rank % 4 == 0 and
-// pi and every factor read are 16-byte aligned, else one float.
+// ROUTE_*. n_tenants stacked tenants (Tenants in alto_decode.cuh): words
+// (n_tenants, M, nwords), pi (n_tenants, M, rank), tenant_strides the
+// elements between two tenants' factor m (ndim entries, then one this
+// entry does not read); null for one. The chunk width is chosen here:
+// float4 where rank % 4 == 0 and pi, every factor read and every tenant
+// stride are 16-byte aligned, else one float.
 int alto_pi_rows(int ndim, int nwords, const void* words, const void* dtab,
                  long long M, const void* factor_ptrs, int mode, int rank,
-                 int route, void* pi, void* stream) {
+                 int route, void* pi, int n_tenants,
+                 const int64_t* tenant_strides, void* stream) {
+  Tenants tn;
   if (ndim < 2 || ndim > ALTO_MAX_MODES || mode < 0 || mode >= ndim ||
       rank < 1 || M < 0 || dtab == nullptr || factor_ptrs == nullptr ||
       reinterpret_cast<uintptr_t>(pi) % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(words) % (4 * nwords) != 0)
+      reinterpret_cast<uintptr_t>(words) % (4 * nwords) != 0 ||
+      !tenants_make(&tn, n_tenants, tenant_strides, ndim))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const int64_t* ptrs = static_cast<const int64_t*>(factor_ptrs);
@@ -410,17 +428,18 @@ int alto_pi_rows(int ndim, int nwords, const void* words, const void* dtab,
   for (int m = 0, j = 0; m < ndim; ++m) {
     if (m == mode) continue;
     fac.f[j] = reinterpret_cast<const float*>(ptrs[m]);
+    fac.stride[j] = tn.factor[m];
     fac.mode[j++] = m;
-    vec = vec && ptrs[m] % 16 == 0;
+    vec = vec && ptrs[m] % 16 == 0 && tn.factor[m] % 4 == 0;
   }
   const uint32_t* t = static_cast<const uint32_t*>(dtab);
   const uint32_t* w = static_cast<const uint32_t*>(words);
   float* out = static_cast<float*>(pi);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return vec ? pi_rows_for_route<4>(route, ndim, nwords, t, fac, rank, w, M,
-                                    out, s)
+                                    tn.count, out, s)
              : pi_rows_for_route<1>(route, ndim, nwords, t, fac, rank, w, M,
-                                    out, s);
+                                    tn.count, out, s);
 }
 
 }  // extern "C"

@@ -129,7 +129,7 @@ extern "C" {
 // n_rows rows), the slices' first and last runs into the carries. dtab:
 // the byte decode tables; (lanes, cols): the lane map; threads: CTA size
 // (whole warps). n_tenants stacked tenants (the tenant axis, Tenants in
-// alto_scan.cuh): tenant_strides holds the elements between two tenants'
+// alto_decode.cuh): tenant_strides holds the elements between two tenants'
 // factor m (ndim entries), then between two tenants' out; null for one.
 int alto_carry_runs(const int64_t* factor_ptrs, const int* runs, int n_runs,
                     int ndim, int nwords, int mode, int rank,

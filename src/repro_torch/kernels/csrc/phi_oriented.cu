@@ -88,7 +88,7 @@ extern "C" {
 // is null under ALTO-OTF; dtab: the byte decode tables. threads: CTA size
 // (rounded to whole warps). n_tenants stacked tenants: tenant_strides
 // holds the elements between two tenants' factor m (ndim entries), then
-// between two tenants' B and out; null for one (Tenants, alto_scan.cuh).
+// between two tenants' B and out; null for one (Tenants, alto_decode.cuh).
 int alto_phi_carry_runs(const int64_t* factor_ptrs, const int* runs,
                         int n_runs, int ndim, int nwords, int mode, int rank,
                         const void* rows, const void* words,

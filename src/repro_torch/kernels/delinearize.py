@@ -20,7 +20,11 @@ byte tables and routes): (M, W) words -> (M, R) float32 Khatri-Rao rows
 of every factor but ``mode``'s, the ALTO-PRE Π, with no coordinates in
 device memory. Its plain version is `core.mttkrp.krp_rows` on the plain
 decode; the kernel multiplies in the same order with no FMA, so the two
-agree bit for bit.
+agree bit for bit. Like every in-core kernel it takes a bucket's tenant
+axis (`core.batched`): stacked ``(T, M, W)`` words and ``(T, I_m, R)``
+factors give ``(T, M, R)`` in one launch, each tenant the bits of its
+solo launch; its plain version then loops over the tenants
+(`mttkrp_oriented.tenant_loop`).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.core import encoding
 from repro_torch.core.encoding import AltoEncoding
 from repro_torch.core.mttkrp import krp_rows
 from repro_torch.kernels import _build, common
+from repro_torch.kernels.mttkrp_oriented import tenant_loop
 
 TILE = 1024                # nonzeros per CTA tile: four per thread
 ROUTES = {"smem": 0, "l1": 1}     # ROUTE_* in delinearize.cu
@@ -101,17 +106,23 @@ def pi_rows_plain(enc: AltoEncoding, words, factors,
 def pi_rows(enc: AltoEncoding, words, factors, mode: int) -> torch.Tensor:
     """ALTO-PRE Π: (M, n_words) int32 words -> (M, R) float32 rows
     ``prod_{m != mode} factors[m][i_m, :]`` in the words' order, any M.
-    Factor m is a contiguous float32 ``(I_m, R)``. The decode route is
-    `choose_route`'s on the tables alone."""
-    M = words.shape[0]
+    Factor m is a contiguous float32 ``(I_m, R)``. A bucket's stacked
+    ``(T, M, n_words)`` words and ``(T, I_m, R)`` factors give ``(T, M,
+    R)``, one launch for the bucket. The decode route is `choose_route`'s
+    on the tables alone."""
     if not 0 <= mode < enc.ndim:
         raise ValueError(f"mode {mode} of a {enc.ndim}-mode tensor")
-    common.check_tensor(words, "words", torch.int32, (M, enc.n_words))
+    if words.dim() not in (2, 3):
+        raise ValueError(f"words of shape {tuple(words.shape)}: expected "
+                         f"(M, W) or (T, M, W)")
+    lead, M = tuple(words.shape[:-2]), words.shape[-2]
+    common.check_tensor(words, "words", torch.int32,
+                        lead + (M, enc.n_words))
     factors = list(factors)
     R = factors[0].shape[-1] if factors else 0
-    common.check_factors(enc, factors, R)
+    common.check_factors(enc, factors, R, lead)
     if not common.on_cuda(words, *factors):
-        return pi_rows_plain(enc, words, factors, mode)
+        return tenant_loop(pi_rows_plain, lead, enc, words, factors, mode)
     if words.data_ptr() % (4 * enc.n_words):
         raise ValueError("words: rows not aligned to a row of "
                          f"{enc.n_words} words (the kernel loads a row as "
@@ -119,12 +130,14 @@ def pi_rows(enc: AltoEncoding, words, factors, mode: int) -> torch.Tensor:
     route = choose_route(enc, 0, common.smem_limit(words.device))
     dtab = common.decode_table(enc, words.device)
     ptrs = np.array([f.data_ptr() for f in factors], dtype=np.int64)
-    pi = torch.empty((M, R), dtype=torch.float32, device=words.device)
+    strides, tenants = common.tenant_args(enc, mode, R, lead)
+    pi = torch.empty(lead + (M, R), dtype=torch.float32, device=words.device)
     lib = _build.library("delinearize")
     status = lib.alto_pi_rows(
         enc.ndim, enc.n_words, words.data_ptr(), dtab.data_ptr(), M,
         ptrs.ctypes.data_as(ctypes.c_void_p), mode, R, ROUTES[route],
-        pi.data_ptr(), common.stream_ptr(words))
+        pi.data_ptr(), *tenants, common.stream_ptr(words))
+    del strides
     _build.check(status, "alto_pi_rows")
-    _build.count_launch("pi_rows", M)
+    _build.count_launch("pi_rows", words.numel() // enc.n_words)
     return pi

@@ -17,15 +17,16 @@ K9 carrying the open run from one chunk to the next.
 
 The in-core entries (`mttkrp`, `mttkrp_oriented`, `mttkrp_oriented_carry`,
 `cpapr_phi`, `cpapr_phi_oriented`, `cpapr_phi_oriented_carry`,
-`segment_merge`, `pull_reduction`) also take a bucket of same-class
-tenants (`core.batched.stack_tenants`): a stacked view (rows ``(T, M)``,
-words ``(T, M, W)``, values ``(T, M)``) or a stacked `AltoTensor` (words
-``(T, Mp, W)``, values ``(T, Mp)``, part_start ``(T, L, N)``), stacked
-factors ``(T, I_m, R)``, B and Π, and for `mttkrp` and `cpapr_phi` the
-members' pull orders stacked (``order=``, `core.views.stack_pull_orders`);
-each kernel then launches once for the whole bucket along its tenant axis
-(`kernels.mttkrp_oriented`, `kernels.mttkrp`, `kernels.cpapr_phi`) and
-returns ``(T, I_n, R)``.
+`segment_merge`, `pull_reduction`, `pi_rows`) also take a bucket of
+same-class tenants (`core.batched.stack_tenants`): a stacked view (rows
+``(T, M)``, words ``(T, M, W)``, values ``(T, M)``) or a stacked
+`AltoTensor` (words ``(T, Mp, W)``, values ``(T, Mp)``, part_start ``(T,
+L, N)``), stacked factors ``(T, I_m, R)``, B and Π, and for `mttkrp` and
+`cpapr_phi` the members' pull orders stacked (``order=``,
+`core.views.stack_pull_orders`); each kernel then launches once for the
+whole bucket along its tenant axis (`kernels.mttkrp_oriented`,
+`kernels.mttkrp`, `kernels.cpapr_phi`, `kernels.delinearize`) and
+returns ``(T, I_n, R)`` (`pi_rows`: Π's ``(T, M, R)``).
 
 `timing_stats` is the measurement primitive: CUDA events on the card, the
 host clock on the CPU, one bump of `timing_runs` per call.
@@ -157,7 +158,8 @@ def pi_rows(enc: AltoEncoding, words: torch.Tensor, factors,
     """ALTO-PRE Π rows of a word stream, in its order: ``(M, R)``, the
     Khatri-Rao rows of every factor but ``mode``'s, decoded, gathered and
     multiplied by one kernel (`kernels.delinearize.pi_rows`), bit for bit
-    `core.mttkrp.krp_rows` on the decoded coordinates."""
+    `core.mttkrp.krp_rows` on the decoded coordinates; ``(T, M, R)`` for a
+    bucket's stacked words and factors, in one launch."""
     return _delin.pi_rows(enc, words, factors, mode)
 
 

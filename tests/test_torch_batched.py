@@ -251,6 +251,46 @@ def test_bucketed_cp_apr_equals_solo_on_padded_bitwise(backend, policy):
                for r in res.results)
 
 
+def _counting(monkeypatch, module, name, calls):
+    fn = getattr(module, name)
+
+    def counted(*args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return fn(*args, **kwargs)
+    monkeypatch.setattr(module, name, counted)
+
+
+@pytest.mark.parametrize("policy", ["otf", "pre"])
+def test_a_bucket_runs_the_drivers_own_steps(policy, monkeypatch):
+    """The bucket's dense algebra is the solo drivers' functions: a factor
+    update (`cpals._update_factor`) and a normalisation
+    (`cpapr._normalized`) per slot and mode update, the shift
+    (`cpapr._shifted`) and, under ALTO-PRE, Π (`cpapr._pi`) once a mode
+    update on the stacked tensors, the KKT violation (`cpapr._kkt`) once
+    an inner step. Two tenants in three slots, the third a fill."""
+    calls = {}
+    _counting(monkeypatch, tcpals, "_update_factor", calls)
+    for name in ("_shifted", "_kkt", "_normalized", "_pi"):
+        _counting(monkeypatch, tcpapr, name, calls)
+    xs = _bucket(APR_BUCKET, count_data=True)
+    _, sc = _classes(xs)
+    plan = dataclasses.replace(tplan.make_class_plan(sc, backend="cuda"),
+                               pi_policy=theur.PiPolicy(policy))
+    ats, views = _port_members(xs, sc, plan)
+    dims = [x.dims for x in xs]
+    tbatched.batched_cp_als(ats, views, dims, RANK, plan=plan, n_iters=2,
+                            tol=0.0, seeds=[1, 2], capacity=3)
+    assert calls == {"_update_factor": 2 * 3 * 2}   # tenants, modes, sweeps
+    calls.clear()
+    p = tcpapr.CpaprParams(k_max=2, l_max=4, tau=0.0)
+    tbatched.batched_cp_apr(ats, views, dims, RANK, plan=plan, params=p,
+                            seeds=[3, 4], capacity=3)
+    updates = 3 * p.k_max                            # modes × outer
+    assert calls == {"_shifted": updates, "_kkt": updates * p.l_max,
+                     "_normalized": 3 * updates,
+                     **({"_pi": updates} if policy == "pre" else {})}
+
+
 def test_convergence_freezes_a_converged_tenant():
     """A rank-1 tenant converges in a few sweeps, its mate needs more: the
     frozen tenant equals its solo early-stopped run on the padded tensor,
@@ -465,7 +505,7 @@ def test_concatenated_carries_would_join_tenants(stacked):
 def test_pi_rows_of_a_bucket_equal_the_solo_rows(stacked):
     enc, _, words, _, facs = stacked[:5]
     for mode in range(3):
-        got = tbatched.pi_rows(enc, words, facs, mode)
+        got = tops.pi_rows(enc, words, facs, mode)
         want = torch.stack([tmttkrp.krp_rows(
             tops.delinearize(enc, words[t]), [f[t] for f in facs], mode)
             for t in range(T)])
@@ -731,7 +771,7 @@ def _stacked_and_solo(kind, ats, at_b, facs, B, mode):
                                           at.values, at.part_start, f,
                                           r_block=4)
         operand = (dict(factors=f) if kind == "k7-otf" else
-                   dict(pi=tbatched.pi_rows(enc, at.words, f, mode)
+                   dict(pi=tops.pi_rows(enc, at.words, f, mode)
                         if at.words.dim() == 3 else tmttkrp.krp_rows(
                             tops.delinearize(enc, at.words), f, mode)))
         if kind == "pull":
