@@ -846,13 +846,20 @@ def check_phi_recursive_kernel(m, at, B, operands, mode, threads,
         _check_equal(f"{label} K7 vs its plain version on CPU copies",
                      temp.cpu(), plain)
     start = at.part_start[:, mode]
-    pull = ops.pull_reduction(temp, start, meta.dims[mode])
+    order = m["views"].get_pull_order(at, mode)
+    pull = ops.pull_reduction(temp, start, meta.dims[mode], order=order)
     _check_equal(f"{label} pull_reduction repeat", pull,
-                 ops.pull_reduction(temp, start, meta.dims[mode]))
-    errs["pull_reduction"] = _check_close(
-        f"{label} pull_reduction", pull,
-        ops.pull_reduction(temp.cpu(), start.cpu(),
-                           meta.dims[mode]).to(pull.device))
+                 ops.pull_reduction(temp, start, meta.dims[mode],
+                                    order=order))
+    _check_equal(f"{label} pull_reduction, reach order vs dense order",
+                 pull, ops.pull_reduction(temp, start, meta.dims[mode]))
+    with _OneCpuThread():
+        plain = m["mttkrp"].pull_rows(temp.cpu(), start.cpu(),
+                                      meta.dims[mode])
+    _check_equal(f"{label} pull_reduction vs pull_rows on CPU copies",
+                 pull.cpu(), plain)
+    errs["pull_reduction"] = _check_close(f"{label} pull_reduction", pull,
+                                          plain.to(pull.device))
     return errs
 
 
@@ -2429,13 +2436,17 @@ def check_tenant_recursive(m, p, ats, n, res_als, res_apr, label) -> list:
     err = _check_close(f"{label} pull mode {n} stacked", got, pull_plain())
     _check_equal(f"{label} pull mode {n} vs {K} solo launches", got,
                  pull_solo())
+    _check_equal(f"{label} pull mode {n} vs the dense order", got,
+                 ops.pull_reduction(temp, starts, I_n, th))
+    pieces = order.order.numel()    # the stacked reach orders, padding in
     e = {"kernel": "carry_fixup", "op": "pull_reduction", "class": label,
-         "mode": n, "tenants": K, "elements": K * L * T_rows,
+         "mode": n, "tenants": K, "elements": pieces,
          "max_abs_err": err, "ms": _ms(m, pull, iters=5),
          "solo_ms": _ms(m, pull_solo, iters=3),
          "plain_ms": _ms(m, pull_plain, iters=1)}
+    # Each piece: its Temp row read, its row (int32) and index (int64).
     e["bound_ms"], e["bound_by"] = _bound(
-        temp_b + K * L * T_rows * 12 + K * I_n * R * 4, 0.0)
+        pieces * (R * 4 + 12) + K * I_n * R * 4, 0.0)
     out.append(e)
     out.append(check_tenant_pi_rows(m, label, enc, at_b.words, apr_fac, n,
                                     K * Mp * (W + R) * 4 + fbytes))
@@ -4655,8 +4666,8 @@ def time_phi_recursive(m, at, res, mp, launches) -> dict:
     start = at.part_start[:, mode]
     e["pull_ms"] = _ms(m, ops.pull_reduction, temp, start, meta.dims[mode],
                        mp.threads, m["views"].get_pull_order(at, mode))
-    e["pull_with_sort_ms"] = _ms(m, ops.pull_reduction, temp, start,
-                                 meta.dims[mode], mp.threads)
+    e["pull_dense_ms"] = _ms(m, ops.pull_reduction, temp, start,
+                             meta.dims[mode], mp.threads)
     e["window_rows"] = m["common"].window_rows(
         T, R, m["common"].smem_limit(temp.device), True)
     return e

@@ -119,15 +119,35 @@ _PULL_SORTS = [0]
 
 
 def pull_sorts() -> int:
-    """How many times `pull_pieces` has sorted (the pull order is cached
-    per tensor and mode by `core.views.get_pull_order`)."""
+    """How many times `pull_pieces` or `reach_pieces` has sorted (the pull
+    order is cached per tensor and mode by `core.views.get_pull_order`)."""
     return _PULL_SORTS[0]
 
 
+def reach_pieces(rows: torch.Tensor, part_start_mode: torch.Tensor,
+                 T: int):
+    """The pull's pieces that the stream reaches: the distinct (row,
+    partition) pairs of the ``Mp`` stream's coordinates ``rows`` of the
+    mode (padding included), sorted by row and then by partition. Returns
+    each piece's global row and its Temp row, ``l·T + row - start[l]``.
+
+    These are `pull_pieces` with the Temp rows no nonzero reaches left out,
+    in the same relative order. Those rows hold exact ``+0.0`` (a Temp row
+    starts at ``+0.0`` and only adds, so it is never ``-0.0``), so each
+    row's pieces sum to the same bits."""
+    _PULL_SORTS[0] += 1
+    L = part_start_mode.shape[0]
+    part = torch.arange(L, device=rows.device)
+    keys = torch.unique(rows.long().reshape(L, -1) * L + part[:, None])
+    row = torch.div(keys, L, rounding_mode="floor")
+    l = keys - row * L
+    return row, l * T + row - part_start_mode.long()[l]
+
+
 def pull_pieces(part_start_mode: torch.Tensor, T: int, out_dim: int):
-    """The pull's pieces in a fixed order: the global rows of the ``L·T``
-    Temp rows, stably sorted, and the permutation that sorts them. Each
-    output row's pieces then come in partition order. Rows past a
+    """The dense pull's pieces in a fixed order: the global rows of all
+    ``L·T`` Temp rows, stably sorted, and the permutation that sorts them.
+    Each output row's pieces then come in partition order. Rows past a
     partition's interval hold zeros; their index is clamped into range."""
     _PULL_SORTS[0] += 1
     rows = (part_start_mode.long()[:, None]
@@ -139,9 +159,10 @@ def pull_rows(temp: torch.Tensor, part_start_mode: torch.Tensor,
               out_dim: int) -> torch.Tensor:
     """Pull reduction of (L, T, R) Temp buffers into (out_dim, R) (Alg. 4
     lines 14-18): every output row adds the partitions covering it in
-    partition order, the `pull_pieces` summed in sorted order (on the CPU
-    ``index_add_`` adds in index order). `kernels.ops.pull_reduction`
-    hands the same pieces to the fix-up kernel on the card."""
+    partition order, the dense `pull_pieces` summed in sorted order (on the
+    CPU ``index_add_`` adds in index order). `kernels.ops.pull_reduction`
+    hands the fix-up kernel the same pieces, or only those the stream
+    reaches (`reach_pieces`), with the same bits."""
     L, T, R = temp.shape
     rows, order = pull_pieces(part_start_mode, T, out_dim)
     return temp.new_zeros((out_dim, R)).index_add_(

@@ -27,12 +27,16 @@ every caller shares the cached tensors (`plan.build_views` routes here).
   (`core.stream.HostStream`, in host memory) live in the same cache under
   keys tagged ``"stream"``, and count against the same bounds.
 * **Pull orders** — the recursive routes' fixed-order pull
-  (`kernels.ops.pull_reduction`) sorts the same ``L·T`` Temp rows for
-  every call on a (tensor, mode); `get_pull_order` keeps that order under
-  keys tagged ``"pull"``, which also carry the partitioning (`AltoMeta`).
-  A bucket's driver (`core.batched`) stacks its members' cached orders
-  (`stack_pull_orders`); `invalidate` drops a member's orders with its
-  views.
+  (`kernels.ops.pull_reduction`) hands the fix-up the same pieces for
+  every call on a (tensor, mode): the Temp rows each partition's own
+  nonzeros reach, sorted by row and then by partition (the reach order,
+  built from the stream's words by `get_pull_order`, kept under keys
+  tagged ``"pull"``, which also carry the partitioning, `AltoMeta`). The
+  Temp rows it leaves out hold exact zeros, so it pulls the bits of the
+  dense order of all ``L·T`` rows (`pull_order`, uncached: it reads no
+  words). A bucket's driver (`core.batched`) stacks its members' cached
+  orders (`stack_pull_orders`); `invalidate` drops a member's orders with
+  its views.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from repro_torch.core import alto, faults, heuristics
 from repro_torch.core import mttkrp as mttkrp_mod
 from repro_torch.core import stream as stream_mod
 from repro_torch.core.alto import AltoTensor, OrientedView
+from repro_torch.core.encoding import extract_mode
 from repro_torch.core.stream import HostStream
 
 DEFAULT_CACHE_SIZE = 64
@@ -79,10 +84,11 @@ def _limits() -> tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class PullOrder:
-    """The pull's pieces of one (tensor, mode): the global row of each
-    Temp row in sorted order, ``(L·T, 1)`` int32 (the fix-up's one-slot
-    layout), and the permutation of the ``L·T`` Temp rows that sorts them
-    (`core.mttkrp.pull_pieces`)."""
+    """The pull's pieces of one (tensor, mode), in sorted order: the global
+    row of each, ``(P, 1)`` int32 (the fix-up's one-slot layout), and the
+    Temp row (of the ``L·T``) that each takes; ``P`` is ``L·T`` in the
+    dense order (`core.mttkrp.pull_pieces`), the reached pairs in the
+    reach order (`core.mttkrp.reach_pieces`)."""
     rows: torch.Tensor
     order: torch.Tensor
 
@@ -216,34 +222,59 @@ def get_stream(at: AltoTensor, mode: int) -> HostStream:
 
 def pull_order(part_start_mode: torch.Tensor, temp_rows: int,
                out_dim: int) -> PullOrder:
-    """The pull order of one tensor's ``(L,)`` partition starts of a mode
-    (`core.mttkrp.pull_pieces`), uncached; of a bucket's ``(T, L)``
-    tenant by tenant, stacked."""
+    """The dense pull order of one tensor's ``(L,)`` partition starts of a
+    mode, all ``L·T`` Temp rows (`core.mttkrp.pull_pieces`), uncached; of
+    a bucket's ``(T, L)`` tenant by tenant, stacked."""
     if part_start_mode.dim() == 2:
         return stack_pull_orders([pull_order(s, temp_rows, out_dim)
                                   for s in part_start_mode])
     rows, order = mttkrp_mod.pull_pieces(part_start_mode, temp_rows, out_dim)
+    return _pull_order(rows, order)
+
+
+def _pull_order(rows: torch.Tensor, order: torch.Tensor) -> PullOrder:
     return PullOrder(rows.to(torch.int32)[:, None].contiguous(), order)
 
 
+def _padded(o: PullOrder, n: int) -> PullOrder:
+    """``o`` lengthened to ``n`` pieces by exact zeros on its last row:
+    each added piece takes the first Temp row ``o`` leaves out, which no
+    nonzero reaches (there is one: ``n`` is another member's count, at
+    most ``L·T``), and a zero added to a row's sum keeps its bits."""
+    pad = n - o.order.shape[0]
+    if pad == 0:
+        return o
+    taken = torch.sort(o.order).values
+    free = (taken == torch.arange(taken.shape[0], device=taken.device)
+            ).long().cumprod(0).sum()
+    return PullOrder(torch.cat([o.rows, o.rows[-1:].expand(pad, 1)]),
+                     torch.cat([o.order, free.expand(pad)]))
+
+
 def stack_pull_orders(orders) -> PullOrder:
-    """Tenants' pull orders along a leading tenant axis: rows ``(T, L·T,
-    1)``, order ``(T, L·T)``."""
+    """Tenants' pull orders along a leading tenant axis: rows ``(T, P,
+    1)``, order ``(T, P)``, ``P`` the longest member's count; a shorter
+    member is padded with exact zeros on its last row (`_padded`), so
+    each tenant pulls its solo bits."""
+    n = max(o.order.shape[0] for o in orders)
+    orders = [_padded(o, n) for o in orders]
     return PullOrder(torch.stack([o.rows for o in orders]),
                      torch.stack([o.order for o in orders]))
 
 
 def get_pull_order(at: AltoTensor, mode: int) -> PullOrder:
-    """The pull order of ``(at, mode)``: cached, sorted on a miss. The key
-    adds the tensor's `AltoMeta` to the mode's content key, since the
-    order follows the partition boxes and ``temp_rows``. One tensor's: a
-    bucket stacks its members' (`stack_pull_orders`)."""
+    """The reach order of ``(at, mode)`` (`core.mttkrp.reach_pieces` of
+    the mode's coordinates of all ``Mp`` words): cached, built on a miss.
+    The key adds the tensor's `AltoMeta` to the mode's content key, since
+    the order follows the partition boxes and ``temp_rows``. One tensor's:
+    a bucket stacks its members' (`stack_pull_orders`)."""
     if at.words.dim() != 2:
         raise ValueError("get_pull_order takes one tensor: stack a "
                          "bucket's member orders with stack_pull_orders")
     key = ("pull", *mode_fingerprint(at, mode), at.meta)
-    return _get_or_build(key, lambda: pull_order(
-        at.part_start[:, mode], at.meta.temp_rows[mode], at.meta.dims[mode]))
+    return _get_or_build(key, lambda: _pull_order(*mttkrp_mod.reach_pieces(
+        extract_mode(at.meta.enc, at.words, mode),
+        at.part_start[:, mode], at.meta.temp_rows[mode])))
 
 
 def build_views(at: AltoTensor, plan, route: str | None = None) -> dict:

@@ -15,7 +15,9 @@ and the length of the stream it was launched on (nonzeros, or pieces for
 the fix-up) to `ELEMENTS[name]`, where it launches its kernel; a counter
 of `COUNTERS` counts the same way what is not a kernel (K7's window
 passes: one a launch, ⌈T / window⌉ elements; K7's launches in a CTA
-wider than the plan's: one each, its threads as elements); each plain
+wider than the plan's: one each, its threads as elements; the pull
+through a caller's order: one each, the Temp rows it left out as
+elements, a bucket's padding pieces counted as pulled); each plain
 version adds one to `PLAIN_ON_CUDA[name]` when it runs on a CUDA tensor,
 so a caller can show that its main path went through the kernels and
 never through a plain version.
@@ -85,7 +87,8 @@ KERNELS = ("carry_runs", "carry_fixup", "segment_split",
            "oriented_partials", "recursive_partials", "delinearize",
            "phi_carry_runs", "phi_oriented_partials", "phi_partials",
            "carry_chunk", "phi_carry_chunk", "pi_rows")
-COUNTERS = ("phi_partials_passes", "phi_partials_wide")
+COUNTERS = ("phi_partials_passes", "phi_partials_wide",
+            "pull_pieces_skipped")
 LAUNCHES = dict.fromkeys(KERNELS + COUNTERS, 0)
 ELEMENTS = dict.fromkeys(KERNELS + COUNTERS, 0)
 PLAIN_ON_CUDA = dict.fromkeys(KERNELS, 0)

@@ -51,6 +51,7 @@ from repro_torch.core import stream as _stream
 from repro_torch.core import views as _views
 from repro_torch.core.alto import AltoTensor, OrientedView
 from repro_torch.core.encoding import AltoEncoding
+from repro_torch.kernels import _build, common
 from repro_torch.kernels import cpapr_phi as _phi
 from repro_torch.kernels import delinearize as _delin
 from repro_torch.kernels import mttkrp as _mttkrp
@@ -72,21 +73,33 @@ def pull_reduction(partials: torch.Tensor, part_start_mode: torch.Tensor,
     order: each output row adds the partitions covering it in partition
     order, so the recursive routes are bit-repeatable on the card.
 
-    The pieces are `core.mttkrp.pull_pieces` (the ``L·T`` Temp rows
-    stably sorted by global row), handed to K1's fix-up with one slot per
-    piece; it walks each row's pieces in sorted order. No float atomics.
-    ``order`` is that sort when the caller has it (`core.views.
-    get_pull_order`, cached per tensor and mode); else it is sorted here.
+    ``order`` gives the pieces, each a Temp row and its global row, sorted
+    by row and then by partition; they go to K1's fix-up with one slot
+    per piece, which walks each row's pieces in that order. No float
+    atomics. The callers pass the reach order (`core.views.
+    get_pull_order`, cached per tensor and mode): only the Temp rows that
+    the partition's own nonzeros reach. Without ``order`` it is the dense
+    order of all ``L·T`` Temp rows (`core.views.pull_order`), sorted here.
+    The rows the reach order leaves out hold exact zeros, so both give
+    the same bits; rows no piece reaches keep the zeros of the output.
+    On the card a pull through the caller's order adds one launch to the
+    counter ``pull_pieces_skipped`` and the Temp rows it left out to its
+    elements (`_build.COUNTERS`); a bucket's padding pieces count as
+    pulled.
 
     A bucket's ``(T, L, T_rows, R)`` partials with ``(T, L)`` starts pull
-    each tenant in its own order (stacked: rows ``(T, L·T_rows, 1)``,
-    order ``(T, L·T_rows)``) through the fix-up's tenant axis, each with
-    the bits of its solo pull, into ``(T, out_dim, R)``.
+    each tenant in its own order (stacked by `core.views.
+    stack_pull_orders`: rows ``(T, P, 1)``, order ``(T, P)``) through the
+    fix-up's tenant axis, each with the bits of its solo pull, into ``(T,
+    out_dim, R)``.
     """
     lead = tuple(partials.shape[:-3])
     L, T, R = partials.shape[-3:]
     if order is None:
         order = _views.pull_order(part_start_mode, T, out_dim)
+    elif common.on_cuda(partials):
+        _build.count_launch("pull_pieces_skipped",
+                            partials[..., 0].numel() - order.order.numel())
     pieces = torch.take_along_dim(partials.reshape(lead + (L * T, R)),
                                   order.order[..., None], dim=-2)
     return _oriented.carry_fixup(

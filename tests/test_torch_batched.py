@@ -739,9 +739,18 @@ def test_a_bucket_stacks_streams_only_for_recursive_modes(backend, modes):
     assert sorted(pulls) == (sorted(modes) if backend == "cuda" else [])
     for n, order in pulls.items():
         for t, at in enumerate(members):
-            solo = tviews.get_pull_order(at, n)
-            assert torch.equal(order.rows[t], solo.rows)
-            assert torch.equal(order.order[t], solo.order)
+            _assert_solo_then_padding(order, t, tviews.get_pull_order(at, n))
+
+
+def _assert_solo_then_padding(order, t, solo):
+    """Tenant ``t`` of a stacked pull order is its solo order up to the
+    solo's own length, then padding: pieces on its last row that take a
+    Temp row the solo order leaves out."""
+    n = solo.order.shape[0]
+    assert torch.equal(order.rows[t, :n], solo.rows)
+    assert torch.equal(order.order[t, :n], solo.order)
+    assert bool((order.rows[t, n:] == solo.rows[-1]).all())
+    assert not bool(torch.isin(order.order[t, n:], solo.order).any())
 
 
 @pytest.fixture(scope="module")
@@ -813,9 +822,8 @@ def test_stacked_mttkrp_and_pull_equal_per_tenant(rec_bucket):
         with pytest.raises(ValueError, match="stack_pull_orders"):
             tviews.get_pull_order(at_b, mode)
         for t, at in enumerate(ats):
-            solo = tviews.get_pull_order(at, mode)
-            assert torch.equal(order.rows[t], solo.rows)
-            assert torch.equal(order.order[t], solo.order)
+            _assert_solo_then_padding(order, t,
+                                      tviews.get_pull_order(at, mode))
         temp = tk3.recursive_partials(
             at_b.meta.enc, mode, at_b.meta.temp_rows[mode], at_b.words,
             at_b.values, at_b.part_start, facs)

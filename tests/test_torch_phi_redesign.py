@@ -168,12 +168,14 @@ def tensor():
 
 
 def test_cached_pull_order_equals_a_fresh_sort(tensor):
+    """The cached order is a fresh reach build: the distinct (row,
+    partition) pairs of the stream's coordinates of the mode."""
     at, _ = tensor
     m = at.meta
     for mode in range(3):
         got = tviews.get_pull_order(at, mode)
-        rows, order = tmttkrp.pull_pieces(at.part_start[:, mode],
-                                          m.temp_rows[mode], m.dims[mode])
+        rows, order = tmttkrp.reach_pieces(
+            at.coords()[:, mode], at.part_start[:, mode], m.temp_rows[mode])
         assert torch.equal(got.rows[:, 0].long(), rows)
         assert torch.equal(got.order, order)
         assert got.rows.dtype == torch.int32 and got.rows.is_contiguous()
@@ -210,7 +212,9 @@ def test_pull_order_follows_partitioning_and_invalidation(tensor):
     assert tviews.get_pull_order(at, 0) is order
     retiled = talto.build_device(x, n_partitions=4, device="cpu")
     other = tviews.get_pull_order(retiled, 0)
-    assert other.order.shape[0] == 4 * retiled.meta.temp_rows[0]
+    rows = retiled.coords()[:, 0].reshape(4, -1).tolist()
+    assert other.order.shape[0] == sum(len(set(r)) for r in rows)
+    assert other.order.shape[0] != order.order.shape[0]
     assert tviews.invalidate(at, modes=[0]) >= 1
     sorts = tmttkrp.pull_sorts()
     tviews.get_pull_order(at, 0)
